@@ -1,0 +1,31 @@
+"""mg_gcn_tpu_torch — the PyTorch/CUDA port of mg_gcn_tpu, for NVIDIA Hopper.
+
+Full-batch GCN training on one card, with the bit-packed dense-pattern SpMM
+pair (``ops/spmm_pattern.py``) running as hand-written CUDA kernels
+(``csrc/spmm_pattern.cu``, built with nvcc at first use). Module names
+mirror the JAX package so each counterpart is easy to find; the JAX package
+is the reference the tests hold this port against.
+
+The port imports torch, numpy and scipy only — never jax, never mg_gcn_tpu.
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; with no CUDA device they raise rather than fall back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. A CUDA request with no CUDA device
+    raises: the port never falls back to the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
