@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds) under
-``mg_gcn_tpu_torch/_build/``. A library's file name carries a hash of its
-source and flags, so a changed source is never served by a stale library,
+``mg_gcn_tpu_torch/_build/``; sources may include the ``csrc/*.cuh``
+headers. A library's file name carries a hash of its source, the headers
+and the flags, so a changed source is never served by a stale library,
 and it is written under a temporary name and renamed into place, so two
 processes building at once never load a half-written file.
 :func:`build_all` starts one ``nvcc`` per missing library and waits for all.
@@ -22,7 +23,11 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = {"spmm_pattern": "spmm_pattern.cu"}
+SOURCES = {
+    "spmm_pattern": "spmm_pattern.cu",
+    "spmm_edges": "spmm_edges.cu",
+    "spmm_gather": "spmm_gather.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,9 +50,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    """The library's path, hashed over its source, every ``csrc/*.cuh``
+    header (a source may include any of them) and the flags."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_all() -> dict[str, tuple[float, str]]:

@@ -1,0 +1,53 @@
+// Weighted-CSR SpMM for NVIDIA Hopper (sm_90a): the edge engine.
+//
+// Replaces the two TPU kernels of mg_gcn_tpu/ops/spmm_edges.py:
+//   mggcn_edge     <-  _edge_kernel    (spmm_edges.py:550):
+//       C[r, :] = sum_e f32(w_e) * f32(B[c_e, :]), float32 sums, C float32;
+//       w and B both float32 or both bfloat16
+//   mggcn_edge_i8  <-  _edge_kernel_i8 (spmm_edges.py:604):
+//       acc[r, :] = sum_e wq_e * bq[c_e, :], int32 sums (exact), acc int32
+// Both run the row walk of csr_walk.cuh (walk_kernel<T, T, true, NV>). The
+// matrix is row-sorted CSR (indptr int64, indices int32, one weight per
+// entry, duplicates merged at build). The TPU kernels' slot chunks, one-hot
+// MXU selects, step schedule and D_MAX_E chunking routed a gather through
+// the MXU and fit SMEM/VMEM; here a gather is an ordinary load, so each
+// entry's B row is read directly.
+//
+// What bounds them on an H100 SXM (3.35 TB/s): the bytes each input is read
+// once and the output written once. At the weighted-Reddit shape (n =
+// 232,968, nnz = 114,964,049, d = 128, bf16) that is 0.46 GB of indices,
+// 0.23 GB of weights, 60 MB of B and 119 MB of C, >= 0.26 ms; the 2*nnz*d
+// operations are far below any peak. A row walk reads B once per ENTRY, not
+// once: nnz * d * 2 bytes = 29 GB at d = 128, which only the 50 MB L2 can
+// turn into less device-memory traffic. The walk keeps kUnroll B rows in
+// flight per lane and writes each output row once, deterministically.
+
+#include "csr_walk.cuh"
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (w and B alike); C is float32. Returns
+// a cudaError_t; 0 means the launch was accepted.
+int mggcn_edge(const void* indptr, const void* indices, const void* w, const void* b, void* c,
+               long long n_out, int d_pad, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return csr::launch<float, float, true>(indptr, indices, w, b, c, n_out, d_pad, s);
+    case 1:
+      return csr::launch<__nv_bfloat16, __nv_bfloat16, true>(indptr, indices, w, b, c, n_out, d_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// int8 weights and B; C is int32.
+int mggcn_edge_i8(const void* indptr, const void* indices, const void* wq, const void* bq,
+                  void* c, long long n_out, int d_pad, void* stream) {
+  return csr::launch<int8_t, int8_t, true>(indptr, indices, wq, bq, c, n_out, d_pad,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+const char* mggcn_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

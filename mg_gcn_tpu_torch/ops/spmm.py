@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from ..formats import CSRData
+from .spmm_edges import EdgeTileMat, spmm_edge_tiles
+from .spmm_gather import GatherMat, spmm_gather
 from .spmm_pattern import PatternMat, round_up, spmm_pattern
 
 # cap on the gathered (edges, d) block of one COO chunk
@@ -79,10 +81,15 @@ def _spmm_coo(mat: COOMat, B: torch.Tensor) -> torch.Tensor:
 
 
 def spmm(mat, B: torch.Tensor) -> torch.Tensor:
-    """``C = mat @ B`` for a device-resident :class:`COOMat` or
-    :class:`~.spmm_pattern.PatternMat`."""
+    """``C = mat @ B`` for a device-resident :class:`COOMat`,
+    :class:`~.spmm_pattern.PatternMat`, :class:`~.spmm_edges.EdgeTileMat`
+    or :class:`~.spmm_gather.GatherMat`."""
     if isinstance(mat, PatternMat):
         return spmm_pattern(mat, B)
+    if isinstance(mat, EdgeTileMat):
+        return spmm_edge_tiles(mat, B)
+    if isinstance(mat, GatherMat):
+        return spmm_gather(mat, B)
     if isinstance(mat, COOMat):
         return _spmm_coo(mat, B)
     raise TypeError(f"no SpMM engine for {type(mat).__name__}")

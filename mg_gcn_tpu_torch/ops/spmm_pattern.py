@@ -54,16 +54,6 @@ def is_binary(csr: CSRData) -> bool:
     return bool(np.all(csr.data == 1.0))
 
 
-def pattern_feasible(csr: CSRData, device: torch.device) -> bool:
-    """True when impl="auto" takes the pattern pair: a CUDA device, a binary
-    adjacency, and n_pad²/8 within PATTERN_MEM_FRACTION of the card's memory."""
-    if device.type != "cuda" or not is_binary(csr):
-        return False
-    n_pad = round_up(csr.nrows, N_ALIGN)
-    budget = PATTERN_MEM_FRACTION * torch.cuda.get_device_properties(device).total_memory
-    return n_pad * n_pad / 8 <= budget
-
-
 def pack_csr_bits(csr: CSRData, n_pad: int) -> np.ndarray:
     """Pack the CSR pattern into the strided uint32 layout on the host:
     P[i, j] -> bit (j%4096)//128 of word pack[i, (j//4096)*128 + j%128]."""
@@ -174,11 +164,11 @@ def decode_pattern(pack: torch.Tensor, r0: int, r1: int) -> tuple[torch.Tensor, 
     return ri[e] + r0, (wi // 128) * GROUP + bit * 128 + wi % 128
 
 
-def _plain(pack: torch.Tensor, b: torch.Tensor, transpose: bool) -> torch.Tensor:
+def _plain(pack: torch.Tensor, b: torch.Tensor, transpose: bool, acc_dtype: torch.dtype | None) -> torch.Tensor:
     n_pad, d_pad = b.shape
     exact = b.dtype == torch.int8
     # int8 sums go through float64, where they stay exact; the result is int32
-    src = b.to(torch.float64 if exact else torch.float32)
+    src = b.to(torch.float64 if exact else acc_dtype or torch.float32)
     out = torch.zeros((n_pad, d_pad), dtype=src.dtype, device=b.device)
     rows_per = max(1, _PLAIN_WORDS_CAP // pack.shape[1])
     for r0 in range(0, n_pad, rows_per):
@@ -190,15 +180,17 @@ def _plain(pack: torch.Tensor, b: torch.Tensor, transpose: bool) -> torch.Tensor
     return out.to(torch.int32) if exact else out
 
 
-def pattern_fwd_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def pattern_fwd_plain(pack: torch.Tensor, b: torch.Tensor, acc_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of :func:`pattern_fwd`: decode the set bits and
-    ``index_add_`` the rows of B into C = Pᵀ B."""
-    return _plain(pack, b, transpose=True)
+    ``index_add_`` the rows of B into C = Pᵀ B. Float operands sum in
+    float32, or in ``acc_dtype`` (float64 gives a reference whose sum order
+    does not matter)."""
+    return _plain(pack, b, True, acc_dtype)
 
 
-def pattern_bwd_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def pattern_bwd_plain(pack: torch.Tensor, b: torch.Tensor, acc_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of :func:`pattern_bwd`: C = P B."""
-    return _plain(pack, b, transpose=False)
+    return _plain(pack, b, False, acc_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -21,18 +21,57 @@ from . import resolve_device, sparse
 from .formats import CSRData, Dataset
 from .models.gcn import GCNConfig, init_params, loss_and_grad
 from .nn import adam
-from .ops import spmm_pattern
+from .ops import spmm_edges, spmm_gather, spmm_pattern
 from .ops.spmm import AggPair, COOMat
 from .timers import TimerRegistry
 
 # engines of the JAX package that later slices port, by ROADMAP item
 LATER_IMPLS = {
     "block": "ROADMAP queue 2 item 3 (block-sparse pattern kernels)",
-    "edge": "ROADMAP queue 2 items 4-5 (edge-tile kernels)",
-    "gather": "ROADMAP queue 2 item 6 (serial-gather kernel)",
     "pallas": "ROADMAP queue 2 item 10 (tiled-ELL kernel)",
     "halo": "ROADMAP queue 1 item 9 (distributed training)",
 }
+IMPLS = ("auto", "pattern", "edge", "gather", "xla")
+# expected edge-tile slot fill at and above which the edge engine is taken
+# over the gather engine (the JAX package's crossover, train.py:65-75)
+EDGE_FILL_MIN = 0.3
+ENGINE_OF = {
+    spmm_pattern.PatternMat: "pattern",
+    spmm_edges.EdgeTileMat: "edge",
+    spmm_gather.GatherMat: "gather",
+    COOMat: "xla",
+}
+
+
+def _edge_or_gather(graph: CSRData) -> str:
+    """The O(nnz) engine for ``graph``: "edge" when the expected edge-tile
+    slot fill is at least EDGE_FILL_MIN, else "gather".
+
+    The JAX package also asks ``_gather_feasible`` (the TPU's SMEM step
+    budget) and takes "edge" where a gather schedule would not fit. The card
+    has no such budget, so for a graph the TPU finds infeasible the two
+    packages pick different engines (ROADMAP queue 3)."""
+    fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
+    return "edge" if fill >= EDGE_FILL_MIN else "gather"
+
+
+def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = False) -> tuple[str, str]:
+    """(engine, reason) that impl="auto" picks for ``graph`` on a card of
+    ``card_bytes`` memory, or on the CPU for ``card_bytes=None``: the pattern
+    pair for a raw binary adjacency whose n_pad²/8 pack fits
+    PATTERN_MEM_FRACTION of the card, else :func:`_edge_or_gather`; on the
+    CPU the COO engine, as in the JAX package (train.py:186-187)."""
+    if card_bytes is None:
+        return "xla", "no card"
+    n_pad = spmm_pattern.round_up(graph.nrows, spmm_pattern.N_ALIGN)
+    pack_gb, budget_gb = n_pad * n_pad / 8 / 1e9, spmm_pattern.PATTERN_MEM_FRACTION * card_bytes / 1e9
+    binary = not pre_normalized and spmm_pattern.is_binary(graph)
+    if binary and pack_gb <= budget_gb:
+        return "pattern", f"binary adjacency, bit pack {pack_gb:.2f} GB within {budget_gb:.1f} GB"
+    why = f"bit pack {pack_gb:.1f} GB over {budget_gb:.1f} GB" if binary else "weighted adjacency"
+    fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
+    impl = _edge_or_gather(graph)
+    return impl, f"{why}, expected edge-tile fill {fill:.3f} {'>=' if impl == 'edge' else '<'} {EDGE_FILL_MIN}"
 
 
 def build_agg_pair(
@@ -40,40 +79,53 @@ def build_agg_pair(
     impl: str = "auto",
     pattern_dtype: str = "bfloat16",
     device: str | torch.device = "cuda",
+    pre_normalized: bool = False,
 ) -> AggPair:
     """Host preprocessing -> the device-resident (Âᵀ, Â) aggregation pair
     (gcn ctor, gcn.hpp:946-954: column-normalize A by in-degree, transpose;
-    forward multiplies by Âᵀ, backward by Â).
+    forward multiplies by Âᵀ, backward by Â). ``pre_normalized`` takes
+    ``graph`` as Â already.
 
     impl:
-      "auto"    — on CUDA, a binary adjacency whose n_pad²/8 pack fits the
-                  card's budget takes "pattern", a weighted one or one too
-                  large "xla"; one stderr line names the engine. On the
-                  CPU: "xla".
-      "pattern" — the bit-packed dense-pattern kernel pair.
+      "auto"    — :func:`auto_engine`; on CUDA one stderr line names the
+                  engine and the reason.
+      "pattern" — the bit-packed dense-pattern kernel pair (raw binary
+                  adjacency only).
+      "edge"    — the weighted-CSR edge kernels, in ``pattern_dtype``
+                  (bfloat16, float32 or int8).
+      "gather"  — the serial-gather kernel, float32: a raw binary adjacency
+                  takes the w-less pair with diagonal scales
+                  (spmm_gather.gather_pair_from_binary_csr).
       "xla"     — the COO engine (index_select + index_add_).
+    A build that cannot run raises; nothing falls back to another engine.
     """
     dev = resolve_device(device)
     if impl in LATER_IMPLS:
         raise NotImplementedError(f"impl {impl!r} is not ported yet: {LATER_IMPLS[impl]}")
-    if impl not in ("auto", "pattern", "xla"):
-        raise ValueError(f"unknown aggregation impl {impl!r} (expected auto/pattern/xla)")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown aggregation impl {impl!r} (expected {'/'.join(IMPLS)})")
     if impl == "auto":
-        if dev.type == "cuda":
-            if spmm_pattern.pattern_feasible(graph, dev):
-                impl = "pattern"
-                why = "binary adjacency, bit pack fits the card"
-            else:
-                impl = "xla"
-                why = "weighted adjacency, or bit pack over the card's budget"
+        card = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
+        impl, why = auto_engine(graph, card, pre_normalized)
+        if card is not None:
             print(f"aggregation engine: {impl} (auto: {why})", file=sys.stderr)
-        else:
-            impl = "xla"
     if impl == "pattern":
+        if pre_normalized:
+            raise ValueError("the pattern pair needs the raw binary adjacency")
         fwd, bwd = spmm_pattern.pattern_pair_from_binary_csr(graph, dtype=pattern_dtype, device=dev)
         return AggPair(fwd=fwd, bwd=bwd)
-    a = sparse.normalize(graph, axis=True)
-    return AggPair(fwd=COOMat.from_csr(sparse.transpose(a), device=dev), bwd=COOMat.from_csr(a, device=dev))
+    if impl == "gather" and not pre_normalized and bool((graph.data == 1).all()):
+        fwd, bwd = spmm_gather.gather_pair_from_binary_csr(graph, device=dev)
+        return AggPair(fwd=fwd, bwd=bwd)
+    a = graph if pre_normalized else sparse.normalize(graph, axis=True)
+    a_t = sparse.transpose(a)
+    if impl == "gather":
+        fwd, bwd = spmm_gather.gather_pair_from_csr_pair(a_t, a, device=dev)
+    elif impl == "edge":
+        fwd, bwd = spmm_edges.edge_pair_from_csr_pair(a_t, a, dtype=pattern_dtype, device=dev)
+    else:
+        fwd, bwd = COOMat.from_csr(a_t, device=dev), COOMat.from_csr(a, device=dev)
+    return AggPair(fwd=fwd, bwd=bwd)
 
 
 def make_train_step(
@@ -106,7 +158,7 @@ class TrainResult:
     epoch_seconds: list = field(default_factory=list)
     params: Any = None
     opt_state: Any = None
-    engine: str = ""  # the aggregation engine the run used
+    engine: str = ""  # the aggregation engine the run used: a value of ENGINE_OF
 
 
 def train(
@@ -148,9 +200,7 @@ def train(
         opt_state = adam.adam_init(params)
     step = make_train_step(config, hparams)
 
-    result = TrainResult(
-        engine="pattern" if isinstance(pair.fwd, spmm_pattern.PatternMat) else "xla"
-    )
+    result = TrainResult(engine=ENGINE_OF[type(pair.fwd)])
     for e in range(epochs):
         t0 = time.perf_counter()
         params, opt_state, loss, acc = step(params, opt_state, pair, x, y, mask)

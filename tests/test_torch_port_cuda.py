@@ -14,8 +14,10 @@ import torch
 
 from mg_gcn_tpu_torch import sparse
 from mg_gcn_tpu_torch.formats import CSRData, Dataset
+from mg_gcn_tpu_torch.ops import spmm_edges as se
+from mg_gcn_tpu_torch.ops import spmm_gather as sg
 from mg_gcn_tpu_torch.ops import spmm_pattern as sp
-from mg_gcn_tpu_torch.train import train
+from mg_gcn_tpu_torch.train import build_agg_pair, train
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden")
 pytestmark = pytest.mark.cuda
@@ -38,6 +40,16 @@ def _operand(n_pad, d_pad, dtype, seed):
     if dtype == torch.int8:
         return torch.randint(-127, 128, (n_pad, d_pad), device="cuda", generator=gen).to(torch.int8)
     return torch.randn((n_pad, d_pad), device="cuda", generator=gen).to(dtype)
+
+
+def _assert_within_sum_error(got, exact, mag, deg):
+    """|float32 kernel - exact| <= 4 sqrt(deg + 2) u sum|terms| (u = 2^-24),
+    element by element: ``exact`` and ``mag`` (the sum of |terms|) are
+    float64 sums of the same rounded terms. The rounding errors of a
+    float32 sum of deg terms in any order grow as sqrt(deg), not deg, so
+    the bound stays tight on long rows: at 4,096 terms of unit scale it is
+    about 0.05 of one term, and a dropped or doubled term fails it."""
+    assert bool(((got.double() - exact).abs() <= 4.0 * (deg + 2).sqrt() * 2.0**-24 * mag).all())
 
 
 def _assert_matches_plain(got, want, dtype):
@@ -76,10 +88,19 @@ def test_kernels_decode_bit31_and_dense_rows():
     g = CSRData(indptr, np.concatenate(cols).astype(np.int32), np.ones(indptr[-1], np.float32), (n, n))
     pack = sp.pack_bits_on_device(g, n, torch.device("cuda"))
     assert torch.equal(pack.cpu(), torch.from_numpy(sp.pack_csr_bits(g, n).view(np.int32)))
-    for dtype in (torch.float32, torch.int8):
-        b = _operand(n, 16, dtype, seed=1)
-        _assert_matches_plain(sp.pattern_fwd(pack, b), sp.pattern_fwd_plain(pack, b), dtype)
-        _assert_matches_plain(sp.pattern_bwd(pack, b), sp.pattern_bwd_plain(pack, b), dtype)
+    b = _operand(n, 16, torch.int8, seed=1)
+    _assert_matches_plain(sp.pattern_fwd(pack, b), sp.pattern_fwd_plain(pack, b), torch.int8)
+    _assert_matches_plain(sp.pattern_bwd(pack, b), sp.pattern_bwd_plain(pack, b), torch.int8)
+    # a dense row sums 4,096 terms: hold float32 against float64 sums of the
+    # same terms (the float32 plain version's CUDA index_add_ sums in an
+    # order that changes from run to run)
+    b = _operand(n, 16, torch.float32, seed=1)
+    rows, cols = sp.decode_pattern(pack, 0, n)
+    for got, dst, src in ((sp.pattern_fwd(pack, b), cols, rows), (sp.pattern_bwd(pack, b), rows, cols)):
+        zero = torch.zeros((n, 16), dtype=torch.float64, device="cuda")
+        exact = zero.clone().index_add_(0, dst, b.double().index_select(0, src))
+        mag = zero.index_add_(0, dst, b.double().abs().index_select(0, src))
+        _assert_within_sum_error(got, exact, mag, torch.bincount(dst, minlength=n).double()[:, None])
 
 
 def test_wrappers_reject_bad_operands(graph):
@@ -116,3 +137,132 @@ def test_train_on_card_matches_cpu():
     cpu = train(ds, [16, 16], epochs=5, impl="pattern", pattern_dtype="float32", device="cpu", log=False)
     assert gpu.engine == "pattern"
     np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CSR kernels of the edge and gather engines
+
+
+@pytest.fixture(scope="module")
+def hub_graph():
+    """random_graph(5000, 16) with uniform weights, a hub row (7) of degree
+    5,000 and empty rows 100..199."""
+    g = sparse.random_graph(5000, 16, seed=4, weights="uniform")
+    rows = [g.indices[g.indptr[r] : g.indptr[r + 1]] for r in range(g.nrows)]
+    rows[7] = np.arange(5000, dtype=np.int32)
+    for r in range(100, 200):
+        rows[r] = rows[r][:0]
+    indptr = np.r_[0, np.cumsum([len(c) for c in rows])].astype(np.int64)
+    data = np.random.default_rng(1).random(indptr[-1], np.float32) + 0.5
+    return CSRData(indptr, np.concatenate(rows).astype(np.int32), data, g.shape)
+
+
+def _csr_on_card(g):
+    return torch.from_numpy(g.indptr).cuda(), torch.from_numpy(g.indices).cuda()
+
+
+def _assert_within_sum_bound(got, indptr, indices, w, b):
+    """The kernel within :func:`_assert_within_sum_error` of the plain
+    version run in float64 on the same rounded inputs; empty rows exactly
+    zero."""
+    exact = se.csr_plain(indptr, indices, w, b, torch.float64)
+    mag = se.csr_plain(indptr, indices, None if w is None else w.abs(), b.abs(), torch.float64)
+    _assert_within_sum_error(got, exact, mag, indptr.diff().to(torch.float64)[:, None])
+    assert not bool(got[100:200].any())
+
+
+@pytest.mark.parametrize("d_pad", [8, 48, 128, 256, 264])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_edge_kernels_match_plain(hub_graph, dtype, d_pad):
+    indptr, indices = _csr_on_card(hub_graph)
+    b = _operand(hub_graph.ncols, d_pad, dtype, seed=d_pad)
+    if dtype == torch.int8:
+        w = torch.from_numpy(np.random.default_rng(2).integers(-127, 128, hub_graph.nnz).astype(np.int8)).cuda()
+        kernel, key = se.edge_i8, ("int8", d_pad)
+    else:
+        w = torch.from_numpy(hub_graph.data).cuda().to(dtype)
+        kernel, key = se.edge, (str(dtype).removeprefix("torch."), d_pad)
+    before = kernel.launches[key]
+    got = kernel(indptr, indices, w, b)
+    torch.cuda.synchronize()
+    assert kernel.launches[key] == before + 1
+    if dtype == torch.int8:
+        assert got.dtype == torch.int32
+        assert torch.equal(got, se.edge_i8_plain(indptr, indices, w, b))
+    else:
+        assert got.dtype == torch.float32
+        _assert_within_sum_bound(got, indptr, indices, w, b)
+
+
+@pytest.mark.parametrize("d_pad", [8, 48, 104, 256, 264])
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_gather_kernel_matches_plain(hub_graph, weighted, b_dtype, d_pad):
+    indptr, indices = _csr_on_card(hub_graph)
+    w = torch.from_numpy(hub_graph.data).cuda() if weighted else None
+    b = _operand(hub_graph.ncols, d_pad, b_dtype, seed=d_pad)
+    key = (str(b_dtype).removeprefix("torch."), d_pad)
+    before = sg.gather.launches[key]
+    got = sg.gather(indptr, indices, w, b)
+    torch.cuda.synchronize()
+    assert sg.gather.launches[key] == before + 1
+    _assert_within_sum_bound(got, indptr, indices, w, b)
+
+
+def test_csr_kernels_write_zeros_for_an_empty_matrix():
+    indptr = torch.zeros(301, dtype=torch.int64, device="cuda")
+    indices = torch.zeros(0, dtype=torch.int32, device="cuda")
+    b = _operand(200, 16, torch.float32, seed=0)
+    for got in (
+        se.edge(indptr, indices, torch.zeros(0, device="cuda"), b),
+        se.edge_i8(indptr, indices, torch.zeros(0, dtype=torch.int8, device="cuda"), b.to(torch.int8)),
+        sg.gather(indptr, indices, None, b),
+    ):
+        torch.cuda.synchronize()
+        assert got.shape == (300, 16) and not bool(got.any())
+
+
+def test_csr_wrappers_reject_bad_operands(hub_graph):
+    indptr, indices = _csr_on_card(hub_graph)
+    w = torch.from_numpy(hub_graph.data).cuda()
+    b = torch.zeros((hub_graph.ncols, 16), device="cuda")
+    with pytest.raises(ValueError, match="d_pad % 8"):
+        se.edge(indptr, indices, w, torch.zeros((hub_graph.ncols, 12), device="cuda"))
+    with pytest.raises(ValueError, match="compute dtype"):
+        se.edge(indptr, indices, w.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="int64"):
+        sg.gather(indptr.int(), indices, w, b)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sg.gather(indptr.cpu(), indices, w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.gather(indptr, indices, None, torch.zeros((16, hub_graph.ncols), device="cuda").T)
+
+
+@pytest.mark.parametrize("engine", ["float32", "bfloat16", "int8", "gather", "gather-stream"])
+def test_spmm_on_card_matches_cpu(hub_graph, engine):
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal((hub_graph.ncols, 41)).astype(np.float32))
+    if engine.startswith("gather"):
+        kw = dict(stream_bf16=engine.endswith("stream"))
+        got = sg.spmm_gather(sg.gather_mat_from_csr(hub_graph, device="cuda", **kw), b.cuda()).cpu()
+        want = sg.spmm_gather(sg.gather_mat_from_csr(hub_graph, device="cpu", **kw), b)
+    else:
+        got = se.spmm_edge_tiles(se.edge_tile_mat_from_csr(hub_graph, dtype=engine, device="cuda"), b.cuda()).cpu()
+        want = se.spmm_edge_tiles(se.edge_tile_mat_from_csr(hub_graph, dtype=engine, device="cpu"), b)
+    if engine == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("impl", ["edge", "gather"])
+def test_train_on_card_matches_cpu_o_nnz_engines(impl):
+    ds = Dataset.load(GOLDEN)
+    gpu = train(ds, [16, 16], epochs=5, impl=impl, pattern_dtype="float32", device="cuda", log=False)
+    cpu = train(ds, [16, 16], epochs=5, impl=impl, pattern_dtype="float32", device="cpu", log=False)
+    assert gpu.engine == cpu.engine == impl
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-5)
+
+
+def test_auto_picks_edge_for_a_weighted_graph():
+    g = sparse.random_graph(3000, 20, seed=1, weights="uniform")
+    assert isinstance(build_agg_pair(g, impl="auto", device="cuda").fwd, se.EdgeTileMat)

@@ -160,6 +160,7 @@ def test_port_import_loads_no_jax():
         "import sys\n"
         "import mg_gcn_tpu_torch.cli, mg_gcn_tpu_torch.train, mg_gcn_tpu_torch.convert\n"
         "import mg_gcn_tpu_torch.checkpoint, mg_gcn_tpu_torch.ops.spmm\n"
+        "import mg_gcn_tpu_torch.ops.spmm_edges, mg_gcn_tpu_torch.ops.spmm_gather\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mg_gcn_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -7,16 +7,24 @@ import numpy as np
 import pytest
 import torch
 
+from types import SimpleNamespace
+
+import jax
 import jax.numpy as jnp
 
 from mg_gcn_tpu import train as jtrain
 from mg_gcn_tpu.cli import _csv_name as jax_csv_name
+from mg_gcn_tpu.formats import CSRData as JCSRData
 from mg_gcn_tpu.formats import Dataset as JDataset
+from mg_gcn_tpu.models import gcn as jgcn
 from mg_gcn_tpu.ops import spmm_pattern as jsp
 from mg_gcn_tpu_torch import cli, convert, sparse
 from mg_gcn_tpu_torch import train as ttrain
-from mg_gcn_tpu_torch.formats import Dataset
+from mg_gcn_tpu_torch.formats import CSRData, Dataset
+from mg_gcn_tpu_torch.models import gcn as tgcn
 from mg_gcn_tpu_torch.ops.spmm import COOMat
+from mg_gcn_tpu_torch.ops.spmm_edges import EdgeTileMat
+from mg_gcn_tpu_torch.ops.spmm_gather import GatherMat
 from mg_gcn_tpu_torch.ops.spmm_pattern import PatternMat
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden")
@@ -52,6 +60,120 @@ def test_train_trajectory_matches_jax():
     np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
     assert np.max(np.abs(np.array(got.accs) - np.array(want.accs))) <= 1 / 256
     assert got.losses[-1] < got.losses[0]
+
+
+@pytest.mark.parametrize("impl", ["edge", "gather"])
+def test_train_trajectory_on_o_nnz_engines_matches_jax(impl):
+    """20 epochs of the port on the edge engine (float32) and the gather
+    engine (binary pair) against the JAX package's COO engine."""
+    ds, jds = Dataset.load(GOLDEN), JDataset.load(GOLDEN)
+    got = ttrain.train(ds, [16, 16], epochs=20, impl=impl, pattern_dtype="float32", device="cpu", log=False)
+    want = jtrain.train(jds, [16, 16], epochs=20, impl="xla", log=False)
+    assert got.engine == impl
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
+    assert np.max(np.abs(np.array(got.accs) - np.array(want.accs))) <= 1 / 256
+
+
+def _assert_params_close(got, want):
+    for layer, jlayer in zip(convert.params_to_numpy(got), want):
+        for k in jlayer:
+            np.testing.assert_allclose(layer[k], np.asarray(jlayer[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("impl", ["edge", "gather"])
+def test_one_step_matches_jax_engine(impl):
+    """One step against the JAX package's own edge / gather kernels (Pallas
+    interpret mode off the TPU), from the same parameters, in float32."""
+    ds, jds = Dataset.load(GOLDEN), JDataset.load(GOLDEN)
+    want = jtrain.train(jds, [16], epochs=1, impl=impl, pattern_dtype="float32", log=False)
+    got = ttrain.train(ds, [16], epochs=1, impl=impl, pattern_dtype="float32", device="cpu", log=False)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    assert got.accs == want.accs
+    _assert_params_close(got.params, want.params)
+
+
+@pytest.mark.parametrize("impl", ["edge", "gather"])
+def test_weighted_golden_loss_and_grad_matches_jax(impl):
+    """The golden graph with numpy edge weights through ``build_agg_pair``
+    and ``loss_and_grad`` in both packages (float32 weights)."""
+    ds, jds = Dataset.load(GOLDEN), JDataset.load(GOLDEN)
+    g = ds.graph
+    w = np.random.default_rng(5).random(g.nnz, np.float32) + 0.5
+    sizes = (ds.num_features, 16, ds.num_labels)
+    jparams = jgcn.init_params(jgcn.GCNConfig(sizes=sizes), jax.random.key(2))
+    jpair = jtrain.build_agg_pair(JCSRData(g.indptr, g.indices, w, g.shape), impl=impl, pattern_dtype="float32")
+    x, y = jds.features, jds.labels.reshape(-1)
+    jl, ja, jg = jgcn.loss_and_grad(jparams, jpair, jnp.asarray(x), jnp.asarray(y), jgcn.GCNConfig(sizes=sizes))
+
+    pair = ttrain.build_agg_pair(CSRData(g.indptr, g.indices, w, g.shape), impl=impl, pattern_dtype="float32",
+                                 device="cpu")
+    assert type(pair.fwd) is (EdgeTileMat if impl == "edge" else GatherMat)
+    params = convert.params_from_numpy([{k: np.asarray(v) for k, v in p.items()} for p in jparams], "cpu")
+    loss, acc, grads = tgcn.loss_and_grad(
+        params, pair, torch.from_numpy(x), torch.from_numpy(y.astype(np.int64)), tgcn.GCNConfig(sizes=sizes)
+    )
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    assert float(acc) == float(ja)
+    for gl, jgl in zip(grads, jg):
+        for k in jgl:
+            want = np.asarray(jgl[k])
+            np.testing.assert_allclose(gl[k].numpy().reshape(want.shape), want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max(), err_msg=k)
+
+
+@pytest.mark.parametrize(
+    "n,nnz",
+    [
+        (232_968, 114_964_049),  # Reddit: edge
+        (2_449_029, 124_900_000),  # ogbn-products scale: gather
+        (1_000, 5_000),
+        (20_000, 1_300_000),
+        (100_000, 100_000),
+        (3_000_000, 3_000_000),
+    ],
+)
+def test_edge_or_gather_matches_jax(n, nnz):
+    g = SimpleNamespace(nrows=n, ncols=n, nnz=nnz)
+    assert ttrain._edge_or_gather(g) == jtrain._edge_or_gather(g)
+
+
+def test_edge_or_gather_differs_where_the_tpu_gather_schedule_is_infeasible():
+    """The JAX package takes "edge" when the gather schedule would exceed the
+    TPU's SMEM step budget; the card has none, so the port keeps "gather"."""
+    g = SimpleNamespace(nrows=20_000_000, ncols=20_000_000, nnz=100_000_000)
+    assert not jtrain._gather_feasible(g.nrows, g.ncols, g.nnz)
+    assert (ttrain._edge_or_gather(g), jtrain._edge_or_gather(g)) == ("gather", "edge")
+
+
+GB = 10**9
+
+
+@pytest.mark.parametrize(
+    "n,nnz,binary,card,want",
+    [
+        (232_968, 114_964_049, True, 80 * GB, "pattern"),  # Reddit, pack 6.8 GB
+        (232_968, 114_964_049, False, 80 * GB, "edge"),  # weighted Reddit
+        (232_968, 114_964_049, True, 10 * GB, "edge"),  # pack over half of 10 GB
+        (2_449_029, 124_900_000, True, 80 * GB, "gather"),  # products: pack 750 GB
+        (2_449_029, 124_900_000, False, 80 * GB, "gather"),
+        (2_449_029, 124_900_000, True, 2000 * GB, "pattern"),
+        (232_968, 114_964_049, True, None, "xla"),  # the CPU
+    ],
+)
+def test_auto_engine_is_a_function_of_card_memory(n, nnz, binary, card, want):
+    g = SimpleNamespace(nrows=n, ncols=n, nnz=nnz, data=np.ones(3, np.float32) * (1.0 if binary else 0.5))
+    impl, why = ttrain.auto_engine(g, card)
+    assert impl == want
+    if want in ("edge", "gather"):
+        assert "expected edge-tile fill" in why
+
+
+def test_auto_engine_pre_normalized_skips_pattern():
+    g = sparse.random_graph(300, 4, seed=1)
+    assert ttrain.auto_engine(g, 80 * GB)[0] == "pattern"
+    assert ttrain.auto_engine(g, 80 * GB, pre_normalized=True)[0] == "edge"
+    with pytest.raises(ValueError, match="raw binary"):
+        ttrain.build_agg_pair(g, impl="pattern", device="cpu", pre_normalized=True)
 
 
 def test_one_step_matches_jax_pattern_interpret(interpret):
@@ -91,6 +213,10 @@ def test_auto_engine_choice():
     w = sparse.random_graph(300, 4, seed=1, weights="random")
     with pytest.raises(ValueError, match="binary"):
         ttrain.build_agg_pair(w, impl="pattern", device="cpu")
+    assert isinstance(ttrain.build_agg_pair(w, impl="edge", device="cpu").fwd, EdgeTileMat)
+    gather = ttrain.build_agg_pair(g, impl="gather", device="cpu")
+    assert isinstance(gather.fwd, GatherMat) and not gather.fwd.has_w  # the binary pair
+    assert ttrain.build_agg_pair(w, impl="gather", device="cpu").fwd.has_w
 
 
 @pytest.mark.parametrize("impl", sorted(ttrain.LATER_IMPLS))
@@ -149,6 +275,23 @@ def test_cli_train_stderr_and_csv(tmp_path, capsys):
     assert keys == ["0_preprocess", "0_0_epoch", "1_0_epoch", "2_0_epoch"]
 
 
+@pytest.mark.parametrize("impl", ["edge", "gather"])
+def test_cli_train_on_o_nnz_engines(tmp_path, capsys, impl):
+    rc = cli.main(["-E", "3", "--device", "cpu", "--impl", impl, "--pattern-dtype", "float32",
+                   "--csv-dir", str(tmp_path), "train", GOLDEN, "1", "16"])
+    assert rc == 0
+    ds = Dataset.load(GOLDEN)
+    lines = capsys.readouterr().err.splitlines()
+    assert lines[:3] == [f"{ds.num_nodes} {ds.graph.nnz}", f"num_labels = {ds.num_labels}",
+                         f"feature size = {ds.num_features}"]
+    epochs = [line.split() for line in lines[3:]]
+    want = jtrain.train(JDataset.load(GOLDEN), [16], epochs=3, impl="xla", log=False)
+    assert [int(e[0]) for e in epochs] == [0, 1, 2]
+    for e, loss in zip(epochs, want.losses):
+        assert len(e) == 4
+        np.testing.assert_allclose(float(e[1]), loss, rtol=1e-4)
+
+
 def test_cli_save_load_resumes(tmp_path, capsys):
     ck = str(tmp_path / "ck.npz")
     base = ["--device", "cpu", "--csv-dir", str(tmp_path)]
@@ -173,7 +316,7 @@ def test_cli_save_load_resumes(tmp_path, capsys):
         ["--exchange", "ring", "train"],
         ["--time-phases", "train"],
         ["--profile", "prof", "train"],
-        ["--impl", "edge", "train"],
+        ["--impl", "block", "train"],
         ["infer"],
         ["pagerank"],
     ],
