@@ -13,11 +13,14 @@ the result line:
    {bfloat16, float32, int8} x d in {41, 128}; ``edge`` in {bfloat16,
    float32} and ``edge_i8`` x d in {41, 128, 256} on a weighted graph;
    ``gather`` {weighted, binary, binary + bfloat16 stream} x d in
-   {48, 100, 256} at average degree 50 — each against its plain PyTorch
+   {48, 100, 256} at average degree 50; ``sddmm`` {bfloat16, float32,
+   int8} x d in {2, 41, 64, 128}, ``sddmm_qskip`` on the same graph with 90% of
+   its rows emptied (bitwise equal to ``sddmm``) and ``edge_t`` {bfloat16,
+   float32} x d in {2, 41, 64, 128} — each against its plain PyTorch
    version on the card: float within rtol 1e-5 / atol 1e-6 of the output
    scale of the plain version summed in float64 (same rounded inputs; the
    reference does not move with the order of index_add_'s atomics), int8
-   equal; each check logs the share of the tolerance it used;
+   SpMM equal; each check logs the share of the tolerance it used;
 4. main path at full width — bench.py's uniform configuration
    (n = 232,968, random_graph(n, 493, seed=1) ~ 115M edges, 608 features,
    41 classes, sizes (608, 128, 128, 41), parity mode, Adam, seed-99 init)
@@ -38,24 +41,45 @@ the result line:
    impl="edge" (bfloat16) and impl="gather" (float32), 5 epochs each with
    finite losses, their epoch seconds beside the pattern pair's: evidence
    for the rule of impl="auto";
-7. path A, weighted Reddit on the edge engine — the same graph with
+7. GAT, card vs CPU — one float32 step of the GAT path's model on
+   random_graph(20,000, 16, seed=3) on the card against the port's CPU
+   path from the same seed-99 parameters: the loss within rtol 1e-5 and
+   every gradient leaf ||card - CPU|| <= 1e-4 ||CPU||;
+8. the GAT path — bench.py's GAT headline (bench.py:892-893):
+   GATConfig(sizes=(64, 64, 41), heads=2) on the main path's graph with
+   planted_features(labels, 64, noise=2.0, seed=8), through
+   ``models.gat.build_gat_graph`` (bfloat16) and
+   ``train.make_train_step(model="gat")``: the graph's build seconds, 5
+   bfloat16 epochs from the seed-99 init with finite losses falling from
+   epoch 0 to 4, their median, peak memory; counters zeroed before the
+   epochs and read after: exactly 20 ``sddmm`` + 20 ``edge`` + 8
+   ``edge_t`` launches an epoch, by width;
+9. attention kernels at the GAT path's shape — ``sddmm`` and
+   ``sddmm_qskip`` x {bfloat16, float32, int8} and ``edge_t`` x {bfloat16,
+   float32}, x d in {2, 41, 64} (the path's d_pad 8, 48 and 64), as phase
+   5, beside torch.sparse.sampled_addmm (SDDMM) and torch.sparse.mm on the
+   transposed CSR (``edge_t``), float32 yardsticks the port never calls;
+   ``edge`` bfloat16 at the same widths; d = 128 is checked and logged, not
+   put in the kernels line (no launch of the path has it);
+10. path A, weighted Reddit on the edge engine — the same graph with
    bench.py's edge values (rng(5).random + 0.5): auto must pick ``edge``;
    one float32 step against the COO engine by the rule of phase 4; 5
    bfloat16 epochs and 1 int8 epoch with finite losses; counters zeroed
    before and read after: exactly 5 ``edge`` launches an epoch (float32,
    bfloat16) and 5 ``edge_i8`` in the int8 epoch;
-8. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
+11. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
    (logged only) ``gather`` on the same matrix;
-9. path B, products scale on the gather engine — BASELINE config 2's model
+12. path B, products scale on the gather engine — BASELINE config 2's model
    (100 features, 48 classes, sizes (100, 256, 256, 48)) on bench.py's
    uniform products graph, random_graph(2,449,029, 50, seed=3): auto must
    pick ``gather`` (the binary pair); one float32 step against the COO
    engine; 5 epochs with finite losses and exactly 5 ``gather`` launches an
    epoch; peak memory and the pair's build seconds;
-10. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
+13. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
    (logged only) ``edge`` on the same matrix;
-11. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` on a
-   small binary dataset: stderr lines and the timer CSV.
+14. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
+   ``... --model gat --heads 2 -E 3 train <dir> 1 16`` on a small binary
+   dataset: stderr lines and the timer CSVs.
 
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
@@ -93,15 +117,26 @@ KERNELS = {
     "edge": "mg_gcn_tpu/ops/spmm_edges.py:550",
     "edge_i8": "mg_gcn_tpu/ops/spmm_edges.py:604",
     "gather": "mg_gcn_tpu/ops/spmm_gather.py:499",
+    "sddmm": "mg_gcn_tpu/ops/sddmm.py:123",
+    "sddmm_qskip": "mg_gcn_tpu/ops/sddmm.py:61",
+    "edge_t": "mg_gcn_tpu/ops/spmm_edges.py:980",
 }
 SOURCES = {"pattern_fwd": "spmm_pattern.cu", "pattern_bwd": "spmm_pattern.cu", "edge": "spmm_edges.cu",
-           "edge_i8": "spmm_edges.cu", "gather": "spmm_gather.cu"}
+           "edge_i8": "spmm_edges.cu", "gather": "spmm_gather.cu", "sddmm": "sddmm.cu", "sddmm_qskip": "sddmm.cu",
+           "edge_t": "spmm_edges.cu"}
 # path A: bench.py's weighted section (edge values rng(5).random + 0.5 on
 # the main path's graph); path B: BASELINE config 2's model on bench.py's
 # uniform products-scale graph (bench.py:586, 607, 623)
 EDGE_WIDTHS, GATHER_WIDTHS = (41, 128, 256), (48, 100, 256)
 N_PROD, DEG_PROD, FEATURES_PROD, CLASSES_PROD, HIDDEN_PROD = 2_449_029, 50, 100, 48, [256, 256]
 DEG_GATHER_SMALL = 50
+# the GAT path: bench.py's GAT headline (bench.py:892-893), GATConfig(sizes=
+# (64, 64, 41), heads=2) on the main path's graph with planted_features(
+# labels, 64, noise=2.0, seed=8); its kernels' widths: d = 1 and 2 (d_pad
+# 8), the output layer's 41 (d_pad 48) and the hidden layer's 64. d = 128
+# is checked and logged besides, outside the kernels line.
+GAT_SIZES, GAT_HEADS, GAT_WIDTHS, ATT_EXTRA_WIDTHS = (64, 64, CLASSES), 2, (2, 41, 64), (128,)
+DEG_GAT_CPU = 16  # the card-vs-CPU step's graph: random_graph(N_SMALL, 16, seed=3)
 
 
 def log(*args):
@@ -208,8 +243,11 @@ def wrappers() -> dict:
     from mg_gcn_tpu_torch.ops import spmm_gather as sg
     from mg_gcn_tpu_torch.ops import spmm_pattern as sp
 
+    from mg_gcn_tpu_torch.ops import sddmm as sd
+
     return {"pattern_fwd": sp.pattern_fwd, "pattern_bwd": sp.pattern_bwd, "edge": se.edge,
-            "edge_i8": se.edge_i8, "gather": sg.gather}
+            "edge_i8": se.edge_i8, "gather": sg.gather, "sddmm": sd.sddmm, "sddmm_qskip": sd.sddmm_qskip,
+            "edge_t": se.edge_t}
 
 
 def counts() -> dict:
@@ -376,7 +414,7 @@ def kernel_row(name, dtype, d, n, nnz, launches, check, ms, plain_ms, library_ms
 
 def log_row(r: dict) -> None:
     log(f"  {r['name']} {r['dtype']:8s} d={r['d']:3d}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms,"
-        f" {r['bound_by']}), plain {r['plain_ms']:.1f} ms, torch.sparse.mm {r['library_ms']},"
+        f" {r['bound_by']}), plain {r['plain_ms']:.1f} ms, library {r['library_ms']},"
         f" launches {r['launches']}, max_err {r['max_abs_err']:.3e} (tolerance used {r['tolerance_used']:.3f})")
 
 
@@ -415,20 +453,27 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
 # the O(nnz) engines: edge (path A) and gather (path B)
 
 
-def time_against_plain(label, kernel, plain, args, dtype, reps, plain_reps):
-    """Check the CSR kernel ``kernel(*args)`` against its plain version on
-    the card (summed in float64 for a float kernel: see check_close), then
-    time both; returns ((max_err, tolerance used), kernel ms, plain ms), the
-    plain version's ms None for ``plain_reps=0``."""
-    from mg_gcn_tpu_torch.ops.spmm_edges import csr_plain
-
-    got = kernel(*args)
+def check_and_time(label, run, reference, dtype, reps, plain, plain_reps):
+    """Check the kernel call ``run()`` against ``reference()`` (see
+    check_close), then time ``plain()`` and the kernel; returns ((max_err,
+    tolerance used), kernel ms, plain ms), the plain ms None for
+    ``plain_reps=0``."""
+    got = run()
     torch.cuda.synchronize()
-    check = check_close(label, got, plain(*args) if dtype == "int8" else csr_plain(*args, torch.float64), dtype)
+    check = check_close(label, got, reference(), dtype)
     del got
     torch.cuda.empty_cache()
-    plain_ms = cuda_ms(lambda: plain(*args), plain_reps) if plain_reps else None
-    return check, cuda_ms(lambda: kernel(*args), reps), plain_ms
+    plain_ms = cuda_ms(plain, plain_reps) if plain_reps else None
+    return check, cuda_ms(run, reps), plain_ms
+
+
+def time_against_plain(label, kernel, plain, args, dtype, reps, plain_reps):
+    """:func:`check_and_time` for the CSR kernel ``kernel(*args)`` against
+    its plain version, summed in float64 for a float kernel."""
+    from mg_gcn_tpu_torch.ops.spmm_edges import csr_plain
+
+    reference = (lambda: plain(*args)) if dtype == "int8" else (lambda: csr_plain(*args, torch.float64))
+    return check_and_time(label, lambda: kernel(*args), reference, dtype, reps, lambda: plain(*args), plain_reps)
 
 
 def phase_csr_kernels_small() -> None:
@@ -674,41 +719,379 @@ def phase_gather_main(fwd, launches: dict) -> list[dict]:
     return [r for r in measured if r["dtype"] == "float32"]  # the path's own mode; the stream row is logged only
 
 
+# ---------------------------------------------------------------------------
+# the attention stack: sddmm, sddmm_qskip, edge_t and the GAT path
+
+
+def sddmm_operands(mat, d: int, dtype: str, seed: int):
+    """(A, B, g) as ``sddmm_edge_tiles`` hands them to the kernel: random
+    (n_out, d) and (n_in, d) cast to ``dtype``, or quantized per feature with
+    g = qa·qb in int8, and padded to d_pad."""
+    from mg_gcn_tpu_torch.ops import sddmm as sd
+    from mg_gcn_tpu_torch.ops.spmm_edges import DTYPES, pad_features
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((mat.n_out, d), device="cuda", generator=gen)
+    b = torch.randn((mat.n_in, d), device="cuda", generator=gen)
+    if dtype != "int8":
+        return pad_features(a, DTYPES[dtype]), pad_features(b, DTYPES[dtype]), None
+    (aq, qa), (bq, qb) = sd.quantize_per_feature(a), sd.quantize_per_feature(b)
+    am, bm = pad_features(aq, torch.int8), pad_features(bq, torch.int8)
+    g = torch.zeros(am.shape[1], device="cuda")
+    g[:d] = qa * qb
+    return am, bm, g
+
+
+def check_sddmm(label, mat, d, dtype, reps, plain_reps):
+    """sddmm on ``mat`` against its plain version; (operands, check, ms,
+    plain ms)."""
+    from mg_gcn_tpu_torch.ops import sddmm as sd
+
+    a, b, g = sddmm_operands(mat, d, dtype, seed=d)
+    args = (mat.indptr, mat.indices, a, b, g)
+    check, ms, plain_ms = check_and_time(
+        label, lambda: sd.sddmm(*args), lambda: sd.sddmm_plain(mat.indptr, mat.indices, a.double(), b.double(), g),
+        "float32", reps, lambda: sd.sddmm_plain(*args), plain_reps)
+    return args, check, ms, plain_ms
+
+
+def check_qskip(label, mat, args, reps) -> float:
+    """sddmm_qskip on ``mat`` must equal sddmm bit for bit; its ms."""
+    from mg_gcn_tpu_torch.ops import sddmm as sd
+
+    indptr, indices, a, b, g = args
+    run = lambda: sd.sddmm_qskip(indptr, indices, mat.live_rows, a, b, g)  # noqa: E731
+    same = bool(torch.equal(run(), sd.sddmm(*args)))
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError(f"{label}: sddmm_qskip differs from sddmm")
+    return cuda_ms(run, reps)
+
+
+def check_edge_t(label, mat, t, w, d, dtype, reps, plain_reps):
+    """edge_t over ``mat``'s transpose ``t`` with entry weights ``w``
+    against its plain version; (operand, check, ms, plain ms)."""
+    from mg_gcn_tpu_torch.ops import spmm_edges as se
+
+    a = operand(mat.n_out, d, dtype, seed=d)
+    args = (t.t_indptr, t.t_rows, t.perm, w, a)
+    check, ms, plain_ms = check_and_time(
+        label, lambda: se.edge_t(*args),
+        lambda: se.csr_plain(t.t_indptr, t.t_rows, w[t.perm.long()], a, torch.float64),
+        "float32", reps, lambda: se.edge_t_plain(*args), plain_reps)
+    return a, check, ms, plain_ms
+
+
+def phase_attention_kernels_small() -> None:
+    """sddmm {bfloat16, float32, int8} and edge_t {bfloat16, float32} at the
+    GAT widths against their plain versions at n = 20,000; sddmm_qskip on
+    the same graph with 90% of its rows emptied, bitwise equal to sddmm."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.formats import CSRData
+    from mg_gcn_tpu_torch.ops import spmm_edges as se
+
+    g = sparse.random_graph(N_SMALL, DEG_SMALL, seed=3)
+    mat = se.edge_tile_mat_from_csr(g, dtype="float32", device="cuda", merge=False)
+    widths = GAT_WIDTHS + ATT_EXTRA_WIDTHS
+    for dtype in DTYPES:
+        for d in widths:
+            _, (err, use), ms, plain_ms = check_sddmm(f"sddmm {dtype} d={d}", mat, d, dtype, 10, 3)
+            log(f"  sddmm   {dtype:8s} d={d:3d}: max_err {err:.3e} (tolerance used {use:.3f})"
+                f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
+    rows = np.repeat(np.arange(N_SMALL), np.diff(g.indptr))
+    keep = rows % 10 == 0
+    indptr = np.zeros(N_SMALL + 1, np.int64)
+    np.cumsum(np.bincount(rows[keep], minlength=N_SMALL), out=indptr[1:])
+    thin = se.edge_tile_mat_from_csr(CSRData(indptr, g.indices[keep], g.data[keep], g.shape), dtype="float32",
+                                     device="cuda", merge=False)
+    for dtype in DTYPES:
+        for d in widths:
+            args, (err, use), ms, _ = check_sddmm(f"sddmm {dtype} d={d}, 90% rows empty", thin, d, dtype, 10, 1)
+            q_ms = check_qskip(f"{dtype} d={d}", thin, args, 10)
+            log(f"  sddmm_qskip {dtype:8s} d={d:3d}, {thin.live_rows.numel()} live rows of {N_SMALL}: bitwise equal"
+                f" to sddmm; {q_ms:.4f} ms vs sddmm {ms:.4f} ms (max_err {err:.3e}, tolerance used {use:.3f})")
+    t = se.transposed_schedule(mat)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w32 = torch.rand(mat.nnz, device="cuda", generator=gen)
+    for dtype in ("bfloat16", "float32"):
+        w = w32.to(se.DTYPES[dtype])
+        for d in widths:
+            _, (err, use), ms, plain_ms = check_edge_t(f"edge_t {dtype} d={d}", mat, t, w, d, dtype, 10, 3)
+            log(f"  edge_t  {dtype:8s} d={d:3d}: max_err {err:.3e} (tolerance used {use:.3f})"
+                f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
+
+
+def gat_features(labels: np.ndarray) -> np.ndarray:
+    """bench.py's planted_features(labels, 64, noise=2.0, seed=8)
+    (mg_gcn_tpu/sparse.py:334-345)."""
+    rng = np.random.default_rng(8)
+    proj = rng.standard_normal((int(labels.max()) + 1, GAT_SIZES[0])).astype(np.float32)
+    return proj[labels] + 2.0 * rng.standard_normal((labels.size, GAT_SIZES[0])).astype(np.float32)
+
+
+def gat_launches_per_epoch(config) -> dict:
+    """{(kernel, dtype, d_pad): launches} of one bfloat16 GAT epoch: per head
+    and layer, forward 3 sddmm (scores d=2, shift and slot_log_rs d=1) and 3
+    edge (rs1, rowsum d=1, aggregation d=out); backward 2 sddmm (the
+    aggregation's dw at d=out, rowsum's dw at d=1), 2 edge (slot_log_rs's
+    and the scores' dA, d=1 and 2) and 2 edge_t (the aggregation's and the
+    scores' dB, d=out and 2)."""
+    from mg_gcn_tpu_torch.ops.spmm_pattern import round_up
+
+    want = {}
+    for i in range(config.num_layers):
+        d_out = round_up(max(config.sizes[i + 1], 8), 8)
+        for name, narrow, wide in (("sddmm", 4, 1), ("edge", 4, 1), ("edge_t", 1, 1)):
+            for d_pad, n in ((8, narrow), (d_out, wide)):
+                key = (name, "bfloat16", d_pad)
+                want[key] = want.get(key, 0) + n * config.heads
+    return want
+
+
+def compare_with_cpu(got, cpu) -> None:
+    """The card's float32 GAT step against the port's CPU step: loss within
+    rtol 1e-5, every gradient leaf ||card - CPU|| <= 1e-4 ||CPU||."""
+    (loss_g, acc_g, grads_g), (loss_c, acc_c, grads_c) = got, cpu
+    if not math.isclose(float(loss_g), float(loss_c), rel_tol=1e-5):
+        raise AssertionError(f"GAT float32 loss: card {float(loss_g)} vs CPU {float(loss_c)}")
+    worst, where = 0.0, ""
+    for i, (gg, gc) in enumerate(zip(grads_g, grads_c)):
+        for k in gc:
+            rel = float(torch.linalg.vector_norm(gg[k].cpu() - gc[k]) / torch.linalg.vector_norm(gc[k]))
+            if not rel <= 1e-4:
+                raise AssertionError(f"GAT layer {i} grad {k}: ||card - CPU|| / ||CPU|| = {rel} > 1e-4")
+            if rel >= worst:
+                worst, where = rel, f"layer {i} {k}"
+    log(f"  GAT f32 step card vs CPU: loss {float(loss_g)!r} vs {float(loss_c)!r}, acc {float(acc_g)!r} vs"
+        f" {float(acc_c)!r}; gradients: max ||card - CPU||/||CPU|| {worst:.3e} ({where})")
+
+
+def phase_gat_card_vs_cpu() -> None:
+    """One float32 step of the GAT path's model at n = 20,000 on the card
+    against the port's CPU path, from the same seed-99 parameters: at full
+    size no second engine exists to hold it against."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.models import gat
+
+    g = sparse.random_graph(N_SMALL, DEG_GAT_CPU, seed=3)
+    labels = np.random.default_rng(0).integers(0, CLASSES, N_SMALL)
+    x, y = torch.from_numpy(gat_features(labels)), torch.from_numpy(labels.astype(np.int64))
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=GAT_HEADS)
+    steps = []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        graph = gat.build_gat_graph(g, dtype="float32", device=dev)
+        params = gat.init_params(config, None, device=dev)
+        steps.append(gat.loss_and_grad(params, graph, x.to(dev), y.to(dev), config))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"  {dev}: n={g.nrows} nnz={g.nnz} build + float32 step {time.perf_counter() - t0:.2f} s")
+    compare_with_cpu(*steps)
+
+
+def profile_epoch(run_epoch, epoch_s: float, top: int = 12) -> None:
+    """One more epoch under torch.profiler (after the counted ones): the
+    device time by kernel name, its sum against the median epoch's
+    ``epoch_s`` (the device's busy share of an unprofiled epoch) and the
+    ``top`` kernels. Only the device's own events count: the host ops that
+    launched them carry the same time again. Logged only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_epoch()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"  profiled epoch: device busy {busy_ms:.2f} ms = {busy_ms / (epoch_s * 1e3):.3f} of the median epoch"
+        f" ({epoch_s * 1e3:.2f} ms); {len(rows)} kernel names; top {top} by device time:")
+    for e in rows[:top]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  {e.key[:110]}")
+
+
+def phase_gat_path(ds) -> dict:
+    """bench.py's GAT headline through the library entry points:
+    ``build_gat_graph`` (bfloat16, the transpose built on the card) and
+    ``make_train_step(model="gat")``, EPOCHS epochs from the seed-99 init
+    with finite losses that fall from epoch 0 to the last. The launch
+    counters are zeroed just before the epochs and read just after: exactly
+    :func:`gat_launches_per_epoch` an epoch, and no other kernel."""
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.train import make_train_step
+
+    dev = torch.device("cuda")
+    labels = ds.labels.reshape(-1)
+    x = torch.from_numpy(gat_features(labels)).to(dev)
+    y = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=GAT_HEADS)
+    params = gat.init_params(config, None, device=dev)
+    opt = adam.adam_init(params)
+    out = {}
+    t0 = time.perf_counter()
+    graph = gat.build_gat_graph(ds.graph, dtype="bfloat16", device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    step = make_train_step(config, model="gat")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the GAT path's epochs start here
+    out["losses"], out["accs"], out["epoch_seconds"] = [], [], []
+    for e in range(EPOCHS):
+        t0 = time.perf_counter()
+        params, opt, loss, acc = step(params, opt, graph, x, y, None)
+        loss, acc = float(loss), float(acc)  # waits for the card
+        out["epoch_seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        out["accs"].append(acc)
+        log(f"  gat bf16 epoch {e} {loss} {acc} {out['epoch_seconds'][-1]}")
+    torch.cuda.synchronize()
+    out["launches"] = counts()  # ... and end here
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    profile_epoch(lambda: float(step(params, opt, graph, x, y, None)[2]), sorted(out["epoch_seconds"])[EPOCHS // 2])
+    losses = out["losses"]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"GAT bf16 losses {losses}: not finite, or not falling")
+    want = {k: v * EPOCHS for k, v in gat_launches_per_epoch(config).items()}
+    got = {(name, dt, dp): n for name, per in out["launches"].items() for (dt, dp), n in per.items() if n}
+    if got != want:
+        raise AssertionError(f"GAT launches {got}, want {want}")
+    steady = sorted(out["epoch_seconds"][1:])
+    out["epoch_s_median"] = steady[len(steady) // 2]
+    out["graph"] = graph
+    log(f"  launches in {EPOCHS} epochs: {got}")
+    log(f"  attention graph n={graph[0].n_out} nnz={graph[0].nnz} built in {out['build_s']:.2f} s"
+        f" (host cast and upload, transpose on the card); bf16 epoch median (epochs 1-{EPOCHS - 1})"
+        f" {out['epoch_s_median']:.4f} s; peak memory {out['peak_mem_gb']:.2f} GB")
+    return out
+
+
+def library_ms_or_none(label: str, fn, reps: int):
+    """The yardstick's ms, or None (logged) where the library call is not
+    available on this installation; the port never calls it."""
+    try:
+        return cuda_ms(fn, reps)
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  {label}: library call not available ({str(exc).splitlines()[0][:200]}): none")
+        return None
+
+
+def phase_gat_kernels(graph, launches: dict) -> list[dict]:
+    """sddmm, sddmm_qskip and edge_t at the GAT path's shape, each dtype x
+    width against its plain version, timed beside its bound, its plain
+    version and (float32) torch.sparse.sampled_addmm for the SDDMMs and
+    torch.sparse.mm on the transposed CSR for edge_t; and the path's own
+    ``edge`` launches (bfloat16, d_pad 8, 48 and 64) on the same matrix.
+    The kernels line takes the path's widths; ATT_EXTRA_WIDTHS are logged."""
+    from mg_gcn_tpu_torch.ops import spmm_edges as se
+
+    mat, t = graph
+    n, n_in, nnz = mat.n_out, mat.n_in, mat.nnz
+    pattern = csr_library(mat.indptr, mat.indices, torch.zeros(nnz, device="cuda"), (n, n_in))
+    rows = []
+
+    def keep(row: dict) -> None:
+        log_row(row)
+        if row["d"] in GAT_WIDTHS:
+            rows.append(row)
+
+    for dtype in DTYPES:
+        for d in GAT_WIDTHS + ATT_EXTRA_WIDTHS:
+            args, check, ms, plain_ms = check_sddmm(f"sddmm {dtype} d={d} (GAT shape)", mat, d, dtype, 5, 2)
+            a, b = args[2], args[3]
+            library_ms = None
+            if dtype == "float32":
+                al, bt = a[:, :d].contiguous(), b[:, :d].t()
+                library_ms = library_ms_or_none(
+                    "sampled_addmm", lambda: torch.sparse.sampled_addmm(pattern, al, bt, beta=0.0), 5)
+                del al, bt
+            moved = 8 * (n + 1) + 4 * nnz + (n + n_in) * d * elt_size(a) + 4 * nnz
+            keep(kernel_row("sddmm", dtype, d, n, nnz, launches["sddmm"].get((dtype, a.shape[1]), 0),
+                            check, ms, plain_ms, library_ms, moved))
+            q_ms = check_qskip(f"{dtype} d={d} (GAT shape)", mat, args, 5)
+            keep(kernel_row("sddmm_qskip", dtype, d, n, nnz, launches["sddmm_qskip"].get((dtype, a.shape[1]), 0),
+                            check, q_ms, plain_ms, library_ms, moved + 4 * mat.live_rows.numel()))
+            del args, a, b
+            torch.cuda.empty_cache()
+    del pattern
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w32 = torch.rand(nnz, device="cuda", generator=gen)
+    w16 = w32.to(torch.bfloat16)
+    for d in GAT_WIDTHS:  # the edge kernel at the path's own widths (d = 1 pads to 8 as d = 2 does)
+        b = operand(n_in, d, "bfloat16", seed=d)
+        check, ms, plain_ms = time_against_plain(f"edge bfloat16 d={d} (GAT shape)", se.edge, se.edge_plain,
+                                                 (mat.indptr, mat.indices, w16, b), "bfloat16", 5, 2)
+        moved = 8 * (n + 1) + 4 * nnz + 2 * nnz + n_in * d * 2 + n * d * 4
+        keep(kernel_row("edge", "bfloat16", d, n, nnz, launches["edge"].get(("bfloat16", b.shape[1]), 0),
+                        check, ms, plain_ms, None, moved))
+        del b
+    del w16
+    transposed = csr_library(t.t_indptr, t.t_rows, w32[t.perm.long()], (n_in, n))
+    for dtype in ("bfloat16", "float32"):
+        w = w32.to(se.DTYPES[dtype])
+        for d in GAT_WIDTHS + ATT_EXTRA_WIDTHS:
+            a, check, ms, plain_ms = check_edge_t(f"edge_t {dtype} d={d} (GAT shape)", mat, t, w, d, dtype, 5, 2)
+            library_ms = None
+            if dtype == "float32":
+                al = a[:, :d].contiguous()
+                library_ms = library_ms_or_none("torch.sparse.mm", lambda: torch.sparse.mm(transposed, al), 5)
+                del al
+            moved = 8 * (n_in + 1) + 8 * nnz + elt_size(w) * nnz + n * d * elt_size(a) + n_in * d * 4
+            keep(kernel_row("edge_t", dtype, d, n_in, nnz, launches["edge_t"].get((dtype, a.shape[1]), 0),
+                            check, ms, plain_ms, library_ms, moved))
+            del a
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_cli(tmp: str, ds, args: list[str], csv_name: str) -> list[str]:
+    """``python -m mg_gcn_tpu_torch.cli -E 3 ... train <toy> ...``: exit code
+    0, the JAX CLI's three header lines, three ``epoch loss acc seconds``
+    lines with finite losses and the timer CSV's keys; returns the stderr
+    lines."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "mg_gcn_tpu_torch.cli", "-E", "3", "--csv-dir", os.path.join(tmp, "csvs"), *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    if r.returncode != 0:
+        raise AssertionError(f"CLI {args} exited {r.returncode}:\n{r.stderr}")
+    lines = r.stderr.splitlines()
+    want = [f"{ds.num_nodes} {ds.graph.nnz}", f"num_labels = {ds.num_labels}", f"feature size = {ds.num_features}"]
+    if lines[:3] != want:
+        raise AssertionError(f"CLI {args}: stderr header {lines[:3]} != {want}")
+    epochs = [line.split() for line in lines if re.fullmatch(r"\d+ \S+ \S+ \S+", line)]
+    if [int(e[0]) for e in epochs] != [0, 1, 2] or not all(math.isfinite(float(e[1])) for e in epochs):
+        raise AssertionError(f"CLI {args}: epoch lines {epochs}")
+    keys = [line.split(":")[0] for line in open(os.path.join(tmp, "csvs", csv_name)).read().splitlines()]
+    if keys != ["0_preprocess", "0_0_epoch", "1_0_epoch", "2_0_epoch"]:
+        raise AssertionError(f"CLI {args}: timer CSV keys {keys}")
+    log("  " + "\n  ".join(lines))
+    return lines
+
 
 def phase_cli() -> None:
+    """The CLI on a small binary dataset: GCN (``train <dir> 2 128 128``,
+    where ``auto`` must pick the pattern pair) and GAT (``--model gat
+    --heads 2 train <dir> 1 16``)."""
     from mg_gcn_tpu_torch import sparse
     from mg_gcn_tpu_torch.formats import Dataset
 
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(5)
         n = 50_000
+        toy = os.path.join(tmp, "toy")
         Dataset(
             graph=sparse.random_graph(n, 20, seed=5),
             features=rng.standard_normal((n, 32)).astype(np.float32),
             labels=rng.integers(0, 7, (n, 1)).astype(np.int32),
             sets=np.zeros((n, 1), np.int32),
-        ).save(os.path.join(tmp, "toy"))
-        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-        r = subprocess.run(
-            [sys.executable, "-m", "mg_gcn_tpu_torch.cli", "-E", "3", "--csv-dir",
-             os.path.join(tmp, "csvs"), "train", os.path.join(tmp, "toy"), "2", "128", "128"],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-        )
-        if r.returncode != 0:
-            raise AssertionError(f"CLI exited {r.returncode}:\n{r.stderr}")
-        lines = r.stderr.splitlines()
-        ds = Dataset.load(os.path.join(tmp, "toy"))
-        want = [f"{n} {ds.graph.nnz}", f"num_labels = {ds.num_labels}", "feature size = 32"]
-        if lines[:3] != want or not any(line.startswith("aggregation engine: pattern") for line in lines):
-            raise AssertionError(f"CLI stderr header {lines[:3]} != {want}, or no pattern engine line")
-        epochs = [line.split() for line in lines if re.fullmatch(r"\d+ \S+ \S+ \S+", line)]
-        if [int(e[0]) for e in epochs] != [0, 1, 2] or not all(math.isfinite(float(e[1])) for e in epochs):
-            raise AssertionError(f"CLI epoch lines {epochs}")
-        csv = os.path.join(tmp, "csvs", "toy_32_128_128_7_1.csv")
-        keys = [line.split(":")[0] for line in open(csv).read().splitlines()]
-        if keys != ["0_preprocess", "0_0_epoch", "1_0_epoch", "2_0_epoch"]:
-            raise AssertionError(f"CLI timer CSV keys {keys}")
-        log("  " + "\n  ".join(lines))
+        ).save(toy)
+        ds = Dataset.load(toy)
+        lines = run_cli(tmp, ds, ["train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv")
+        if not any(line.startswith("aggregation engine: pattern") for line in lines):
+            raise AssertionError("CLI: no pattern engine line")
+        run_cli(tmp, ds, ["--model", "gat", "--heads", "2", "train", toy, "1", "16"], "toy_32_16_7_1.csv")
 
 
 def main() -> int:
@@ -747,6 +1130,7 @@ def main() -> int:
     phase(f"[3] kernels vs plain, n = {N_SMALL}")
     phase_kernels_small()
     phase_csr_kernels_small()
+    phase_attention_kernels_small()
 
     phase(f"[4] main path, n = {N_MAIN}")
     ds = main_dataset()
@@ -762,7 +1146,17 @@ def main() -> int:
     phase("[6] the O(nnz) engines on the main path's binary graph")
     phase_engines_binary(ds, main_path["bf16_epoch_s_median"])
 
-    phase("[7] path A: weighted Reddit on the edge engine")
+    phase(f"[7] GAT: one float32 step on the card against the CPU, n = {N_SMALL}")
+    phase_gat_card_vs_cpu()
+
+    phase(f"[8] GAT path, n = {N_MAIN}")
+    gat_path = phase_gat_path(ds)
+
+    phase("[9] attention kernels at the GAT path's shape")
+    kernels += phase_gat_kernels(gat_path.pop("graph"), gat_path["launches"])
+    torch.cuda.empty_cache()
+
+    phase("[10] path A: weighted Reddit on the edge engine")
     from mg_gcn_tpu_torch.ops.spmm_edges import expected_fill
 
     ds_a = path_a_dataset(ds)
@@ -774,11 +1168,11 @@ def main() -> int:
                                          ("edge_i8", "int8"): 5})
     del ds_a, g
 
-    phase("[8] edge kernels at path A's shape")
+    phase("[11] edge kernels at path A's shape")
     kernels += phase_edge_main(path_a.pop("fwd"), path_a["launches"])
     torch.cuda.empty_cache()
 
-    phase(f"[9] path B: products scale on the gather engine, n = {N_PROD}")
+    phase(f"[12] path B: products scale on the gather engine, n = {N_PROD}")
     ds_b = path_b_dataset()
     path_b = drive_path("gather", ds_b, HIDDEN_PROD, [("float32", EPOCHS)])
     if path_b["fwd"].has_w:
@@ -786,11 +1180,11 @@ def main() -> int:
     expect_launches(path_b["launches"], {("gather", "float32"): 5 * (1 + EPOCHS)})
     del ds_b
 
-    phase("[10] gather kernel at path B's shape")
+    phase("[13] gather kernel at path B's shape")
     kernels += phase_gather_main(path_b.pop("fwd"), path_b["launches"])
     torch.cuda.empty_cache()
 
-    phase("[11] CLI")
+    phase("[14] CLI")
     phase_cli()
     phase("done")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

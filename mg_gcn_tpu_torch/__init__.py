@@ -1,10 +1,13 @@
 """mg_gcn_tpu_torch — the PyTorch/CUDA port of mg_gcn_tpu, for NVIDIA Hopper.
 
-Full-batch GCN training on one card, with the bit-packed dense-pattern SpMM
-pair (``ops/spmm_pattern.py``) running as hand-written CUDA kernels
-(``csrc/spmm_pattern.cu``, built with nvcc at first use). Module names
-mirror the JAX package so each counterpart is easy to find; the JAX package
-is the reference the tests hold this port against.
+Full-batch GCN and GAT training on one card. The aggregation engines — the
+bit-packed dense-pattern pair (``ops/spmm_pattern.py``), the weighted-CSR
+edge engine (``ops/spmm_edges.py``) and the serial-gather engine
+(``ops/spmm_gather.py``) — and the attention stack (``ops/sddmm.py``, the
+transposed edge product, ``ops/edge_attention.py``, ``models/gat.py``) run
+on hand-written CUDA kernels (``csrc/``, built with nvcc at first use).
+Module names mirror the JAX package so each counterpart is easy to find;
+the JAX package is the reference the tests hold this port against.
 
 The port imports torch, numpy and scipy only — never jax, never mg_gcn_tpu.
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -27,6 +27,7 @@ SOURCES = {
     "spmm_pattern": "spmm_pattern.cu",
     "spmm_edges": "spmm_edges.cu",
     "spmm_gather": "spmm_gather.cu",
+    "sddmm": "sddmm.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -7,7 +7,9 @@
 // int32), with w_e = 1 in a binary walk (HAS_W false). WT is the weights'
 // type, BT the operand's; the sums and C are float32, or int32 (exact) for
 // an int8 operand. bfloat16 weights and operands are widened to float32 at
-// load.
+// load. With PERM, entry e's weight is w[perm[e]]: the walk of a CSR
+// transpose reads the weights of the matrix it transposes in place, so a
+// permuted copy of them is never written (the edge_t kernel).
 //
 // Design: one warp per output row, lanes spanning the features (4 a lane,
 // so a warp reads a B row's 128-feature chunk as one coalesced request),
@@ -83,11 +85,12 @@ __device__ __forceinline__ int4 load4(const int8_t* p) {
   return make_int4(v.x, v.y, v.z, v.w);
 }
 
-template <typename WT, typename BT, bool HAS_W, int NV>
+template <typename WT, typename BT, bool HAS_W, int NV, bool PERM>
 __global__ void __launch_bounds__(kWarps * 32)
 walk_kernel(const long long* __restrict__ indptr, const int* __restrict__ indices,
             const WT* __restrict__ w, const BT* __restrict__ b,
-            typename Acc<BT>::T* __restrict__ c, long long n_out, int d_pad) {
+            typename Acc<BT>::T* __restrict__ c, long long n_out, int d_pad,
+            const int* __restrict__ perm) {
   using A = typename Acc<BT>::T;
   using A4 = typename Acc<BT>::T4;
   const int lane = threadIdx.x & 31;
@@ -109,7 +112,7 @@ walk_kernel(const long long* __restrict__ indptr, const int* __restrict__ indice
       A wt = A(0);
       if (lane < cnt) {
         col = __ldg(indices + e + lane);
-        if constexpr (HAS_W) wt = weight(w + e + lane);
+        if constexpr (HAS_W) wt = weight(w + (PERM ? (long long)__ldg(perm + e + lane) : e + lane));
       }
       for (int j = 0; j < cnt; j += kUnroll) {
         int cj[kUnroll];
@@ -149,11 +152,11 @@ inline bool bad_shape(long long n_out, int d_pad) {
   return n_out <= 0 || n_out > (long long)kWarps * 0x7fffffffLL || d_pad <= 0 || d_pad % 8 != 0;
 }
 
-// Launches the walk on `stream`; w is ignored when HAS_W is false. Returns
-// a cudaError_t; 0 means the launch was accepted.
-template <typename WT, typename BT, bool HAS_W>
+// Launches the walk on `stream`; w is ignored when HAS_W is false, perm
+// unless PERM. Returns a cudaError_t; 0 means the launch was accepted.
+template <typename WT, typename BT, bool HAS_W, bool PERM = false>
 int launch(const void* indptr, const void* indices, const void* w, const void* b, void* c,
-           long long n_out, int d_pad, cudaStream_t stream) {
+           long long n_out, int d_pad, cudaStream_t stream, const void* perm = nullptr) {
   if (bad_shape(n_out, d_pad)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n_out + kWarps - 1) / kWarps));
   const auto* ip = static_cast<const long long*>(indptr);
@@ -161,10 +164,11 @@ int launch(const void* indptr, const void* indices, const void* w, const void* b
   const auto* wt = static_cast<const WT*>(w);
   const auto* bt = static_cast<const BT*>(b);
   auto* ct = static_cast<typename Acc<BT>::T*>(c);
+  const auto* pm = static_cast<const int*>(perm);
   if (d_pad <= kChunkF)
-    walk_kernel<WT, BT, HAS_W, 1><<<grid, kWarps * 32, 0, stream>>>(ip, ix, wt, bt, ct, n_out, d_pad);
+    walk_kernel<WT, BT, HAS_W, 1, PERM><<<grid, kWarps * 32, 0, stream>>>(ip, ix, wt, bt, ct, n_out, d_pad, pm);
   else
-    walk_kernel<WT, BT, HAS_W, 2><<<grid, kWarps * 32, 0, stream>>>(ip, ix, wt, bt, ct, n_out, d_pad);
+    walk_kernel<WT, BT, HAS_W, 2, PERM><<<grid, kWarps * 32, 0, stream>>>(ip, ix, wt, bt, ct, n_out, d_pad, pm);
   return (int)cudaGetLastError();
 }
 

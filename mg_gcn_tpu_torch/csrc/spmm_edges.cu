@@ -1,12 +1,15 @@
 // Weighted-CSR SpMM for NVIDIA Hopper (sm_90a): the edge engine.
 //
-// Replaces the two TPU kernels of mg_gcn_tpu/ops/spmm_edges.py:
+// Replaces three TPU kernels of mg_gcn_tpu/ops/spmm_edges.py:
 //   mggcn_edge     <-  _edge_kernel    (spmm_edges.py:550):
 //       C[r, :] = sum_e f32(w_e) * f32(B[c_e, :]), float32 sums, C float32;
 //       w and B both float32 or both bfloat16
 //   mggcn_edge_i8  <-  _edge_kernel_i8 (spmm_edges.py:604):
 //       acc[r, :] = sum_e wq_e * bq[c_e, :], int32 sums (exact), acc int32
-// Both run the row walk of csr_walk.cuh (walk_kernel<T, T, true, NV>). The
+//   mggcn_edge_t   <-  _edge_t_kernel  (spmm_edges.py:980):
+//       C[c, :] = sum_{e in column c} f32(w_e) * f32(A[r_e, :]), i.e. M^T(w) A,
+//       float32 sums, C float32 (n_in, d_pad); w and A as for mggcn_edge
+// All run the row walk of csr_walk.cuh (walk_kernel<T, T, true, NV, PERM>). The
 // matrix is row-sorted CSR (indptr int64, indices int32, one weight per
 // entry, duplicates merged at build). The TPU kernels' slot chunks, one-hot
 // MXU selects, step schedule and D_MAX_E chunking routed a gather through
@@ -21,6 +24,19 @@
 // once: nnz * d * 2 bytes = 29 GB at d = 128, which only the 50 MB L2 can
 // turn into less device-memory traffic. The walk keeps kUnroll B rows in
 // flight per lane and writes each output row once, deterministically.
+//
+// mggcn_edge_t walks the matrix's CSR transpose (t_indptr int64 over the
+// n_in columns, t_rows int32) with PERM: the weight of transposed entry j
+// is w[perm[j]], read through the int32 permutation, so the backward pass
+// of the attention ops transposes per-edge values (scores' cotangents,
+// attention weights) without writing a permuted copy. The TPU kernel's
+// column-window-sorted step schedule (TSched, dummy zero-init steps, split
+// parts) accumulated output windows across sequential grid steps; here
+// each output row is one warp's walk, and a column with no entries writes
+// zeros. Its bound adds 4 bytes of perm per entry to mggcn_edge's: at the
+// GAT shape (nnz = 114,964,049, d_pad 8 bf16) 0.46 GB indices + 0.46 GB
+// perm + 0.23 GB w + 3.7 MB A + 7.5 MB C, >= 0.35 ms; the weights are read
+// in permuted (scattered) order, 32-byte sectors for 2-byte values.
 
 #include "csr_walk.cuh"
 
@@ -44,6 +60,22 @@ int mggcn_edge_i8(const void* indptr, const void* indices, const void* wq, const
                   void* c, long long n_out, int d_pad, void* stream) {
   return csr::launch<int8_t, int8_t, true>(indptr, indices, wq, bq, c, n_out, d_pad,
                                            static_cast<cudaStream_t>(stream));
+}
+
+// The transposed product: (t_indptr, t_rows) is the CSR transpose of the
+// matrix whose weights are w, perm[j] the matrix entry of transposed entry
+// j; A (n_out, d_pad) and C (n_in, d_pad). dtype as mggcn_edge.
+int mggcn_edge_t(const void* t_indptr, const void* t_rows, const void* perm, const void* w,
+                 const void* a, void* c, long long n_in, int d_pad, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return csr::launch<float, float, true, true>(t_indptr, t_rows, w, a, c, n_in, d_pad, s, perm);
+    case 1:
+      return csr::launch<__nv_bfloat16, __nv_bfloat16, true, true>(t_indptr, t_rows, w, a, c, n_in, d_pad, s,
+                                                                   perm);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mggcn_error_string(int err) {

@@ -31,16 +31,29 @@ attention stack, which consumes this layout, works in CSR edge order
   the compute dtype, or in int8 an integer sum of the quantized weights
   clipped to ±127.
 
-The two products run as hand-written CUDA kernels (``csrc/spmm_edges.cu``,
-on the row walk of ``csrc/csr_walk.cuh`` that the gather kernel shares):
-:func:`edge` (``_edge_kernel``) and :func:`edge_i8` (``_edge_kernel_i8``).
+The products run as hand-written CUDA kernels (``csrc/spmm_edges.cu``, on
+the row walk of ``csrc/csr_walk.cuh`` that the gather kernel shares):
+:func:`edge` (``_edge_kernel``), :func:`edge_i8` (``_edge_kernel_i8``) and
+:func:`edge_t` (``_edge_t_kernel``).
 Each wrapper launches its kernel for a CUDA tensor and uses its plain
 PyTorch version for a CPU tensor — only because the tensor lies on the CPU.
 Each counts its launches in ``.launches`` by (dtype, d_pad).
 
-The transposed product (``_edge_t_kernel``, ``TSched``,
-``spmm_edge_tiles_t``, ``slot_valid_mask``) comes with the attention slice
-(ROADMAP queue 2 items 7-9).
+**The transposed product** (``TSched``, ``transposed_schedule``,
+``spmm_edge_tiles_t``; ``spmm_edges.py:748-1131``), the backward half of
+the attention ops. The JAX package reorders the slot chunks' grid steps by
+column window (``TSched``, ``_transposed_core``) so that ``_edge_t_kernel``
+accumulates each output window across consecutive steps. Here
+:class:`TSched` is the CSR transpose of the matrix's structure, built once
+on the matrix's device with a stable sort by column: ``t_indptr`` over the
+columns, ``t_rows`` and ``perm``, the CSR entry of each transposed entry.
+:func:`edge_t` (``csrc/spmm_edges.cu`` ``mggcn_edge_t``) walks it with the
+row walk, reading each weight through ``perm``, so per-edge values stay in
+CSR entry order and are never copied into transposed order. What the TPU
+needed and the card does not has no counterpart: ``slot_valid_mask`` (CSR
+has no padding slots), and ``auto_split``, ``MAX_STEPS``,
+``pad_edge_schedule`` and ``transposed_step_words`` (the SMEM prefetch
+budget of the schedule).
 """
 
 from __future__ import annotations
@@ -107,7 +120,8 @@ class EdgeTileMat:
     ``w`` holds the weights in the compute dtype (bfloat16 or float32); in
     int8 mode ``w`` is None, ``wq`` holds the per-row quantized weights and
     ``row_scale`` the (n_out,) float32 dequant scales. ``nnz`` counts the
-    stored entries, after duplicate (row, col) entries were merged.
+    stored entries, after duplicate (row, col) entries were merged (an
+    attention graph keeps them: ``edge_tile_mat_from_csr(merge=False)``).
     """
 
     indptr: torch.Tensor  # int64 [n_out + 1]
@@ -119,6 +133,13 @@ class EdgeTileMat:
     n_in: int
     nnz: int
     dtype_name: str = "bfloat16"
+
+    @functools.cached_property
+    def live_rows(self) -> torch.Tensor:
+        """int32 ids of the rows with at least one entry, computed on the
+        matrix's device at first use and kept: the rows the q-range SDDMM
+        (``ops/sddmm.py``) launches over."""
+        return torch.nonzero(self.indptr.diff() > 0).flatten().to(torch.int32)
 
 
 def check_csr(csr: CSRData, engine: str) -> None:
@@ -159,10 +180,12 @@ def _duplicate_runs(csr: CSRData) -> tuple[np.ndarray, np.ndarray] | None:
 
 
 def edge_tile_mat_from_csr(
-    csr: CSRData, dtype: str = "bfloat16", device: str | torch.device = "cuda"
+    csr: CSRData, dtype: str = "bfloat16", device: str | torch.device = "cuda", merge: bool = True
 ) -> EdgeTileMat:
     """Host-side preparation of a weighted CSR matrix (quantization in int8
-    mode, duplicate merging), uploaded to ``device``. Any edge values."""
+    mode, duplicate merging), uploaded to ``device``. Any edge values.
+    ``merge=False`` keeps duplicate (row, col) entries as separate entries,
+    as the JAX package's attention graph keeps one slot for each."""
     if dtype not in DTYPES:
         raise ValueError(f"unsupported edge dtype {dtype!r} (expected {'/'.join(DTYPES)})")
     check_csr(csr, "edge")
@@ -170,7 +193,7 @@ def edge_tile_mat_from_csr(
     indptr = csr.indptr.astype(np.int64)
     cols = csr.indices.astype(np.int32, copy=False)
     data = csr.data.astype(np.float32, copy=False)
-    runs = _duplicate_runs(csr) if csr.nnz else None
+    runs = _duplicate_runs(csr) if csr.nnz and merge else None
     if runs is not None:
         order, first = runs
         rows_m = _rows_of(indptr)[order][first]
@@ -265,15 +288,16 @@ def edge_i8_plain(indptr, indices, wq, bq) -> torch.Tensor:
 # the kernel wrappers
 
 
-def load_csr_lib(name: str, **modes: int) -> ctypes.CDLL:
-    """Load the CSR kernel library ``name``. Each entry named in ``modes``
-    takes (indptr, indices, w, b, c, n_out, d_pad), then that many int mode
-    arguments, then the stream, and returns a cudaError_t."""
+def load_csr_lib(name: str, **entries: tuple[int, int]) -> ctypes.CDLL:
+    """Load the CSR kernel library ``name``. Each entry named in ``entries``
+    with (p, m) takes p operand pointers, the output pointer, a row count
+    (long long), d_pad (int), then m int mode arguments, then the stream,
+    and returns a cudaError_t."""
     lib = _build.load(name)
-    base = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
-    for entry, n_modes in modes.items():
+    for entry, (n_ptrs, n_modes) in entries.items():
         fn = getattr(lib, entry)
-        fn.argtypes = base + [ctypes.c_int] * n_modes + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_longlong] + [ctypes.c_int] * (1 + n_modes) + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
@@ -282,7 +306,7 @@ def load_csr_lib(name: str, **modes: int) -> ctypes.CDLL:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return load_csr_lib("spmm_edges", mggcn_edge=1, mggcn_edge_i8=0)
+    return load_csr_lib("spmm_edges", mggcn_edge=(4, 1), mggcn_edge_i8=(4, 0), mggcn_edge_t=(5, 1))
 
 
 def check_csr_operands(name: str, indptr, indices, w, b, w_dtypes, b_dtypes) -> None:
@@ -349,8 +373,37 @@ def edge_i8(indptr: torch.Tensor, indices: torch.Tensor, wq: torch.Tensor, bq: t
     return out
 
 
+def edge_t_plain(t_indptr, t_rows, perm, w, a) -> torch.Tensor:
+    """Plain version of :func:`edge_t`: :func:`csr_plain` over the
+    transposed structure with the permuted weights, float32 sums."""
+    return csr_plain(t_indptr, t_rows, w[perm.long()], a, torch.float32)
+
+
+def edge_t(t_indptr: torch.Tensor, t_rows: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
+           a: torch.Tensor) -> torch.Tensor:
+    """C = Mᵀ(w) A for the CSR transpose (t_indptr, t_rows, perm) of a
+    matrix M with entry weights w (in M's CSR entry order) and row-major A
+    (n_out, d_pad); w and A both float32 or both bfloat16; C is float32
+    (n_in, d_pad), zero for a column of M with no entries.
+    Replaces ``mg_gcn_tpu/ops/spmm_edges.py:_edge_t_kernel``."""
+    if a.device.type == "cpu":
+        return edge_t_plain(t_indptr, t_rows, perm, w, a)
+    check_csr_operands("edge_t", t_indptr, t_rows, w, a, tuple(_W_CODE), tuple(_W_CODE))
+    if w.dtype != a.dtype:
+        raise ValueError(f"edge_t: weights ({w.dtype}) and A ({a.dtype}) must share the compute dtype")
+    if perm.dtype != torch.int32 or perm.shape != t_rows.shape or perm.device != a.device or not perm.is_contiguous():
+        raise ValueError("edge_t: perm must be contiguous int32 of t_rows' shape, on A's device")
+    out = torch.empty((t_indptr.numel() - 1, a.shape[1]), dtype=torch.float32, device=a.device)
+    if out.shape[0]:
+        ptrs = [t_indptr.data_ptr(), t_rows.data_ptr(), perm.data_ptr(), w.data_ptr(), a.data_ptr()]
+        run_csr_kernel(_lib(), "mggcn_edge_t", ptrs, out, _W_CODE[a.dtype])
+        edge_t.launches[(str(a.dtype).removeprefix("torch."), a.shape[1])] += 1
+    return out
+
+
 edge.launches = collections.Counter()
 edge_i8.launches = collections.Counter()
+edge_t.launches = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -394,3 +447,60 @@ def spmm_edge_tiles(mat: EdgeTileMat, b: torch.Tensor) -> torch.Tensor:
         return acc * rs[:, None] * qscale[None, :]
     bm = pad_features(b, DTYPES[mat.dtype_name])
     return edge(mat.indptr, mat.indices, mat.w, bm)[:, :d]
+
+
+# ---------------------------------------------------------------------------
+# the transposed product
+
+
+@dataclass(frozen=True)
+class TSched:
+    """The CSR transpose of an :class:`EdgeTileMat`'s structure: transposed
+    entry j (in column-major order, rows ascending within a column, the
+    stable order) is the matrix's CSR entry ``perm[j]``, at row
+    ``t_rows[j]``. It replaces the JAX package's column-window step
+    schedule of the same name (``spmm_edges.py:748-781``)."""
+
+    t_indptr: torch.Tensor  # int64 [n_in + 1]
+    t_rows: torch.Tensor  # int32 [nnz]
+    perm: torch.Tensor  # int32 [nnz]
+
+
+def transposed_schedule(mat: EdgeTileMat) -> TSched:
+    """Build ``mat``'s :class:`TSched` on its device: one stable sort of
+    the column indices (the counterpart of ``spmm_edges.py:842-977``).
+    Build it once per matrix and pass it with the matrix, as
+    ``ops/edge_attention.build_attention_graph`` does."""
+    dev = mat.indices.device
+    cols, order = torch.sort(mat.indices, stable=True)
+    t_indptr = torch.zeros(mat.n_in + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(cols.long(), minlength=mat.n_in), 0, out=t_indptr[1:])
+    del cols
+    rows = torch.repeat_interleave(torch.arange(mat.n_out, dtype=torch.int32, device=dev), mat.indptr.diff(),
+                                   output_size=mat.nnz)
+    t_rows = rows[order]
+    del rows
+    return TSched(t_indptr=t_indptr, t_rows=t_rows, perm=order.to(torch.int32))
+
+
+def spmm_edge_tiles_t(mat: EdgeTileMat, sched: TSched, a: torch.Tensor,
+                      w_slots: torch.Tensor | None = None) -> torch.Tensor:
+    """``C = Mᵀ @ A`` for row-major A (n_out, d); returns (n_in, d) float32.
+
+    ``w_slots`` (one value per entry, CSR entry order) overrides the
+    matrix's weights: the backward-B path of the SDDMM and of the weighted
+    aggregation. A and the weights are cast to the compute dtype (bfloat16
+    or float32); the kernel sums in float32. A column with no entries gives
+    zeros. The int8 mode has no transposed product
+    (``spmm_edges.py:1113-1117``)."""
+    n, d = a.shape
+    if n != mat.n_out:
+        raise ValueError(f"A has {n} rows, transposed edge matrix expects {mat.n_out}")
+    if mat.dtype_name == "int8":
+        raise ValueError(
+            "the transposed edge kernel has no int8 mode — build the matrix in bfloat16 for attention/gradient paths"
+        )
+    cdtype = DTYPES[mat.dtype_name]
+    w = mat.w if w_slots is None else w_slots.to(cdtype).contiguous()
+    am = pad_features(a, cdtype)
+    return edge_t(sched.t_indptr, sched.t_rows, sched.perm, w, am)[:, :d]

@@ -139,7 +139,7 @@ def gather_plain(indptr, indices, w, b) -> torch.Tensor:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return load_csr_lib("spmm_gather", mggcn_gather=1)
+    return load_csr_lib("spmm_gather", mggcn_gather=(4, 1))
 
 
 def gather(indptr: torch.Tensor, indices: torch.Tensor, w: torch.Tensor | None, b: torch.Tensor) -> torch.Tensor:

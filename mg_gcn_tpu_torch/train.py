@@ -1,5 +1,5 @@
-"""Single-card training: the aggregation pair, the train step and the epoch
-loop.
+"""Single-card training: the aggregation pair, the train step (GCN and
+GAT) and the GCN epoch loop.
 
 Port of ``mg_gcn_tpu/train.py:121-432`` (the reference's single-GPU path,
 main.cpp:113-133): per epoch ``forward -> backward -> update -> sync``,
@@ -129,18 +129,31 @@ def build_agg_pair(
 
 
 def make_train_step(
-    config: GCNConfig, hparams: dict | None = None, optimizer: str = "adam"
+    config, hparams: dict | None = None, optimizer: str = "adam", model: str = "gcn"
 ) -> Callable:
-    """The full GCN train step:
-    (params, opt_state, pair, x, y, mask) -> (params, opt_state, loss, acc)."""
+    """The full train step:
+    (params, opt_state, pair, x, y, mask) -> (params, opt_state, loss, acc).
+
+    ``model`` selects the family: "gcn" (``pair`` an :class:`AggPair`,
+    parity or exact per ``config.parity``) or "gat" (``pair`` the
+    ``models.gat.build_gat_graph`` pair, exact autograd), as
+    ``mg_gcn_tpu/train.py:283-290`` dispatches."""
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
+    if model == "gcn":
+        lag = loss_and_grad
+    elif model == "gat":
+        from .models.gat import loss_and_grad as lag
+    elif model == "sage":
+        raise NotImplementedError("model 'sage' is not ported yet: ROADMAP queue 1 item 6")
+    else:
+        raise ValueError(f"unknown model {model!r}")
     hp = dict(adam.DEFAULT_HPARAMS)
     if hparams:
         hp.update(hparams)
 
     def step(params, opt_state, pair, x, y, mask):
-        loss, acc, grads = loss_and_grad(params, pair, x, y, config, mask)
+        loss, acc, grads = lag(params, pair, x, y, config, mask)
         with torch.no_grad():
             if optimizer == "adam":
                 params, opt_state = adam.adam_update(params, grads, opt_state, **hp)

@@ -14,10 +14,11 @@ import torch
 
 from mg_gcn_tpu_torch import sparse
 from mg_gcn_tpu_torch.formats import CSRData, Dataset
+from mg_gcn_tpu_torch.ops import sddmm as sd
 from mg_gcn_tpu_torch.ops import spmm_edges as se
 from mg_gcn_tpu_torch.ops import spmm_gather as sg
 from mg_gcn_tpu_torch.ops import spmm_pattern as sp
-from mg_gcn_tpu_torch.train import build_agg_pair, train
+from mg_gcn_tpu_torch.train import build_agg_pair, make_train_step, train
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden")
 pytestmark = pytest.mark.cuda
@@ -266,3 +267,101 @@ def test_train_on_card_matches_cpu_o_nnz_engines(impl):
 def test_auto_picks_edge_for_a_weighted_graph():
     g = sparse.random_graph(3000, 20, seed=1, weights="uniform")
     assert isinstance(build_agg_pair(g, impl="auto", device="cuda").fwd, se.EdgeTileMat)
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels: sddmm, sddmm_qskip and edge_t
+
+
+def _dense_operand(n, d, d_pad, dtype, seed):
+    """(n, d_pad) operand with d live features and zero padding."""
+    out = _operand(n, d_pad, dtype, seed)
+    out[:, d:] = 0
+    return out
+
+
+@pytest.mark.parametrize("d", [1, 2, 41, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_sddmm_kernels_match_plain(hub_graph, dtype, d):
+    """Every score within the float32 sum bound of the plain version in
+    float64 on the same rounded inputs (a degree-5,000 hub row, empty rows
+    100..199), and the q-range kernel bitwise equal to the default."""
+    indptr, indices = _csr_on_card(hub_graph)
+    d_pad = max(8, -(-d // 8) * 8)
+    a = _dense_operand(hub_graph.nrows, d, d_pad, dtype, seed=d)
+    b = _dense_operand(hub_graph.ncols, d, d_pad, dtype, seed=d + 1)
+    g = None
+    if dtype == torch.int8:
+        g = torch.zeros(d_pad, device="cuda")
+        g[:d] = torch.rand(d, device="cuda", generator=torch.Generator(device="cuda").manual_seed(d)) * 1e-3
+    key = (str(dtype).removeprefix("torch."), d_pad)
+    before = sd.sddmm.launches[key], sd.sddmm_qskip.launches[key]
+    got = sd.sddmm(indptr, indices, a, b, g)
+    live = torch.nonzero(indptr.diff() > 0).flatten().int()
+    skip = sd.sddmm_qskip(indptr, indices, live, a, b, g)
+    torch.cuda.synchronize()
+    assert (sd.sddmm.launches[key], sd.sddmm_qskip.launches[key]) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (hub_graph.nnz,)
+    assert torch.equal(skip, got)
+    exact = sd.sddmm_plain(indptr, indices, a.double(), b.double(), g)
+    mag = sd.sddmm_plain(indptr, indices, a.double().abs(), b.double().abs(), g)
+    _assert_within_sum_error(got, exact, mag, torch.tensor(float(d_pad), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("d", [1, 2, 41, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_t_kernel_matches_plain(hub_graph, dtype, d):
+    """Mᵀ(w) A for M = the hub graph's transpose: its transpose walk has the
+    degree-5,000 hub (column 7 of M) and the empty columns 100..199 of M,
+    whose output rows must be zero."""
+    from mg_gcn_tpu_torch import sparse
+
+    m = sparse.transpose(hub_graph)
+    mat = se.edge_tile_mat_from_csr(m, dtype="float32", device="cuda", merge=False)
+    t = se.transposed_schedule(mat)
+    w = mat.w.to(dtype)
+    d_pad = max(8, -(-d // 8) * 8)
+    a = _dense_operand(m.nrows, d, d_pad, dtype, seed=d)
+    key = (str(dtype).removeprefix("torch."), d_pad)
+    before = se.edge_t.launches[key]
+    got = se.edge_t(t.t_indptr, t.t_rows, t.perm, w, a)
+    torch.cuda.synchronize()
+    assert se.edge_t.launches[key] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m.ncols, d_pad)
+    wp = w[t.perm.long()]
+    _assert_within_sum_bound(got, t.t_indptr, t.t_rows, wp, a)
+
+
+def test_transposed_schedule_on_card_equals_cpu(hub_graph):
+    cpu = se.transposed_schedule(se.edge_tile_mat_from_csr(hub_graph, device="cpu", merge=False))
+    gpu = se.transposed_schedule(se.edge_tile_mat_from_csr(hub_graph, device="cuda", merge=False))
+    for name in ("t_indptr", "t_rows", "perm"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+def test_gat_step_on_card_matches_cpu():
+    """One float32 GAT step (two layers, two heads) on the card against the
+    port's CPU step from the same parameters: loss within rtol 1e-5, every
+    gradient leaf within ||card - CPU|| <= 1e-4 ||CPU||."""
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.nn import adam
+
+    ds = Dataset.load(GOLDEN)
+    config = gat.GATConfig(sizes=(ds.num_features, 16, ds.num_labels), heads=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        graph = gat.build_gat_graph(ds.graph, dtype="float32", device=dev)
+        params = gat.init_params(config, 5, device=dev)
+        x = torch.from_numpy(ds.features).to(dev)
+        y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+        out[dev] = gat.loss_and_grad(params, graph, x, y, config)
+        step = make_train_step(config, model="gat")
+        p2, _, loss2, _ = step(params, adam.adam_init(params), graph, x, y, None)
+        out[dev + " step"] = float(loss2)
+    (lc, _, gc), (lg, _, gg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    np.testing.assert_allclose(out["cuda step"], out["cpu step"], rtol=1e-5)
+    for layer_c, layer_g in zip(gc, gg):
+        for k in layer_c:
+            diff = torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k])
+            assert diff <= 1e-4 * torch.linalg.vector_norm(layer_c[k]), k

@@ -309,7 +309,7 @@ def test_cli_save_load_resumes(tmp_path, capsys):
     [
         ["-P", "2", "-R", "1", "train"],
         ["--model", "sage", "train"],
-        ["--model", "gat", "train"],
+        ["-P", "2", "-R", "1", "--model", "gat", "train"],
         ["--f64", "train"],
         ["--mmap", "train"],
         ["--multihost", "train"],
