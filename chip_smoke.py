@@ -15,8 +15,12 @@ the result line:
    ``gather`` {weighted, binary, binary + bfloat16 stream} x d in
    {48, 100, 256} at average degree 50; ``sddmm`` {bfloat16, float32,
    int8} x d in {2, 41, 64, 128}, ``sddmm_qskip`` on the same graph with 90% of
-   its rows emptied (bitwise equal to ``sddmm``) and ``edge_t`` {bfloat16,
-   float32} x d in {2, 41, 64, 128} — each against its plain PyTorch
+   its rows emptied (bitwise equal to ``sddmm``), ``edge_t`` {bfloat16,
+   float32} x d in {2, 41, 64, 128}, ``block_fwd`` / ``block_bwd``
+   {bfloat16, float32, int8} x d in {41, 128} on a banded graph with empty
+   rows, an empty row block and an empty group (whose output rows must be 0)
+   and ``tiled`` float32 x d in {41, 128} on the ELL path's Â — each against
+   its plain PyTorch
    version on the card: float within rtol 1e-5 / atol 1e-6 of the output
    scale of the plain version summed in float64 (same rounded inputs; the
    reference does not move with the order of index_add_'s atomics), int8
@@ -41,11 +45,26 @@ the result line:
    impl="edge" (bfloat16) and impl="gather" (float32), 5 epochs each with
    finite losses, their epoch seconds beside the pattern pair's: evidence
    for the rule of impl="auto";
-7. GAT, card vs CPU — one float32 step of the GAT path's model on
+7. the banded path — bench.py's block-banded graph (bench.py:276-292, n =
+   232,968, 493 draws a row in row ± 4096, ~111M edges) with the main path's
+   features, labels and model: impl="auto" must pick the block pair (its
+   occupancies, T and the store's bytes logged); one float32 step against
+   COO by the rule of phase 4; 5 bfloat16 epochs with losses falling from
+   epoch 0 to 4 and 1 int8 epoch; counters zeroed before and read after:
+   exactly 3 ``block_fwd`` + 2 ``block_bwd`` launches an epoch in each
+   dtype; build seconds, epoch median, peak memory; then (logged only) 5
+   bfloat16 epochs each of the pattern pair and ``edge`` on the same graph;
+8. block kernels at the banded path's shape — as phase 5;
+9. the ELL path — ``train(impl="pallas")`` at the main path's widths on
+   random_graph(20,000, 64, seed=3): one float32 step against COO, 5
+   float32 epochs with exactly 5 ``tiled`` launches an epoch, K and the
+   store's bytes logged; ``tiled`` at the path's widths as phase 5; and
+   ``TiledMat.from_csr`` must refuse the main path's graph, as JAX's does;
+10. GAT, card vs CPU — one float32 step of the GAT path's model on
    random_graph(20,000, 16, seed=3) on the card against the port's CPU
    path from the same seed-99 parameters: the loss within rtol 1e-5 and
    every gradient leaf ||card - CPU|| <= 1e-4 ||CPU||;
-8. the GAT path — bench.py's GAT headline (bench.py:892-893):
+11. the GAT path — bench.py's GAT headline (bench.py:892-893):
    GATConfig(sizes=(64, 64, 41), heads=2) on the main path's graph with
    planted_features(labels, 64, noise=2.0, seed=8), through
    ``models.gat.build_gat_graph`` (bfloat16) and
@@ -54,32 +73,34 @@ the result line:
    epoch 0 to 4, their median, peak memory; counters zeroed before the
    epochs and read after: exactly 20 ``sddmm`` + 20 ``edge`` + 8
    ``edge_t`` launches an epoch, by width;
-9. attention kernels at the GAT path's shape — ``sddmm`` and
+12. attention kernels at the GAT path's shape — ``sddmm`` and
    ``sddmm_qskip`` x {bfloat16, float32, int8} and ``edge_t`` x {bfloat16,
    float32}, x d in {2, 41, 64} (the path's d_pad 8, 48 and 64), as phase
    5, beside torch.sparse.sampled_addmm (SDDMM) and torch.sparse.mm on the
    transposed CSR (``edge_t``), float32 yardsticks the port never calls;
    ``edge`` bfloat16 at the same widths; d = 128 is checked and logged, not
    put in the kernels line (no launch of the path has it);
-10. path A, weighted Reddit on the edge engine — the same graph with
+13. path A, weighted Reddit on the edge engine — the same graph with
    bench.py's edge values (rng(5).random + 0.5): auto must pick ``edge``;
    one float32 step against the COO engine by the rule of phase 4; 5
    bfloat16 epochs and 1 int8 epoch with finite losses; counters zeroed
    before and read after: exactly 5 ``edge`` launches an epoch (float32,
    bfloat16) and 5 ``edge_i8`` in the int8 epoch;
-11. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
+14. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
    (logged only) ``gather`` on the same matrix;
-12. path B, products scale on the gather engine — BASELINE config 2's model
+15. path B, products scale on the gather engine — BASELINE config 2's model
    (100 features, 48 classes, sizes (100, 256, 256, 48)) on bench.py's
    uniform products graph, random_graph(2,449,029, 50, seed=3): auto must
    pick ``gather`` (the binary pair); one float32 step against the COO
    engine; 5 epochs with finite losses and exactly 5 ``gather`` launches an
    epoch; peak memory and the pair's build seconds;
-13. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
+16. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
    (logged only) ``edge`` on the same matrix;
-14. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
+17. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
    ``... --model gat --heads 2 -E 3 train <dir> 1 16`` on a small binary
-   dataset: stderr lines and the timer CSVs.
+   dataset; ``python -m mg_gcn_tpu_torch.data.prep synthetic`` (n = 20,000)
+   and ``prep cluster`` (RCM), then ``--impl block`` and ``--impl pallas``
+   ``-E 3 train <dir>_clustered 1 16``: stderr lines and the timer CSVs.
 
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
@@ -120,10 +141,14 @@ KERNELS = {
     "sddmm": "mg_gcn_tpu/ops/sddmm.py:123",
     "sddmm_qskip": "mg_gcn_tpu/ops/sddmm.py:61",
     "edge_t": "mg_gcn_tpu/ops/spmm_edges.py:980",
+    "block_fwd": "mg_gcn_tpu/ops/spmm_pattern_sparse.py:366",
+    "block_bwd": "mg_gcn_tpu/ops/spmm_pattern_sparse.py:392",
+    "tiled": "mg_gcn_tpu/ops/spmm_pallas.py:161",
 }
 SOURCES = {"pattern_fwd": "spmm_pattern.cu", "pattern_bwd": "spmm_pattern.cu", "edge": "spmm_edges.cu",
            "edge_i8": "spmm_edges.cu", "gather": "spmm_gather.cu", "sddmm": "sddmm.cu", "sddmm_qskip": "sddmm.cu",
-           "edge_t": "spmm_edges.cu"}
+           "edge_t": "spmm_edges.cu", "block_fwd": "spmm_pattern_sparse.cu", "block_bwd": "spmm_pattern_sparse.cu",
+           "tiled": "spmm_tiled.cu"}
 # path A: bench.py's weighted section (edge values rng(5).random + 0.5 on
 # the main path's graph); path B: BASELINE config 2's model on bench.py's
 # uniform products-scale graph (bench.py:586, 607, 623)
@@ -137,6 +162,10 @@ DEG_GATHER_SMALL = 50
 # is checked and logged besides, outside the kernels line.
 GAT_SIZES, GAT_HEADS, GAT_WIDTHS, ATT_EXTRA_WIDTHS = (64, 64, CLASSES), 2, (2, 41, 64), (128,)
 DEG_GAT_CPU = 16  # the card-vs-CPU step's graph: random_graph(N_SMALL, 16, seed=3)
+# the banded path: bench.py's block-banded graph (bench.py:276-292), 493 draws
+# a row in row ± 4096, rng(7), on the main path's model; the small banded
+# graph of phase 3 draws 64 a row in row ± 1024
+BAND_HALF, BAND_SEED, BAND_SMALL_DRAWS, BAND_SMALL_HALF = 4096, 7, 64, 1024
 
 
 def log(*args):
@@ -221,6 +250,58 @@ def phase_kernels_small() -> None:
                     f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
 
 
+def small_banded_graph():
+    """A banded graph at n = 20,000 (BAND_SMALL_DRAWS draws a row in row ±
+    BAND_SMALL_HALF) with every tenth row empty, an empty row block (rows
+    4096-4607) and an empty group (columns 8192-12287)."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.formats import CSRData
+
+    g = sparse.banded_graph(N_SMALL, BAND_SMALL_DRAWS, BAND_SMALL_HALF, seed=BAND_SEED)
+    rows = np.repeat(np.arange(N_SMALL), np.diff(g.indptr))
+    keep = (rows % 10 != 0) & ((rows < 4096) | (rows >= 4608)) & ((g.indices < 8192) | (g.indices >= 12288))
+    indptr = np.zeros(N_SMALL + 1, np.int64)
+    np.cumsum(np.bincount(rows[keep], minlength=N_SMALL), out=indptr[1:])
+    return CSRData(indptr, g.indices[keep], g.data[keep], g.shape)
+
+
+def phase_block_kernels_small() -> None:
+    """block_fwd / block_bwd x {bfloat16, float32, int8} x WIDTHS on the
+    small banded graph, and tiled (float32) x WIDTHS on the ELL path's Â of
+    random_graph(N_SMALL, DEG_SMALL, seed=3), each against its plain version
+    summed in float64; the rows no tile reaches must come out 0."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
+    from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
+
+    fwd, _ = sps.block_pattern_pair_from_binary_csr(small_banded_graph(), device="cuda")
+    log(f"  small banded graph: {fwd.num_tiles} tiles, tile occupancy {fwd.occupancy:.3f},"
+        f" plane occupancy {fwd.plane_occ:.3f}")
+    for name, kernel, plain, empty in (("block_fwd", sps.block_fwd, sps.block_fwd_plain, slice(8192, 12288)),
+                                       ("block_bwd", sps.block_bwd, sps.block_bwd_plain, slice(4096, 4608))):
+        for dtype in DTYPES:
+            for d in WIDTHS:
+                b = operand(fwd.n_pad, d, dtype, seed=d)
+                got = kernel(fwd, b)
+                torch.cuda.synchronize()
+                if got[empty].any():
+                    raise AssertionError(f"{name} {dtype} d={d}: rows {empty} no tile reaches are not 0")
+                err, use = check_close(f"{name} {dtype} d={d}", got, plain(fwd, b, torch.float64), dtype)
+                ms = cuda_ms(lambda: kernel(fwd, b), 10)
+                plain_ms = cuda_ms(lambda: plain(fwd, b), 3)
+                log(f"  {name} {dtype:8s} d={d:3d}: max_err {err:.3e} (tolerance used {use:.3f})"
+                    f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
+    a = sparse.normalize(sparse.random_graph(N_SMALL, DEG_SMALL, seed=3), axis=True)
+    mat = tpl.TiledMat.from_csr(a, device="cuda")
+    for d in WIDTHS:
+        b = operand(mat.n_cb * mat.bc, d, "float32", seed=d)[:, :d].contiguous()
+        (err, use), ms, plain_ms = check_and_time(
+            f"tiled d={d}", lambda: tpl.tiled(mat, b), lambda: tpl.tiled_plain(mat, b, torch.float64), "float32",
+            10, lambda: tpl.tiled_plain(mat, b), 3)
+        log(f"  tiled   float32  d={d:3d}: max_err {err:.3e} (tolerance used {use:.3f})"
+            f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms (K = {mat.ell_k})")
+
+
 def main_dataset():
     from mg_gcn_tpu_torch import sparse
     from mg_gcn_tpu_torch.formats import Dataset
@@ -244,10 +325,12 @@ def wrappers() -> dict:
     from mg_gcn_tpu_torch.ops import spmm_pattern as sp
 
     from mg_gcn_tpu_torch.ops import sddmm as sd
+    from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
+    from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
 
     return {"pattern_fwd": sp.pattern_fwd, "pattern_bwd": sp.pattern_bwd, "edge": se.edge,
             "edge_i8": se.edge_i8, "gather": sg.gather, "sddmm": sd.sddmm, "sddmm_qskip": sd.sddmm_qskip,
-            "edge_t": se.edge_t}
+            "edge_t": se.edge_t, "block_fwd": sps.block_fwd, "block_bwd": sps.block_bwd, "tiled": tpl.tiled}
 
 
 def counts() -> dict:
@@ -507,12 +590,13 @@ def phase_csr_kernels_small() -> None:
                 f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
 
 
-def drive_path(engine: str, ds, hidden, runs) -> dict:
-    """One O(nnz)-engine path through the entry points a user calls:
-    ``build_agg_pair(impl="auto")`` must pick ``engine``; its float32 step
-    is held against the COO engine; then ``train(impl="auto")`` for each
-    (pattern_dtype, epochs) of ``runs`` with finite losses. The launch
-    counters are zeroed just before and read just after."""
+def drive_path(engine: str, ds, hidden, runs, impl: str = "auto") -> dict:
+    """One path through the entry points a user calls:
+    ``build_agg_pair(impl=impl)`` must give ``engine`` (impl="auto" must
+    pick it); its float32 step is held against the COO engine; then
+    ``train(impl=impl)`` for each (pattern_dtype, epochs) of ``runs`` with
+    finite losses. The launch counters are zeroed just before and read just
+    after."""
     from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
     from mg_gcn_tpu_torch.train import ENGINE_OF, build_agg_pair, train
 
@@ -525,11 +609,11 @@ def drive_path(engine: str, ds, hidden, runs) -> dict:
 
     reset_counts()  # the path starts here
     t0 = time.perf_counter()
-    pair = build_agg_pair(ds.graph, impl="auto", pattern_dtype="float32", device=dev)
+    pair = build_agg_pair(ds.graph, impl=impl, pattern_dtype="float32", device=dev)
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
     if ENGINE_OF[type(pair.fwd)] != engine:
-        raise AssertionError(f"impl='auto' chose {type(pair.fwd).__name__}, not the {engine} engine")
+        raise AssertionError(f"impl={impl!r} chose {type(pair.fwd).__name__}, not the {engine} engine")
     step = loss_and_grad(params, pair, x, y, config)
     torch.cuda.synchronize()
     out["fwd"] = pair.fwd  # the forward matrix, for the kernels at this path's shape
@@ -546,7 +630,7 @@ def drive_path(engine: str, ds, hidden, runs) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     for dtype, epochs in runs:
-        res = train(ds, hidden, epochs=epochs, impl="auto", pattern_dtype=dtype, device=dev)
+        res = train(ds, hidden, epochs=epochs, impl=impl, pattern_dtype=dtype, device=dev)
         if res.engine != engine or not all(math.isfinite(v) for v in res.losses):
             raise AssertionError(f"{engine} {dtype} run: engine {res.engine}, losses {res.losses}")
         out[dtype] = dict(losses=res.losses, accs=res.accs, epoch_seconds=res.epoch_seconds)
@@ -561,15 +645,16 @@ def drive_path(engine: str, ds, hidden, runs) -> dict:
     return out
 
 
-def phase_engines_binary(ds, pattern_median: float) -> None:
-    """The O(nnz) engines on the main path's binary graph, where impl="auto"
-    picks the pattern pair: ``train`` with impl="edge" in bfloat16 (the
-    pattern run's dtype) and impl="gather" in float32 (its one mode), EPOCHS
-    epochs each, for the rule of impl="auto" (ROADMAP queue 1 item 5b).
-    Losses must be finite; no launch counter is read."""
+def phase_engines_binary(ds, own: str, own_median: float, runs=(("edge", "bfloat16"), ("gather", "float32"))) -> None:
+    """Other engines on a binary graph where impl="auto" picks ``own``
+    (bfloat16 epoch median ``own_median``): ``train`` with each (impl,
+    dtype) of ``runs`` — by default impl="edge" in bfloat16 (the auto run's
+    dtype) and impl="gather" in float32 (its one mode) — EPOCHS epochs each,
+    for the rule of impl="auto" (ROADMAP queue 1 item 5b). Losses must be
+    finite; no launch counter is read."""
     from mg_gcn_tpu_torch.train import train
 
-    for impl, dtype in (("edge", "bfloat16"), ("gather", "float32")):
+    for impl, dtype in runs:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = train(ds, HIDDEN, epochs=EPOCHS, impl=impl, pattern_dtype=dtype, device="cuda", log=False)
@@ -578,7 +663,7 @@ def phase_engines_binary(ds, pattern_median: float) -> None:
             raise AssertionError(f"{impl} on the binary graph: engine {res.engine}, losses {res.losses}")
         steady = sorted(res.epoch_seconds[1:])
         log(f"  {impl} {dtype} on the binary graph: epoch median (epochs 1-{EPOCHS - 1})"
-            f" {steady[len(steady) // 2]:.5f} s (pattern bfloat16 {pattern_median:.5f} s),"
+            f" {steady[len(steady) // 2]:.5f} s ({own} bfloat16 {own_median:.5f} s),"
             f" epochs {res.epoch_seconds}, losses {res.losses[0]} -> {res.losses[-1]},"
             f" peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, build + train {total:.1f} s")
         del res
@@ -717,6 +802,139 @@ def phase_gather_main(fwd, launches: dict) -> list[dict]:
     del lib
     cross_engine("path B's Aᵀ (gather regime)", fwd, None, measured)
     return [r for r in measured if r["dtype"] == "float32"]  # the path's own mode; the stream row is logged only
+
+
+# ---------------------------------------------------------------------------
+# the clustered-graph path (block pair) and the ELL path (tiled)
+
+
+def banded_dataset(ds):
+    """bench.py's block-banded graph at the main path's size (bench.py:
+    276-292: 493 draws a row in row ± 4096, rng(7), duplicates merged, no
+    self loops) with the main path's features and labels."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.formats import Dataset
+
+    t0 = time.perf_counter()
+    g = sparse.banded_graph(N_MAIN, DEG_MAIN, BAND_HALF, seed=BAND_SEED)
+    log(f"  banded graph n={g.nrows} nnz={g.nnz} built in {time.perf_counter() - t0:.1f} s")
+    return Dataset(graph=g, features=ds.features, labels=ds.labels, sets=ds.sets)
+
+
+def phase_banded_path(ds) -> dict:
+    """The banded graph through ``drive_path``: impl="auto" must pick the
+    block pair; its float32 step against COO; EPOCHS bfloat16 epochs with
+    losses falling from the first to the last, and one int8 epoch; exactly
+    3 block_fwd + 2 block_bwd launches an epoch in each dtype."""
+    from mg_gcn_tpu_torch.ops.spmm_pattern_sparse import estimate_occupancy
+
+    t0 = time.perf_counter()
+    tile_occ, plane_occ = estimate_occupancy(ds.graph)
+    log(f"  estimate_occupancy: tile {tile_occ:.4f}, plane {plane_occ:.4f} ({time.perf_counter() - t0:.2f} s)")
+    out = drive_path("block", ds, HIDDEN, [("bfloat16", EPOCHS), ("int8", 1)])
+    fwd = out["fwd"]
+    log(f"  block store: T = {fwd.num_tiles} tiles of {fwd.tile_r} x 128 words, {fwd.store_bytes / 1e9:.3f} GB"
+        f" (dense pack {fwd.n_pad ** 2 / 8e9:.2f} GB); stored tiles' plane occupancy {fwd.plane_occ:.4f}")
+    want = {}
+    for dtype, epochs in (("float32", 1), ("bfloat16", EPOCHS), ("int8", 1)):
+        want[("block_fwd", dtype)], want[("block_bwd", dtype)] = 3 * epochs, 2 * epochs
+    expect_launches(out["launches"], want)
+    losses = out["bfloat16"]["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"banded bf16 losses {losses}: not falling")
+    steady = sorted(out["bfloat16"]["epoch_seconds"][1:])
+    out["bf16_epoch_s_median"] = steady[len(steady) // 2]
+    log(f"  block bf16 epoch median (epochs 1-{EPOCHS - 1}) {out['bf16_epoch_s_median']:.5f} s")
+    return out
+
+
+def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
+    """block_fwd and block_bwd at the banded path's shape, each dtype x
+    width against its plain version, timed beside the bound (the store, B
+    and C at the memory rate, or 2·nnz·d operations), the plain version and
+    torch.sparse.mm on the float32 Pᵀ / P (a yardstick the port never
+    calls)."""
+    from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
+
+    n, n_pad, nnz = fwd.n, fwd.n_pad, fwd.nnz
+    index_bytes = 4 * (3 * fwd.num_tiles + fwd.n_pad // fwd.tile_r + fwd.n_pad // sps.GROUP + 2)
+    rows = []
+    for name, kernel, plain in (("block_fwd", sps.block_fwd, sps.block_fwd_plain),
+                                ("block_bwd", sps.block_bwd, sps.block_bwd_plain)):
+        lib = library_sparse(ds, transpose=name == "block_fwd")
+        for dtype in DTYPES:
+            for d in WIDTHS:
+                b = operand(n_pad, d, dtype, seed=d)
+                check, ms, plain_ms = check_and_time(
+                    f"{name} {dtype} d={d} (banded shape)", lambda: kernel(fwd, b),
+                    lambda: plain(fwd, b, None if dtype == "int8" else torch.float64), dtype, 5,
+                    lambda: plain(fwd, b), 2)
+                library_ms = None
+                if dtype == "float32":
+                    bl = b[:n, :d].contiguous()
+                    library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+                    del bl
+                moved = fwd.store_bytes + index_bytes + n * d * elt_size(b) + n * d * 4
+                rows.append(kernel_row(name, dtype, d, n, nnz, launches[name].get((dtype, b.shape[1]), 0),
+                                       check, ms, plain_ms, library_ms, moved))
+                log_row(rows[-1])
+                del b
+                torch.cuda.empty_cache()
+        del lib
+    return rows
+
+
+def ell_dataset(ds):
+    """The ELL path's data: random_graph(N_SMALL, DEG_SMALL, seed=3) with the
+    main path's first N_SMALL feature rows and labels (608 features, 41
+    classes)."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.formats import Dataset
+
+    return Dataset(graph=sparse.random_graph(N_SMALL, DEG_SMALL, seed=3), features=ds.features[:N_SMALL],
+                   labels=ds.labels[:N_SMALL], sets=ds.sets[:N_SMALL])
+
+
+def phase_ell_path(ds_main) -> list[dict]:
+    """``train(impl="pallas")`` at the main path's widths on the ELL graph:
+    its float32 step against COO, EPOCHS float32 epochs with exactly 5
+    ``tiled`` launches an epoch; then the kernel at the path's widths
+    against its plain version, timed beside its bound and torch.sparse.mm on
+    the same Âᵀ; and ``TiledMat.from_csr`` must refuse the main path's
+    graph (its store would pass 4e9 bytes), as the JAX package's does."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
+
+    ds = ell_dataset(ds_main)
+    out = drive_path("pallas", ds, HIDDEN, [("float32", EPOCHS)], impl="pallas")
+    fwd = out["fwd"]
+    log(f"  ELL store: K = {fwd.ell_k} slots, {fwd.n_rb} x {fwd.n_cb} tiles of {fwd.br}, {fwd.store_bytes / 1e9:.3f} GB"
+        " a direction")
+    expect_launches(out["launches"], {("tiled", "float32"): 5 * (1 + EPOCHS)})
+    a_t = sparse.transpose(sparse.normalize(ds.graph, axis=True))
+    lib = csr_library(torch.from_numpy(a_t.indptr).cuda(), torch.from_numpy(a_t.indices).cuda(),
+                      torch.from_numpy(a_t.data).cuda(), a_t.shape)
+    rows = []
+    for d in (128, 41):
+        b = operand(fwd.n_cb * fwd.bc, d, "float32", seed=d)[:, :d].contiguous()
+        check, ms, plain_ms = check_and_time(
+            f"tiled d={d} (ELL path shape)", lambda: tpl.tiled(fwd, b), lambda: tpl.tiled_plain(fwd, b, torch.float64),
+            "float32", 5, lambda: tpl.tiled_plain(fwd, b), 2)
+        bl = b[: fwd.n_cols].contiguous()
+        library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+        used = int(fwd.nsteps.sum()) * fwd.br  # the slots the kernel reads: k < nsteps
+        moved = 8 * used + 4 * fwd.nsteps.numel() + fwd.n_cols * d * 4 + fwd.n_rows * d * 4
+        rows.append(kernel_row("tiled", "float32", d, fwd.n_rows, fwd.nnz,
+                               out["launches"]["tiled"].get(("float32", d), 0), check, ms, plain_ms, library_ms, moved))
+        log_row(rows[-1])
+    t0 = time.perf_counter()
+    try:
+        tpl.TiledMat.from_csr(ds_main.graph, device="cuda")
+    except ValueError as exc:
+        log(f"  TiledMat.from_csr on the main path's graph refuses ({time.perf_counter() - t0:.1f} s): {exc}")
+    else:
+        raise AssertionError("TiledMat.from_csr built the main path's graph; the JAX package's refuses it")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1044,6 +1262,16 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
     return rows
 
 
+def run_module(tmp: str, module: str, args: list[str]) -> str:
+    """``python -m <module> <args>`` from the checkout; exit code 0; its stdout."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=tmp, env=env, capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"{module} {args} exited {r.returncode}:\n{r.stderr}")
+    return r.stdout
+
+
 def run_cli(tmp: str, ds, args: list[str], csv_name: str) -> list[str]:
     """``python -m mg_gcn_tpu_torch.cli -E 3 ... train <toy> ...``: exit code
     0, the JAX CLI's three header lines, three ``epoch loss acc seconds``
@@ -1073,8 +1301,11 @@ def run_cli(tmp: str, ds, args: list[str], csv_name: str) -> list[str]:
 def phase_cli() -> None:
     """The CLI on a small binary dataset: GCN (``train <dir> 2 128 128``,
     where ``auto`` must pick the pattern pair) and GAT (``--model gat
-    --heads 2 train <dir> 1 16``)."""
+    --heads 2 train <dir> 1 16``); then ``data.prep synthetic`` and ``prep
+    cluster`` (RCM) write a dataset and its clustered copy, and GCN trains on
+    the copy with ``--impl block`` and ``--impl pallas``."""
     from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.cli import _csv_name
     from mg_gcn_tpu_torch.formats import Dataset
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1092,6 +1323,15 @@ def phase_cli() -> None:
         if not any(line.startswith("aggregation engine: pattern") for line in lines):
             raise AssertionError("CLI: no pattern engine line")
         run_cli(tmp, ds, ["--model", "gat", "--heads", "2", "train", toy, "1", "16"], "toy_32_16_7_1.csv")
+
+        log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["synthetic", "-n", "20000", "--deg", "16",
+                                                                  "--feat", "32", "--labels", "7", "-o", tmp]).strip())
+        log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["cluster", os.path.join(tmp, "synthetic")]).strip())
+        clustered = os.path.join(tmp, "synthetic_clustered")
+        ds = Dataset.load(clustered)
+        csv = _csv_name(clustered, [ds.num_features, 16, ds.num_labels], 1)
+        for impl in ("block", "pallas"):
+            run_cli(tmp, ds, ["--impl", impl, "train", clustered, "1", "16"], csv)
 
 
 def main() -> int:
@@ -1131,6 +1371,7 @@ def main() -> int:
     phase_kernels_small()
     phase_csr_kernels_small()
     phase_attention_kernels_small()
+    phase_block_kernels_small()
 
     phase(f"[4] main path, n = {N_MAIN}")
     ds = main_dataset()
@@ -1144,19 +1385,34 @@ def main() -> int:
     torch.cuda.empty_cache()  # the 6.8 GB pack goes before the O(nnz) paths
 
     phase("[6] the O(nnz) engines on the main path's binary graph")
-    phase_engines_binary(ds, main_path["bf16_epoch_s_median"])
+    phase_engines_binary(ds, "pattern", main_path["bf16_epoch_s_median"])
 
-    phase(f"[7] GAT: one float32 step on the card against the CPU, n = {N_SMALL}")
+    phase(f"[7] banded path: bench.py's block-banded graph on the block pair, n = {N_MAIN}")
+    ds_band = banded_dataset(ds)
+    band = phase_banded_path(ds_band)
+    phase_engines_binary(ds_band, "block", band["bf16_epoch_s_median"],
+                         runs=(("pattern", "bfloat16"), ("edge", "bfloat16")))
+
+    phase("[8] block kernels at the banded path's shape")
+    kernels += phase_block_kernels_main(ds_band, band.pop("fwd"), band["launches"])
+    del ds_band
+    torch.cuda.empty_cache()
+
+    phase(f"[9] ELL path: impl='pallas' on random_graph({N_SMALL}, {DEG_SMALL}, seed=3)")
+    kernels += phase_ell_path(ds)
+    torch.cuda.empty_cache()
+
+    phase(f"[10] GAT: one float32 step on the card against the CPU, n = {N_SMALL}")
     phase_gat_card_vs_cpu()
 
-    phase(f"[8] GAT path, n = {N_MAIN}")
+    phase(f"[11] GAT path, n = {N_MAIN}")
     gat_path = phase_gat_path(ds)
 
-    phase("[9] attention kernels at the GAT path's shape")
+    phase("[12] attention kernels at the GAT path's shape")
     kernels += phase_gat_kernels(gat_path.pop("graph"), gat_path["launches"])
     torch.cuda.empty_cache()
 
-    phase("[10] path A: weighted Reddit on the edge engine")
+    phase("[13] path A: weighted Reddit on the edge engine")
     from mg_gcn_tpu_torch.ops.spmm_edges import expected_fill
 
     ds_a = path_a_dataset(ds)
@@ -1168,11 +1424,11 @@ def main() -> int:
                                          ("edge_i8", "int8"): 5})
     del ds_a, g
 
-    phase("[11] edge kernels at path A's shape")
+    phase("[14] edge kernels at path A's shape")
     kernels += phase_edge_main(path_a.pop("fwd"), path_a["launches"])
     torch.cuda.empty_cache()
 
-    phase(f"[12] path B: products scale on the gather engine, n = {N_PROD}")
+    phase(f"[15] path B: products scale on the gather engine, n = {N_PROD}")
     ds_b = path_b_dataset()
     path_b = drive_path("gather", ds_b, HIDDEN_PROD, [("float32", EPOCHS)])
     if path_b["fwd"].has_w:
@@ -1180,11 +1436,11 @@ def main() -> int:
     expect_launches(path_b["launches"], {("gather", "float32"): 5 * (1 + EPOCHS)})
     del ds_b
 
-    phase("[13] gather kernel at path B's shape")
+    phase("[16] gather kernel at path B's shape")
     kernels += phase_gather_main(path_b.pop("fwd"), path_b["launches"])
     torch.cuda.empty_cache()
 
-    phase("[14] CLI")
+    phase("[17] CLI")
     phase_cli()
     phase("done")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,15 @@
 """mg_gcn_tpu_torch — the PyTorch/CUDA port of mg_gcn_tpu, for NVIDIA Hopper.
 
 Full-batch GCN and GAT training on one card. The aggregation engines — the
-bit-packed dense-pattern pair (``ops/spmm_pattern.py``), the weighted-CSR
-edge engine (``ops/spmm_edges.py``) and the serial-gather engine
-(``ops/spmm_gather.py``) — and the attention stack (``ops/sddmm.py``, the
+bit-packed dense-pattern pair (``ops/spmm_pattern.py``), its block-sparse
+form for clustered graphs (``ops/spmm_pattern_sparse.py``), the
+weighted-CSR edge engine (``ops/spmm_edges.py``), the serial-gather engine
+(``ops/spmm_gather.py``) and the tiled-ELL debug engine
+(``ops/spmm_pallas.py``) — and the attention stack (``ops/sddmm.py``, the
 transposed edge product, ``ops/edge_attention.py``, ``models/gat.py``) run
 on hand-written CUDA kernels (``csrc/``, built with nvcc at first use).
+``python -m mg_gcn_tpu_torch.data.prep`` writes datasets (toy, synthetic,
+DGL/OGB where installed) and reorders one for locality (``cluster``).
 Module names mirror the JAX package so each counterpart is easy to find;
 the JAX package is the reference the tests hold this port against.
 

@@ -28,6 +28,8 @@ SOURCES = {
     "spmm_edges": "spmm_edges.cu",
     "spmm_gather": "spmm_gather.cu",
     "sddmm": "sddmm.cu",
+    "spmm_pattern_sparse": "spmm_pattern_sparse.cu",
+    "spmm_tiled": "spmm_tiled.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

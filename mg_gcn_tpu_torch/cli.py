@@ -39,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--impl",
         default="auto",
         choices=["auto", "pattern", "block", "edge", "gather", "xla", "pallas", "halo"],
-        help="aggregation engine (this port: auto, pattern, edge, gather, xla)",
+        help="aggregation engine (this port: auto, pattern, block, edge, gather, xla, pallas; halo is a later slice)",
     )
     p.add_argument("--model", default="gcn", choices=["gcn", "sage", "gat"])
     p.add_argument("--heads", type=int, default=1,
@@ -50,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--pattern-dtype",
         default="bfloat16",
         choices=["bfloat16", "float32", "int8"],
-        help="operand dtype of the pattern and edge SpMM kernels",
+        help="operand dtype of the pattern, block and edge SpMM kernels",
     )
     p.add_argument("--f64", action="store_true", help="float64 numerics mode")
     p.add_argument("--mmap", action="store_true", help="memory-map features.bin")

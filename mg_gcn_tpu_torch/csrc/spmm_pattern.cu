@@ -25,60 +25,21 @@
 //
 // Offsets into the pack (up to 1.7e9 words) and into B/C are 64-bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "pattern_modes.cuh"
 
 namespace {
 
-constexpr int kGroup = 4096;           // pattern columns per 128-word group
-constexpr int kLaneF = 4;              // features per lane
-constexpr int kChunkF = 32 * kLaneF;   // features per block (grid.y chunks)
+using pattern::add;
+using pattern::kChunkF;
+using pattern::kFull;
+using pattern::kGroup;
+using pattern::kLaneF;
+using pattern::Mode;
+using pattern::zero;
+
 constexpr int kFwdWords = 8;           // forward: words (= warps) per block
 constexpr int kFwdRows = 128;          // forward: pack rows per staged tile
 constexpr int kBwdRows = 8;            // backward: rows (= warps) per block
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
-__device__ __forceinline__ void zero(int4& a) { a = make_int4(0, 0, 0, 0); }
-__device__ __forceinline__ void add(float4& a, const float4& v) {
-  a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
-}
-__device__ __forceinline__ void add(int4& a, const int4& v) {
-  a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
-}
-
-// Operand type -> accumulator type and a 4-feature load widened to it.
-template <typename T> struct Mode;
-
-template <> struct Mode<float> {
-  using Acc = float;
-  using Acc4 = float4;
-  __device__ __forceinline__ static Acc4 load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-};
-
-template <> struct Mode<__nv_bfloat16> {
-  using Acc = float;
-  using Acc4 = float4;
-  __device__ __forceinline__ static Acc4 load(const __nv_bfloat16* p) {
-    uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-};
-
-template <> struct Mode<int8_t> {
-  using Acc = int;
-  using Acc4 = int4;
-  __device__ __forceinline__ static Acc4 load(const int8_t* p) {
-    const char4 v = __ldg(reinterpret_cast<const char4*>(p));
-    return make_int4(v.x, v.y, v.z, v.w);
-  }
-};
 
 // Backward, C = P B. One warp per output row; each lane owns 4 features of
 // the block's 128-feature chunk. The warp streams its row's words 128 at a
@@ -112,41 +73,9 @@ pattern_bwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
     const uint32_t span[4] = {cur.x, cur.y, cur.z, cur.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      uint32_t w = span[q];
-      const int cnt = __popc(w);
-      int incl = cnt;  // inclusive prefix sum of the set-bit counts over lanes
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += t;
-      }
-      const int total = __shfl_sync(kFull, incl, 31);
-      if (total == 0) continue;
       const long long wi = base + 4 * lane + q;  // this lane's word index
-      const int jbase = (int)(wi >> 7) * kGroup + (int)(wi & 127);
-      int pos = incl - cnt;
-      while (w) {
-        const int bit = __ffs(w) - 1;
-        w &= w - 1;
-        list[pos++] = jbase + bit * 128;
-      }
-      __syncwarp();
-      int e = 0;
-      for (; e + 4 <= total; e += 4) {
-        Acc4 v0, v1, v2, v3;
-        zero(v0); zero(v1); zero(v2); zero(v3);
-        if (active) {
-          v0 = Mode<T>::load(bcol + (size_t)list[e] * d_pad);
-          v1 = Mode<T>::load(bcol + (size_t)list[e + 1] * d_pad);
-          v2 = Mode<T>::load(bcol + (size_t)list[e + 2] * d_pad);
-          v3 = Mode<T>::load(bcol + (size_t)list[e + 3] * d_pad);
-        }
-        add(acc, v0); add(acc, v1); add(acc, v2); add(acc, v3);
-      }
-      for (; e < total; ++e) {
-        if (active) add(acc, Mode<T>::load(bcol + (size_t)list[e] * d_pad));
-      }
-      __syncwarp();  // the list is rewritten by the next sub-span
+      pattern::gather_bits<T>(span[q], (int)(wi >> 7) * kGroup + (int)(wi & 127), list, bcol, d_pad,
+                              active, acc);
     }
   }
   if (active) *reinterpret_cast<Acc4*>(c + i * d_pad + f0) = acc;

@@ -9,12 +9,14 @@ Port of ``mg_gcn_tpu/formats.py`` (numpy only, no framework dependency):
 * **Raw dense format**: the shape as uint32 values (one per dimension), then
   the row-major payload in the element dtype.
 
-The header-only ``GraphHeader``, slab reads and mmap loading belong to the
-distributed slice (ROADMAP queue 1 item 9).
+``ensure_pigo_transpose`` writes the transposed ``graph_t.bin`` that prep
+leaves beside a dataset. The header-only ``GraphHeader``, slab reads and
+mmap loading belong to the distributed slice (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass
 
@@ -46,6 +48,16 @@ class CSRData:
     @property
     def ncols(self) -> int:
         return self.shape[1]
+
+    @staticmethod
+    def from_scipy(m) -> "CSRData":
+        m = m.tocsr()
+        return CSRData(
+            indptr=np.asarray(m.indptr),
+            indices=np.asarray(m.indices),
+            data=np.asarray(m.data, dtype=np.float32),
+            shape=(int(m.shape[0]), int(m.shape[1])),
+        )
 
     def to_scipy(self):
         from scipy.sparse import csr_matrix
@@ -122,6 +134,45 @@ def write_pigo_csr(path: str | os.PathLike, csr: CSRData) -> None:
         csr.indptr.astype(vdt).tofile(f)
         csr.indices.astype(edt).tofile(f)
         csr.data.astype(np.float32).tofile(f)
+
+
+def _sha256(path: str) -> str:
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            digest.update(block)
+    return digest.hexdigest()
+
+
+def ensure_pigo_transpose(directory: str | os.PathLike) -> str:
+    """``graph_t.bin`` next to ``graph.bin``: the transposed orientation that
+    per-process slab builds read. Returns its path.
+
+    The transpose is kept only when it was built from the ``graph.bin``
+    that is there now: ``graph_t.bin.sha256`` holds the SHA-256 of the
+    ``graph.bin`` it was built from, and any other content (a rewritten
+    graph, whatever its mtime; a transpose with no digest) rebuilds it.
+    Both files are written under temporary names and renamed into place,
+    the digest last, so a reader never pairs a partial transpose with it.
+    """
+    d = os.fspath(directory)
+    gpath = os.path.join(d, "graph.bin")
+    tpath = os.path.join(d, "graph_t.bin")
+    spath = tpath + ".sha256"
+    want = _sha256(gpath)
+    if os.path.exists(tpath) and os.path.exists(spath):
+        with open(spath) as f:
+            if f.read().strip() == want:
+                return tpath
+    from .sparse import transpose  # deferred: sparse imports formats
+
+    tmp = f"{tpath}.{os.getpid()}.tmp"
+    write_pigo_csr(tmp, transpose(read_pigo_csr(gpath)))
+    os.replace(tmp, tpath)
+    with open(f"{spath}.{os.getpid()}.tmp", "w") as f:
+        f.write(want + "\n")
+    os.replace(f"{spath}.{os.getpid()}.tmp", spath)
+    return tpath
 
 
 def read_dense(path: str | os.PathLike, dtype=np.float32, ndim: int = 2) -> np.ndarray:

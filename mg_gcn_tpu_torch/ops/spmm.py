@@ -22,7 +22,9 @@ import torch
 from ..formats import CSRData
 from .spmm_edges import EdgeTileMat, spmm_edge_tiles
 from .spmm_gather import GatherMat, spmm_gather
+from .spmm_pallas import TiledMat, spmm_tiled
 from .spmm_pattern import PatternMat, round_up, spmm_pattern
+from .spmm_pattern_sparse import BlockPatternMat, spmm_block_pattern
 
 # cap on the gathered (edges, d) block of one COO chunk
 GATHER_BYTES_CAP = 2 << 30
@@ -82,14 +84,20 @@ def _spmm_coo(mat: COOMat, B: torch.Tensor) -> torch.Tensor:
 
 def spmm(mat, B: torch.Tensor) -> torch.Tensor:
     """``C = mat @ B`` for a device-resident :class:`COOMat`,
-    :class:`~.spmm_pattern.PatternMat`, :class:`~.spmm_edges.EdgeTileMat`
-    or :class:`~.spmm_gather.GatherMat`."""
+    :class:`~.spmm_pattern.PatternMat`,
+    :class:`~.spmm_pattern_sparse.BlockPatternMat`,
+    :class:`~.spmm_edges.EdgeTileMat`, :class:`~.spmm_gather.GatherMat` or
+    :class:`~.spmm_pallas.TiledMat`."""
     if isinstance(mat, PatternMat):
         return spmm_pattern(mat, B)
+    if isinstance(mat, BlockPatternMat):
+        return spmm_block_pattern(mat, B)
     if isinstance(mat, EdgeTileMat):
         return spmm_edge_tiles(mat, B)
     if isinstance(mat, GatherMat):
         return spmm_gather(mat, B)
+    if isinstance(mat, TiledMat):
+        return spmm_tiled(mat, B)
     if isinstance(mat, COOMat):
         return _spmm_coo(mat, B)
     raise TypeError(f"no SpMM engine for {type(mat).__name__}")

@@ -164,20 +164,28 @@ def decode_pattern(pack: torch.Tensor, r0: int, r1: int) -> tuple[torch.Tensor, 
     return ri[e] + r0, (wi // 128) * GROUP + bit * 128 + wi % 128
 
 
-def _plain(pack: torch.Tensor, b: torch.Tensor, transpose: bool, acc_dtype: torch.dtype | None) -> torch.Tensor:
+def sum_decoded(pairs, b: torch.Tensor, transpose: bool, acc_dtype: torch.dtype | None) -> torch.Tensor:
+    """C = Pᵀ B (``transpose``) or P B for the (rows, cols) chunks of P's set
+    bits in ``pairs``: ``index_add_`` of B's rows, float operands summed in
+    float32 or ``acc_dtype``; C is float32 (int32 for int8)."""
     n_pad, d_pad = b.shape
     exact = b.dtype == torch.int8
     # int8 sums go through float64, where they stay exact; the result is int32
     src = b.to(torch.float64 if exact else acc_dtype or torch.float32)
     out = torch.zeros((n_pad, d_pad), dtype=src.dtype, device=b.device)
-    rows_per = max(1, _PLAIN_WORDS_CAP // pack.shape[1])
-    for r0 in range(0, n_pad, rows_per):
-        rows, cols = decode_pattern(pack, r0, min(r0 + rows_per, n_pad))
+    for rows, cols in pairs:
         if transpose:
             out.index_add_(0, cols, src.index_select(0, rows))
         else:
             out.index_add_(0, rows, src.index_select(0, cols))
     return out.to(torch.int32) if exact else out
+
+
+def _plain(pack: torch.Tensor, b: torch.Tensor, transpose: bool, acc_dtype: torch.dtype | None) -> torch.Tensor:
+    n_pad = pack.shape[0]
+    rows_per = max(1, _PLAIN_WORDS_CAP // pack.shape[1])
+    pairs = (decode_pattern(pack, r0, min(r0 + rows_per, n_pad)) for r0 in range(0, n_pad, rows_per))
+    return sum_decoded(pairs, b, transpose, acc_dtype)
 
 
 def pattern_fwd_plain(pack: torch.Tensor, b: torch.Tensor, acc_dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Host-side graph/CSR preprocessing (numpy).
+"""Host-side graph/CSR preprocessing (numpy, scipy).
 
-Port of the parts of ``mg_gcn_tpu/sparse.py`` the single-card slice needs:
-degree normalization and the counting-sort transpose (reference
-matrix.hpp:340-424), and the synthetic ``random_graph``. The C++/OpenMP fast
-path (``native``) waits for a later slice (ROADMAP queue 1 item 1).
+Port of ``mg_gcn_tpu/sparse.py`` without its 2-D ``partition_blocks``
+(distributed slice): degree normalization and the counting-sort transpose
+(reference matrix.hpp:340-424), self loops, the uniform partition and its
+communication volume, symmetric permutations and the locality orderings
+of ``data.prep cluster``, and the synthetic generators ``random_graph``,
+``planted_graph`` and ``planted_features``. The C++/OpenMP fast path
+(``native``) waits for a later slice (ROADMAP queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -68,6 +71,101 @@ def transpose(csr: CSRData) -> CSRData:
     )
 
 
+def add_self_loops(csr: CSRData, weight: float = 1.0) -> CSRData:
+    """Add a self edge to every node that has none, rows sorted by column."""
+    import scipy.sparse as ss
+
+    rows = _expand_rows(csr)
+    has = np.zeros(csr.nrows, bool)
+    has[rows[csr.indices == rows]] = True
+    missing = np.flatnonzero(~has).astype(np.int64)
+    if missing.size == 0:
+        return csr
+    coo = csr.to_scipy().tocoo()
+    r = np.concatenate([coo.row.astype(np.int64), missing])
+    c = np.concatenate([coo.col.astype(np.int64), missing])
+    d = np.concatenate([coo.data.astype(np.float32), np.full(missing.size, weight, np.float32)])
+    out = ss.csr_matrix((d, (r, c)), shape=csr.shape)
+    out.sort_indices()
+    return CSRData.from_scipy(out)
+
+
+def uniform_partition(n: int, parts: int) -> np.ndarray:
+    """The reference's uniform 1-D partition, p[i] = i*n/P (main.cpp:139-141):
+    P+1 boundaries."""
+    return np.array([i * n // parts for i in range(parts + 1)], dtype=np.int64)
+
+
+def comm_volume(csr: CSRData, part: np.ndarray) -> np.ndarray:
+    """P×P communication volume of a row partition (prep.py:232-272):
+    volume[i][j] = the distinct columns owned by partition j that partition
+    i's rows reference, the feature rows that travel j→i."""
+    P = len(part) - 1
+    rows = _expand_rows(csr)
+    cols = csr.indices.astype(np.int64)
+    row_block = np.searchsorted(part[1:], rows, side="right")
+    col_block = np.searchsorted(part[1:], cols, side="right")
+    vol = np.zeros((P, P), dtype=np.int64)
+    for i in range(P):
+        sel = row_block == i
+        for j in range(P):
+            vol[i, j] = np.unique(cols[sel & (col_block == j)]).size
+    return vol
+
+
+def permute_symmetric(csr: CSRData, perm: np.ndarray) -> CSRData:
+    """A[perm][:, perm]: ``perm`` maps new index -> old index, as
+    ``features[perm]`` does (the reference's prep.py:24-43, 89-93)."""
+    sp = csr.to_scipy()[perm][:, perm]
+    sp.sort_indices()
+    return CSRData.from_scipy(sp)
+
+
+def cluster_order(csr: CSRData, method: str = "rcm") -> np.ndarray:
+    """A locality-improving node order (new index -> old index) that
+    concentrates edges near the diagonal, where the block-sparse pattern
+    pair skips empty tiles (``ops/spmm_pattern_sparse.py``):
+
+    * "rcm"    — reverse Cuthill-McKee bandwidth reduction (scipy);
+    * "bfs"    — breadth-first order from the node of largest degree, then
+      the unreached nodes;
+    * "degree" — by falling degree.
+    """
+    sym = csr.to_scipy()
+    sym = (sym + sym.T).tocsr()
+    if method == "rcm":
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        return np.asarray(reverse_cuthill_mckee(sym, symmetric_mode=True))
+    if method == "bfs":
+        from scipy.sparse.csgraph import breadth_first_order
+
+        start = int(np.argmax(np.diff(sym.indptr)))
+        order, _ = breadth_first_order(sym, start, return_predecessors=True)
+        seen = np.zeros(csr.nrows, bool)
+        seen[order] = True
+        return np.concatenate([order, np.flatnonzero(~seen)]).astype(np.int64)
+    if method == "degree":
+        return np.argsort(-np.diff(csr.indptr)).astype(np.int64)
+    raise ValueError(f"unknown cluster method {method!r}")
+
+
+def _csr_from_edges(n: int, src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(indptr, indices) of the n×n pattern of the edges, duplicates merged.
+
+    Sort + drop repeats gives the same sorted keys as np.unique, which
+    NumPy >= 2.3 computes with a hash table that is minutes slower at 1e8
+    keys."""
+    key = src * n + dst
+    key.sort()
+    first = np.ones(key.size, dtype=bool)
+    first[1:] = key[1:] != key[:-1]
+    key = key[first]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key // n, minlength=n), out=indptr[1:])
+    return indptr, (key % n).astype(np.int32)
+
+
 def random_graph(
     n: int,
     avg_degree: float,
@@ -85,18 +183,61 @@ def random_graph(
     if self_loops:
         src = np.concatenate([src, np.arange(n, dtype=np.int64)])
         dst = np.concatenate([dst, np.arange(n, dtype=np.int64)])
-    # sort + drop repeats: the same sorted keys as np.unique, which NumPy
-    # >= 2.3 computes with a hash table that is minutes slower at 1e8 keys
-    key = src * n + dst
-    key.sort()
-    first = np.ones(key.size, dtype=bool)
-    first[1:] = key[1:] != key[:-1]
-    key = key[first]
-    src, dst = key // n, key % n
+    indptr, indices = _csr_from_edges(n, src, dst)
     if weights == "ones":
-        data = np.ones(src.shape[0], dtype=np.float32)
+        data = np.ones(indices.shape[0], dtype=np.float32)
     else:
-        data = rng.random(src.shape[0], dtype=np.float32) + 0.5
-    indptr = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
-    return CSRData(indptr=indptr, indices=dst.astype(np.int32), data=data, shape=(n, n))
+        data = rng.random(indices.shape[0], dtype=np.float32) + 0.5
+    return CSRData(indptr=indptr, indices=indices, data=data, shape=(n, n))
+
+
+def banded_graph(n: int, draws: int, half_width: int, seed: int) -> CSRData:
+    """bench.py's block-banded graph (bench.py:276-292): ``draws`` edges a
+    row to columns ``row + U[-half_width, half_width]`` clipped to [0, n),
+    duplicates merged, binary, no self loops added."""
+    src = np.arange(n, dtype=np.int64).repeat(draws)
+    rng = np.random.default_rng(seed)
+    dst = np.clip(src + rng.integers(-half_width, half_width + 1, src.size), 0, n - 1)
+    indptr, indices = _csr_from_edges(n, src, dst)
+    return CSRData(indptr=indptr, indices=indices, data=np.ones(indices.shape[0], np.float32), shape=(n, n))
+
+
+def planted_graph(
+    n: int,
+    avg_degree: float,
+    classes: int,
+    intra: float = 0.55,
+    seed: int = 3,
+    self_loops: bool = True,
+) -> tuple[CSRData, np.ndarray]:
+    """Synthetic graph with planted communities, ``(graph, comm)``: a share
+    ``intra`` of the edges stays inside the source's community (contiguous
+    index ranges), duplicates merged; ``comm[i]`` serves as node i's label.
+    Same draws as ``mg_gcn_tpu.sparse.planted_graph``."""
+    rng = np.random.default_rng(seed)
+    sizes = np.full(classes, n // classes, np.int64)
+    sizes[: n % classes] += 1
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    comm = np.repeat(np.arange(classes, dtype=np.int32), sizes)
+    nnz_target = int(n * avg_degree)
+    src = rng.integers(0, n, size=nnz_target, dtype=np.int64)
+    is_intra = rng.random(nnz_target) < intra
+    c_of = comm[src]
+    lo, hi = bounds[c_of], bounds[c_of + 1]
+    pick = lo + (rng.random(nnz_target) * (hi - lo)).astype(np.int64)
+    dst = np.where(is_intra, pick, rng.integers(0, n, size=nnz_target, dtype=np.int64))
+    if self_loops:
+        src = np.concatenate([src, np.arange(n, dtype=np.int64)])
+        dst = np.concatenate([dst, np.arange(n, dtype=np.int64)])
+    indptr, indices = _csr_from_edges(n, src, dst)
+    g = CSRData(indptr=indptr, indices=indices, data=np.ones(indices.shape[0], np.float32), shape=(n, n))
+    return g, comm
+
+
+def planted_features(comm: np.ndarray, dim: int, noise: float = 10.0, seed: int = 0) -> np.ndarray:
+    """Features that carry the planted community signal: a random projection
+    of the community one-hot plus Gaussian noise of scale ``noise``."""
+    rng = np.random.default_rng(seed)
+    classes = int(comm.max()) + 1
+    proj = rng.standard_normal((classes, dim)).astype(np.float32)
+    return proj[comm] + noise * rng.standard_normal((comm.size, dim)).astype(np.float32)

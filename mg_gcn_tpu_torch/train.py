@@ -21,25 +21,28 @@ from . import resolve_device, sparse
 from .formats import CSRData, Dataset
 from .models.gcn import GCNConfig, init_params, loss_and_grad
 from .nn import adam
-from .ops import spmm_edges, spmm_gather, spmm_pattern
+from .ops import spmm_edges, spmm_gather, spmm_pattern, spmm_pattern_sparse
 from .ops.spmm import AggPair, COOMat
+from .ops.spmm_pallas import TiledMat
 from .timers import TimerRegistry
 
 # engines of the JAX package that later slices port, by ROADMAP item
-LATER_IMPLS = {
-    "block": "ROADMAP queue 2 item 3 (block-sparse pattern kernels)",
-    "pallas": "ROADMAP queue 2 item 10 (tiled-ELL kernel)",
-    "halo": "ROADMAP queue 1 item 9 (distributed training)",
-}
-IMPLS = ("auto", "pattern", "edge", "gather", "xla")
+LATER_IMPLS = {"halo": "ROADMAP queue 1 item 9 (distributed training)"}
+IMPLS = ("auto", "pattern", "block", "edge", "gather", "xla", "pallas")
+# impl="auto" takes the block pair over the dense pack when tiles or planes
+# are this sparse (the JAX package's rule, train.py:165-179)
+BLOCK_TILE_OCC_MAX = 0.5
+BLOCK_PLANE_OCC_MAX = 0.3
 # expected edge-tile slot fill at and above which the edge engine is taken
 # over the gather engine (the JAX package's crossover, train.py:65-75)
 EDGE_FILL_MIN = 0.3
 ENGINE_OF = {
     spmm_pattern.PatternMat: "pattern",
+    spmm_pattern_sparse.BlockPatternMat: "block",
     spmm_edges.EdgeTileMat: "edge",
     spmm_gather.GatherMat: "gather",
     COOMat: "xla",
+    TiledMat: "pallas",
 }
 
 
@@ -57,17 +60,30 @@ def _edge_or_gather(graph: CSRData) -> str:
 
 def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = False) -> tuple[str, str]:
     """(engine, reason) that impl="auto" picks for ``graph`` on a card of
-    ``card_bytes`` memory, or on the CPU for ``card_bytes=None``: the pattern
-    pair for a raw binary adjacency whose n_pad²/8 pack fits
-    PATTERN_MEM_FRACTION of the card, else :func:`_edge_or_gather`; on the
-    CPU the COO engine, as in the JAX package (train.py:186-187)."""
+    ``card_bytes`` memory, or on the CPU for ``card_bytes=None``, by the JAX
+    package's rule (train.py:161-187). For a raw binary adjacency: the block
+    pair when tile occupancy < BLOCK_TILE_OCC_MAX or plane occupancy <
+    BLOCK_PLANE_OCC_MAX and its store (tile occupancy x n_pad²/8) fits
+    PATTERN_MEM_FRACTION of the card and the builder's int32 addressing
+    (``spmm_pattern_sparse.MAX_STORE_WORDS``); else the pattern pair when its
+    n_pad²/8 pack fits; else :func:`_edge_or_gather`, as for a weighted
+    adjacency. On the CPU the COO engine. The occupancies come from the CSR
+    arrays; a graph known by its counts only skips the block rule."""
     if card_bytes is None:
         return "xla", "no card"
     n_pad = spmm_pattern.round_up(graph.nrows, spmm_pattern.N_ALIGN)
     pack_gb, budget_gb = n_pad * n_pad / 8 / 1e9, spmm_pattern.PATTERN_MEM_FRACTION * card_bytes / 1e9
     binary = not pre_normalized and spmm_pattern.is_binary(graph)
+    occ = ""
+    if binary and hasattr(graph, "indptr"):
+        tile_occ, plane_occ = spmm_pattern_sparse.estimate_occupancy(graph)
+        occ = f"tile occupancy {tile_occ:.3f}, plane occupancy {plane_occ:.3f}, "
+        sparse_tiles = tile_occ < BLOCK_TILE_OCC_MAX or plane_occ < BLOCK_PLANE_OCC_MAX
+        store_gb, addressable_gb = tile_occ * pack_gb, spmm_pattern_sparse.MAX_STORE_WORDS * 4 / 1e9
+        if sparse_tiles and store_gb <= budget_gb and store_gb < addressable_gb:
+            return "block", f"binary adjacency, {occ}block store {store_gb:.2f} GB within {budget_gb:.1f} GB"
     if binary and pack_gb <= budget_gb:
-        return "pattern", f"binary adjacency, bit pack {pack_gb:.2f} GB within {budget_gb:.1f} GB"
+        return "pattern", f"binary adjacency, {occ}bit pack {pack_gb:.2f} GB within {budget_gb:.1f} GB"
     why = f"bit pack {pack_gb:.1f} GB over {budget_gb:.1f} GB" if binary else "weighted adjacency"
     fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
     impl = _edge_or_gather(graph)
@@ -80,6 +96,8 @@ def build_agg_pair(
     pattern_dtype: str = "bfloat16",
     device: str | torch.device = "cuda",
     pre_normalized: bool = False,
+    tile_br: int = 512,
+    tile_bc: int = 512,
 ) -> AggPair:
     """Host preprocessing -> the device-resident (Âᵀ, Â) aggregation pair
     (gcn ctor, gcn.hpp:946-954: column-normalize A by in-degree, transpose;
@@ -91,12 +109,17 @@ def build_agg_pair(
                   engine and the reason.
       "pattern" — the bit-packed dense-pattern kernel pair (raw binary
                   adjacency only).
+      "block"   — the block-sparse pattern kernel pair over the occupied
+                  tiles (raw binary adjacency only), in ``pattern_dtype``.
       "edge"    — the weighted-CSR edge kernels, in ``pattern_dtype``
                   (bfloat16, float32 or int8).
       "gather"  — the serial-gather kernel, float32: a raw binary adjacency
                   takes the w-less pair with diagonal scales
                   (spmm_gather.gather_pair_from_binary_csr).
       "xla"     — the COO engine (index_select + index_add_).
+      "pallas"  — the tiled-ELL kernel, float32, (tile_br × tile_bc) tiles
+                  (a debug and cross-check engine: ``TiledMat.from_csr`` refuses a
+                  store over 4e9 bytes).
     A build that cannot run raises; nothing falls back to another engine.
     """
     dev = resolve_device(device)
@@ -109,10 +132,12 @@ def build_agg_pair(
         impl, why = auto_engine(graph, card, pre_normalized)
         if card is not None:
             print(f"aggregation engine: {impl} (auto: {why})", file=sys.stderr)
-    if impl == "pattern":
+    if impl in ("pattern", "block"):
         if pre_normalized:
-            raise ValueError("the pattern pair needs the raw binary adjacency")
-        fwd, bwd = spmm_pattern.pattern_pair_from_binary_csr(graph, dtype=pattern_dtype, device=dev)
+            raise ValueError(f"the {impl} pair needs the raw binary adjacency")
+        build = (spmm_pattern.pattern_pair_from_binary_csr if impl == "pattern"
+                 else spmm_pattern_sparse.block_pattern_pair_from_binary_csr)
+        fwd, bwd = build(graph, dtype=pattern_dtype, device=dev)
         return AggPair(fwd=fwd, bwd=bwd)
     if impl == "gather" and not pre_normalized and bool((graph.data == 1).all()):
         fwd, bwd = spmm_gather.gather_pair_from_binary_csr(graph, device=dev)
@@ -123,6 +148,8 @@ def build_agg_pair(
         fwd, bwd = spmm_gather.gather_pair_from_csr_pair(a_t, a, device=dev)
     elif impl == "edge":
         fwd, bwd = spmm_edges.edge_pair_from_csr_pair(a_t, a, dtype=pattern_dtype, device=dev)
+    elif impl == "pallas":
+        fwd, bwd = (TiledMat.from_csr(m, br=tile_br, bc=tile_bc, device=dev) for m in (a_t, a))
     else:
         fwd, bwd = COOMat.from_csr(a_t, device=dev), COOMat.from_csr(a, device=dev)
     return AggPair(fwd=fwd, bwd=bwd)

@@ -17,7 +17,9 @@ from mg_gcn_tpu_torch.formats import CSRData, Dataset
 from mg_gcn_tpu_torch.ops import sddmm as sd
 from mg_gcn_tpu_torch.ops import spmm_edges as se
 from mg_gcn_tpu_torch.ops import spmm_gather as sg
+from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
 from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
 from mg_gcn_tpu_torch.train import build_agg_pair, make_train_step, train
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden")
@@ -134,7 +136,9 @@ def test_spmm_pattern_on_card_matches_cpu(dtype):
 
 def test_train_on_card_matches_cpu():
     ds = Dataset.load(GOLDEN)
-    gpu = train(ds, [16, 16], epochs=5, impl="auto", pattern_dtype="float32", device="cuda", log=False)
+    # the golden graph's 256 nodes fill one of 8 row blocks, so impl="auto"
+    # takes the block pair there (JAX's rule); the pattern pair is asked for
+    gpu = train(ds, [16, 16], epochs=5, impl="pattern", pattern_dtype="float32", device="cuda", log=False)
     cpu = train(ds, [16, 16], epochs=5, impl="pattern", pattern_dtype="float32", device="cpu", log=False)
     assert gpu.engine == "pattern"
     np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-5)
@@ -365,3 +369,136 @@ def test_gat_step_on_card_matches_cpu():
         for k in layer_c:
             diff = torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k])
             assert diff <= 1e-4 * torch.linalg.vector_norm(layer_c[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse pattern pair and the tiled-ELL kernel
+
+
+def _block_graph(kind):
+    """"gappy": 12,288 nodes with empty rows, an empty row block (rows
+    4096-4607), an empty group (columns 4096-8191) and the last plane of
+    group 0 (bit 31) set; "dense": 8,192 nodes, row 5 and column 4100 dense
+    (8,192 terms each) and bit 31 set in every row."""
+    rng = np.random.default_rng(3)
+    if kind == "gappy":
+        n = 12_288
+        src = np.r_[rng.integers(0, 4096, 4000), rng.integers(4608, n, 4000), np.arange(3968, 4096)]
+        dst = np.r_[rng.integers(0, 4096, 4000), rng.integers(8192, n, 4000), np.arange(3968, 4096)]
+        keep = src % 7 != 3
+        src, dst = src[keep], dst[keep]
+    else:
+        n = 8192
+        src = np.r_[np.full(n, 5), np.arange(n), np.arange(n), rng.integers(0, n, 20_000)]
+        dst = np.r_[np.arange(n), np.full(n, 4100), 3968 + np.arange(n) % 128, rng.integers(0, n, 20_000)]
+    key = np.unique(src.astype(np.int64) * n + dst)
+    indptr = np.r_[0, np.cumsum(np.bincount(key // n, minlength=n))].astype(np.int64)
+    return CSRData(indptr, (key % n).astype(np.int32), np.ones(key.size, np.float32), (n, n))
+
+
+def _assert_block_matches_plain(mat, which, b):
+    kernel = sps.block_fwd if which == "fwd" else sps.block_bwd
+    key = (str(b.dtype).removeprefix("torch."), b.shape[1])
+    before = kernel.launches[key]
+    got = kernel(mat, b)
+    torch.cuda.synchronize()
+    assert kernel.launches[key] == before + 1
+    plain = sps.block_fwd_plain if which == "fwd" else sps.block_bwd_plain
+    if b.dtype == torch.int8:
+        assert got.dtype == torch.int32 and torch.equal(got, plain(mat, b))
+        return got
+    assert got.dtype == torch.float32
+    rows, cols = (torch.cat(t) for t in zip(*sps.decode_tiles(mat)))
+    dst, src = (cols, rows) if which == "fwd" else (rows, cols)
+    zero = torch.zeros(got.shape, dtype=torch.float64, device="cuda")
+    exact = zero.clone().index_add_(0, dst, b.double().index_select(0, src))
+    mag = zero.index_add_(0, dst, b.double().abs().index_select(0, src))
+    _assert_within_sum_error(got, exact, mag, torch.bincount(dst, minlength=got.shape[0]).double()[:, None])
+    return got
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("tile_r", [128, 256, 512, 2048])
+@pytest.mark.parametrize("kind", ["gappy", "dense"])
+def test_block_kernels_match_plain(kind, tile_r, dtype, which):
+    g = _block_graph(kind)
+    mat = sps.block_pattern_pair_from_binary_csr(g, device="cuda", tile_r=tile_r)[0]
+    host = sps.block_pattern_pair_from_binary_csr(g, device="cpu", tile_r=tile_r, build_on_device=False)[0]
+    assert torch.equal(mat.tiles.cpu(), host.tiles) and torch.equal(mat.pmask.cpu(), host.pmask)
+    got = _assert_block_matches_plain(mat, which, _operand(mat.n_pad, 48, dtype, seed=tile_r))
+    if kind == "gappy":  # no tile reaches these output rows
+        assert not bool(got[4096:4608 if which == "bwd" else 8192].any())
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d_pad", [8, 128, 200])
+def test_block_kernels_at_every_width(d_pad, dtype, which):
+    g = sparse.banded_graph(9000, 40, 700, seed=2)
+    mat = sps.block_pattern_pair_from_binary_csr(g, device="cuda")[0]
+    _assert_block_matches_plain(mat, which, _operand(mat.n_pad, d_pad, dtype, seed=d_pad))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_spmm_block_on_card_matches_cpu(dtype):
+    g = sparse.banded_graph(6000, 12, 300, seed=4)
+    b = torch.from_numpy(np.random.default_rng(3).random((6000, 41)).astype(np.float32))
+    for i in range(2):  # forward (Pᵀ, post-scale) and backward (P, pre-scale)
+        got = sps.spmm_block_pattern(sps.block_pattern_pair_from_binary_csr(g, dtype, device="cuda")[i], b.cuda())
+        want = sps.spmm_block_pattern(sps.block_pattern_pair_from_binary_csr(g, dtype, device="cpu")[i], b)
+        if dtype == "int8":
+            assert torch.equal(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
+
+
+def test_block_wrappers_reject_bad_operands():
+    mat = sps.block_pattern_pair_from_binary_csr(_block_graph("gappy"), device="cuda")[0]
+    with pytest.raises(ValueError, match="d_pad % 8"):
+        sps.block_fwd(mat, torch.zeros((mat.n_pad, 12), device="cuda"))
+    with pytest.raises(ValueError, match="float32/bfloat16/int8"):
+        sps.block_bwd(mat, torch.zeros((mat.n_pad, 16), device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        sps.block_bwd(mat, torch.zeros((16, mat.n_pad), device="cuda").T)
+
+
+def test_train_block_on_card_matches_cpu():
+    g = sparse.banded_graph(5000, 10, 200, seed=6)
+    rng = np.random.default_rng(0)
+    ds = Dataset(graph=g, features=rng.standard_normal((5000, 24)).astype(np.float32),
+                 labels=rng.integers(0, 5, (5000, 1)).astype(np.int32), sets=np.zeros((5000, 1), np.int32))
+    gpu = train(ds, [16, 16], epochs=5, impl="auto", pattern_dtype="float32", device="cuda", log=False)
+    cpu = train(ds, [16, 16], epochs=5, impl="block", pattern_dtype="float32", device="cpu", log=False)
+    assert gpu.engine == "block"
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-5)
+
+
+@pytest.mark.parametrize("br", [64, 512])
+@pytest.mark.parametrize("d", [1, 41, 128, 130, 300])
+def test_tiled_kernel_matches_plain(hub_graph, d, br):
+    """The hub row (degree 5,000) sets K; empty rows 100..199 come out 0."""
+    mat = tpl.TiledMat.from_csr(hub_graph, br=br, bc=br, device="cuda")
+    b = _operand(mat.n_cb * br, d, torch.float32, seed=d)
+    before = tpl.tiled.launches[("float32", d)]
+    got = tpl.tiled(mat, b)
+    torch.cuda.synchronize()
+    assert tpl.tiled.launches[("float32", d)] == before + 1
+    assert got.shape == (mat.n_rb * br, d) and got.dtype == torch.float32
+    exact = tpl.tiled_plain(mat, b, torch.float64)
+    tiles_abs = tpl.TiledMat(mat.lcol, mat.val.abs(), mat.nsteps, mat.n_rows, mat.n_cols, mat.nnz, br, br)
+    mag = tpl.tiled_plain(tiles_abs, b.abs(), torch.float64)
+    deg = torch.zeros(got.shape[0], dtype=torch.float64, device="cuda")
+    deg[: hub_graph.nrows] = torch.from_numpy(np.diff(hub_graph.indptr)).cuda().double()
+    _assert_within_sum_error(got, exact, mag, deg[:, None])
+    assert not bool(got[100:200].any())
+    with pytest.raises(ValueError, match="float32"):
+        tpl.tiled(mat, b.to(torch.bfloat16))
+
+
+def test_train_pallas_on_card_matches_cpu():
+    ds = Dataset.load(GOLDEN)
+    gpu = train(ds, [16, 16], epochs=5, impl="pallas", device="cuda", log=False)
+    cpu = train(ds, [16, 16], epochs=5, impl="pallas", device="cpu", log=False)
+    assert gpu.engine == cpu.engine == "pallas"
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-5)

@@ -169,8 +169,10 @@ def test_auto_engine_is_a_function_of_card_memory(n, nnz, binary, card, want):
 
 
 def test_auto_engine_pre_normalized_skips_pattern():
+    # 300 nodes pad to 4,096: one of the 8 row blocks holds edges, so the
+    # JAX rule takes the block pair (tile occupancy 1/8 < 0.5)
     g = sparse.random_graph(300, 4, seed=1)
-    assert ttrain.auto_engine(g, 80 * GB)[0] == "pattern"
+    assert ttrain.auto_engine(g, 80 * GB)[0] == "block"
     assert ttrain.auto_engine(g, 80 * GB, pre_normalized=True)[0] == "edge"
     with pytest.raises(ValueError, match="raw binary"):
         ttrain.build_agg_pair(g, impl="pattern", device="cpu", pre_normalized=True)
@@ -316,7 +318,7 @@ def test_cli_save_load_resumes(tmp_path, capsys):
         ["--exchange", "ring", "train"],
         ["--time-phases", "train"],
         ["--profile", "prof", "train"],
-        ["--impl", "block", "train"],
+        ["--impl", "halo", "train"],
         ["infer"],
         ["pagerank"],
     ],
@@ -326,3 +328,78 @@ def test_cli_later_slices_exit_2(args, capsys):
     tail = [GOLDEN, "1", "8"] if args[-1] == "train" else [GOLDEN]
     assert cli.main(["--device", "cpu", *args, *tail]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "which,card,want",
+    [
+        ("banded", 80 * GB, "block"),  # tile occupancy 0.05: the block store
+        ("uniform", 80 * GB, "pattern"),  # every tile occupied
+        ("banded", 10**6, "edge"),  # neither store fits half of 1 MB
+        ("banded-weighted", 80 * GB, "edge"),
+        ("banded-pre-normalized", 80 * GB, "edge"),
+        # planes sparse (0.19) but the store (~11.5 GB) is past the block
+        # builder's int32 addressing though within half the card: the dense pack
+        ("uniform-past-int32", 80 * GB, "pattern"),
+    ],
+)
+def test_auto_engine_block_rule(which, card, want):
+    """The JAX package's rule (train.py:165-179) on real graphs: block when
+    tiles or planes are sparse and the store fits the card and the builder's
+    addressing, else pattern when the dense pack fits, else the O(nnz)
+    engines; the reason names both occupancies."""
+    from mg_gcn_tpu.ops import spmm_pattern_sparse as jsps
+    from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
+
+    if which == "uniform-past-int32":
+        g = sparse.random_graph(300_000, 1, seed=2)
+    elif which.startswith("banded"):
+        g = sparse.banded_graph(20_000, 16, 150, seed=2)
+    else:
+        g = sparse.random_graph(20_000, 16, seed=2)
+    if which.endswith("weighted"):
+        g = CSRData(g.indptr, g.indices, g.data * 0.5, g.shape)
+    occ = sps.estimate_occupancy(g)
+    assert occ == tuple(float(v) for v in jsps.estimate_occupancy(JCSRData(g.indptr, g.indices, g.data, g.shape)))
+    impl, why = ttrain.auto_engine(g, card, pre_normalized=which.endswith("normalized"))
+    assert impl == want
+    if which in ("banded", "uniform", "uniform-past-int32") and card == 80 * GB:
+        assert f"tile occupancy {occ[0]:.3f}, plane occupancy {occ[1]:.3f}" in why
+    if which == "uniform-past-int32":
+        # the builder refuses this store before allocating it
+        assert occ[1] < ttrain.BLOCK_PLANE_OCC_MAX
+        with pytest.raises(ValueError, match="exceed int32 addressing"):
+            sps.block_pattern_pair_from_binary_csr(g, device="cpu")
+
+
+def test_build_agg_pair_block_and_pallas():
+    g = sparse.banded_graph(5000, 6, 100, seed=1)
+    pair = ttrain.build_agg_pair(g, impl="block", pattern_dtype="int8", device="cpu")
+    assert type(pair.fwd).__name__ == "BlockPatternMat" and pair.fwd.dtype_name == "int8"
+    with pytest.raises(ValueError, match="raw binary"):
+        ttrain.build_agg_pair(g, impl="block", device="cpu", pre_normalized=True)
+    w = CSRData(g.indptr, g.indices, g.data * 0.5, g.shape)
+    with pytest.raises(ValueError, match="binary"):
+        ttrain.build_agg_pair(w, impl="block", device="cpu")
+    ell = ttrain.build_agg_pair(w, impl="pallas", tile_br=256, tile_bc=256, device="cpu")
+    assert (ttrain.ENGINE_OF[type(ell.fwd)], ell.fwd.br, ell.bwd.bc) == ("pallas", 256, 256)
+    with pytest.raises(ValueError, match="square tiles"):
+        ttrain.build_agg_pair(w, impl="pallas", tile_br=256, tile_bc=128, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["block", "pallas"])
+def test_cli_train_on_block_and_pallas(tmp_path, capsys, impl):
+    rc = cli.main(["-E", "3", "--device", "cpu", "--impl", impl, "--pattern-dtype", "float32",
+                   "--csv-dir", str(tmp_path), "train", GOLDEN, "1", "16"])
+    assert rc == 0
+    ds = Dataset.load(GOLDEN)
+    lines = capsys.readouterr().err.splitlines()
+    assert lines[:3] == [f"{ds.num_nodes} {ds.graph.nnz}", f"num_labels = {ds.num_labels}",
+                         f"feature size = {ds.num_features}"]
+    epochs = [line.split() for line in lines[3:]]
+    want = jtrain.train(JDataset.load(GOLDEN), [16], epochs=3, impl="xla", log=False)
+    assert [int(e[0]) for e in epochs] == [0, 1, 2]
+    for e, loss in zip(epochs, want.losses):
+        np.testing.assert_allclose(float(e[1]), loss, rtol=1e-4)
+    sizes = [ds.num_features, 16, ds.num_labels]
+    assert (tmp_path / cli._csv_name(GOLDEN, sizes, 1)).exists()
