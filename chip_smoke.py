@@ -30,7 +30,7 @@ the result line:
    41 classes, sizes (608, 128, 128, 41), parity mode, Adam, seed-99 init)
    through ``train.build_agg_pair`` / ``train.train`` with impl="auto":
    auto must pick the pattern pair; one float32 pattern step must agree
-   with the COO engine (run with PyTorch's deterministic algorithms, so
+   with the COO engine (its pair built on the card; run with PyTorch's deterministic algorithms, so
    its sums, and the comparison, repeat from run to run) within rtol 1e-4: the loss, and every gradient leaf
    in norm, ||pattern - COO|| <= 1e-4 ||COO|| (element-wise, the two sum
    orders can put a near-zero pre-activation on either side of the
@@ -41,11 +41,23 @@ the result line:
 5. pattern kernels at the main-path shape — each kernel x dtype x width
    against its plain version again, timed with CUDA events beside its bound
    and beside torch.sparse.mm (float32; a yardstick the port never calls);
-6. the O(nnz) engines on the main path's binary graph — ``train`` with
-   impl="edge" (bfloat16) and impl="gather" (float32), 5 epochs each with
-   finite losses, their epoch seconds beside the pattern pair's: evidence
-   for the rule of impl="auto";
-7. the banded path — bench.py's block-banded graph (bench.py:276-292, n =
+6. the dist path — BASELINE's canonical ``-P 4 -R 1`` run (BASELINE.md:13)
+   on the main path's dataset, sizes (608, 128, 128, 44) (41 classes round
+   up to a multiple of P), its 4 partitions all on cuda:0, through
+   ``parallel.dist``: the gate must take the pattern pair, built on the card
+   (m_loc = 61,440, n_pad = 245,760; bytes and seconds logged); one float32
+   fused step against the single-card pattern step from the same seed-99
+   parameters by the rule of phase 4; 5 bfloat16 fused epochs with finite
+   losses falling from epoch 0 to 4 and 1 int8 epoch, their median and peak
+   memory; counters zeroed before the float32 step and read after the int8
+   epoch: exactly 12 ``ring_fwd`` (d_pad 128, 128, 48) + 8 ``ring_bwd`` (48,
+   128) launches an epoch and no other kernel; then one bfloat16 epoch each
+   of the ``ring`` and ``all_gather`` exchanges, losses within rtol 1e-4 of
+   the fused epoch 0;
+7. ring kernels at the dist path's shape — partition 0's launch, each
+   kernel x dtype x width as phase 5, beside torch.sparse.mm on the
+   partition's slab of Pᵀ / P against the gathered operand;
+8. the banded path — bench.py's block-banded graph (bench.py:276-292, n =
    232,968, 493 draws a row in row ± 4096, ~111M edges) with the main path's
    features, labels and model: impl="auto" must pick the block pair (its
    occupancies, T and the store's bytes logged); one float32 step against
@@ -54,17 +66,17 @@ the result line:
    exactly 3 ``block_fwd`` + 2 ``block_bwd`` launches an epoch in each
    dtype; build seconds, epoch median, peak memory; then (logged only) 5
    bfloat16 epochs each of the pattern pair and ``edge`` on the same graph;
-8. block kernels at the banded path's shape — as phase 5;
-9. the ELL path — ``train(impl="pallas")`` at the main path's widths on
+9. block kernels at the banded path's shape — as phase 5;
+10. the ELL path — ``train(impl="pallas")`` at the main path's widths on
    random_graph(20,000, 64, seed=3): one float32 step against COO, 5
    float32 epochs with exactly 5 ``tiled`` launches an epoch, K and the
    store's bytes logged; ``tiled`` at the path's widths as phase 5; and
    ``TiledMat.from_csr`` must refuse the main path's graph, as JAX's does;
-10. GAT, card vs CPU — one float32 step of the GAT path's model on
+11. GAT, card vs CPU — one float32 step of the GAT path's model on
    random_graph(20,000, 16, seed=3) on the card against the port's CPU
    path from the same seed-99 parameters: the loss within rtol 1e-5 and
    every gradient leaf ||card - CPU|| <= 1e-4 ||CPU||;
-11. the GAT path — bench.py's GAT headline (bench.py:892-893):
+12. the GAT path — bench.py's GAT headline (bench.py:892-893):
    GATConfig(sizes=(64, 64, 41), heads=2) on the main path's graph with
    planted_features(labels, 64, noise=2.0, seed=8), through
    ``models.gat.build_gat_graph`` (bfloat16) and
@@ -73,34 +85,36 @@ the result line:
    epoch 0 to 4, their median, peak memory; counters zeroed before the
    epochs and read after: exactly 20 ``sddmm`` + 20 ``edge`` + 8
    ``edge_t`` launches an epoch, by width;
-12. attention kernels at the GAT path's shape — ``sddmm`` and
+13. attention kernels at the GAT path's shape — ``sddmm`` and
    ``sddmm_qskip`` x {bfloat16, float32, int8} and ``edge_t`` x {bfloat16,
    float32}, x d in {2, 41, 64} (the path's d_pad 8, 48 and 64), as phase
    5, beside torch.sparse.sampled_addmm (SDDMM) and torch.sparse.mm on the
    transposed CSR (``edge_t``), float32 yardsticks the port never calls;
    ``edge`` bfloat16 at the same widths; d = 128 is checked and logged, not
    put in the kernels line (no launch of the path has it);
-13. path A, weighted Reddit on the edge engine — the same graph with
+14. path A, weighted Reddit on the edge engine — the same graph with
    bench.py's edge values (rng(5).random + 0.5): auto must pick ``edge``;
    one float32 step against the COO engine by the rule of phase 4; 5
    bfloat16 epochs and 1 int8 epoch with finite losses; counters zeroed
    before and read after: exactly 5 ``edge`` launches an epoch (float32,
    bfloat16) and 5 ``edge_i8`` in the int8 epoch;
-14. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
+15. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
    (logged only) ``gather`` on the same matrix;
-15. path B, products scale on the gather engine — BASELINE config 2's model
+16. path B, products scale on the gather engine — BASELINE config 2's model
    (100 features, 48 classes, sizes (100, 256, 256, 48)) on bench.py's
    uniform products graph, random_graph(2,449,029, 50, seed=3): auto must
    pick ``gather`` (the binary pair); one float32 step against the COO
    engine; 5 epochs with finite losses and exactly 5 ``gather`` launches an
    epoch; peak memory and the pair's build seconds;
-16. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
+17. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
    (logged only) ``edge`` on the same matrix;
-17. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
+18. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
    ``... --model gat --heads 2 -E 3 train <dir> 1 16`` on a small binary
    dataset; ``python -m mg_gcn_tpu_torch.data.prep synthetic`` (n = 20,000)
    and ``prep cluster`` (RCM), then ``--impl block`` and ``--impl pallas``
-   ``-E 3 train <dir>_clustered 1 16``: stderr lines and the timer CSVs.
+   ``-E 3 train <dir>_clustered 1 16``, and ``-P 4 -R 1 --device
+   cuda:0,cuda:0,cuda:0,cuda:0 -E 3 train <dir> 2 128 128``: stderr lines
+   and the timer CSVs.
 
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
@@ -144,11 +158,13 @@ KERNELS = {
     "block_fwd": "mg_gcn_tpu/ops/spmm_pattern_sparse.py:366",
     "block_bwd": "mg_gcn_tpu/ops/spmm_pattern_sparse.py:392",
     "tiled": "mg_gcn_tpu/ops/spmm_pallas.py:161",
+    "ring_fwd": "mg_gcn_tpu/ops/spmm_pattern_ring.py:128",
+    "ring_bwd": "mg_gcn_tpu/ops/spmm_pattern_ring.py:204",
 }
 SOURCES = {"pattern_fwd": "spmm_pattern.cu", "pattern_bwd": "spmm_pattern.cu", "edge": "spmm_edges.cu",
            "edge_i8": "spmm_edges.cu", "gather": "spmm_gather.cu", "sddmm": "sddmm.cu", "sddmm_qskip": "sddmm.cu",
            "edge_t": "spmm_edges.cu", "block_fwd": "spmm_pattern_sparse.cu", "block_bwd": "spmm_pattern_sparse.cu",
-           "tiled": "spmm_tiled.cu"}
+           "tiled": "spmm_tiled.cu", "ring_fwd": "spmm_pattern_ring.cu", "ring_bwd": "spmm_pattern_ring.cu"}
 # path A: bench.py's weighted section (edge values rng(5).random + 0.5 on
 # the main path's graph); path B: BASELINE config 2's model on bench.py's
 # uniform products-scale graph (bench.py:586, 607, 623)
@@ -166,6 +182,12 @@ DEG_GAT_CPU = 16  # the card-vs-CPU step's graph: random_graph(N_SMALL, 16, seed
 # a row in row ± 4096, rng(7), on the main path's model; the small banded
 # graph of phase 3 draws 64 a row in row ± 1024
 BAND_HALF, BAND_SEED, BAND_SMALL_DRAWS, BAND_SMALL_HALF = 4096, 7, 64, 1024
+# the dist path: BASELINE's canonical -P 4 -R 1 run (BASELINE.md:13) on the
+# main path's dataset, its 4 partitions on one card; the last width rounds
+# up to a multiple of P (main.cpp:135): 41 -> 44, d_pad 48
+DIST_PARTS = 4
+DIST_CLASSES = -(-CLASSES // DIST_PARTS) * DIST_PARTS
+DIST_WIDTHS = (128, DIST_CLASSES)
 
 
 def log(*args):
@@ -326,11 +348,13 @@ def wrappers() -> dict:
 
     from mg_gcn_tpu_torch.ops import sddmm as sd
     from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
+    from mg_gcn_tpu_torch.ops import spmm_pattern_ring as ring
     from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
 
     return {"pattern_fwd": sp.pattern_fwd, "pattern_bwd": sp.pattern_bwd, "edge": se.edge,
             "edge_i8": se.edge_i8, "gather": sg.gather, "sddmm": sd.sddmm, "sddmm_qskip": sd.sddmm_qskip,
-            "edge_t": se.edge_t, "block_fwd": sps.block_fwd, "block_bwd": sps.block_bwd, "tiled": tpl.tiled}
+            "edge_t": se.edge_t, "block_fwd": sps.block_fwd, "block_bwd": sps.block_bwd, "tiled": tpl.tiled,
+            "ring_fwd": ring.ring_pattern_fwd, "ring_bwd": ring.ring_pattern_bwd}
 
 
 def counts() -> dict:
@@ -363,6 +387,28 @@ def deterministic():
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
+def coo_pair_on_card(graph):
+    """The COO engine's (Âᵀ, Â) pair, the matrices build_agg_pair(impl="xla")
+    builds on the host (Â the column-normalized adjacency, main.cpp:143;
+    column sums in float64, as sparse.normalize takes them), built on the
+    card: the engine's index_add_ needs no sorted rows, so Âᵀ is Â with rows
+    and columns swapped and no transpose is sorted. Built under
+    :func:`deterministic`, so the column sums repeat from run to run."""
+    from mg_gcn_tpu_torch.ops.spmm import AggPair, COOMat
+
+    with deterministic():
+        cols = torch.from_numpy(graph.indices).cuda()
+        counts = torch.from_numpy(np.diff(graph.indptr)).cuda()
+        rows = torch.repeat_interleave(torch.arange(graph.nrows, dtype=torch.int32, device="cuda"), counts)
+        data = torch.from_numpy(graph.data).cuda().double()
+        col_sum = torch.zeros(graph.ncols, dtype=torch.float64, device="cuda").index_add_(0, cols, data)
+        vals = (data / col_sum[cols.long()]).float()
+    del counts, data, col_sum
+    n, m, nnz = graph.nrows, graph.ncols, graph.nnz
+    return AggPair(fwd=COOMat(rows=cols, cols=rows, vals=vals, n_rows=m, n_cols=n, nnz=nnz),
+                   bwd=COOMat(rows=rows, cols=cols, vals=vals, n_rows=n, n_cols=m, nnz=nnz))
+
+
 def coo_step(params, coo, x, y, config):
     """The COO engine's float32 step, run twice under :func:`deterministic`;
     logs whether the two repeat bit for bit."""
@@ -377,27 +423,27 @@ def coo_step(params, coo, x, y, config):
     return first
 
 
-def compare_with_coo(engine: str, got, coo) -> None:
-    """One float32 step against the COO engine from the same parameters:
-    the loss within rtol 1e-4 and every gradient leaf in norm,
-    ||engine - COO|| <= 1e-4 ||COO|| (element-wise, the two sum orders can
-    put a near-zero pre-activation on either side of the LeakyReLU, which
-    moves single elements by a step)."""
+def compare_with_coo(engine: str, got, coo, ref: str = "COO") -> None:
+    """One float32 step against the COO engine (or the ``ref`` step) from
+    the same parameters: the loss within rtol 1e-4 and every gradient leaf
+    in norm, ||engine - COO|| <= 1e-4 ||COO|| (element-wise, the two sum
+    orders can put a near-zero pre-activation on either side of the
+    LeakyReLU, which moves single elements by a step)."""
     (loss_p, acc_p, grads_p), (loss_c, acc_c, grads_c) = got, coo
     if not math.isclose(float(loss_p), float(loss_c), rel_tol=1e-4):
-        raise AssertionError(f"float32 {engine} loss {float(loss_p)} vs COO {float(loss_c)}")
+        raise AssertionError(f"float32 {engine} loss {float(loss_p)} vs {ref} {float(loss_c)}")
     norm_err, worst, elem_err = 0.0, "", 0.0
     for i, (gp, gc) in enumerate(zip(grads_p, grads_c)):
         for k in gc:
             rel = float(torch.linalg.vector_norm(gp[k] - gc[k]) / torch.linalg.vector_norm(gc[k]))
             if not rel <= 1e-4:
-                raise AssertionError(f"layer {i} grad {k}: ||{engine} - COO|| / ||COO|| = {rel} > 1e-4")
+                raise AssertionError(f"layer {i} grad {k}: ||{engine} - {ref}|| / ||{ref}|| = {rel} > 1e-4")
             if rel >= norm_err:
                 norm_err, worst = rel, f"layer {i} {k}"
             elem_err = max(elem_err, float((gp[k] - gc[k]).abs().max() / gc[k].abs().max()))
-    log(f"  first step: {engine} f32 loss {float(loss_p)!r} vs COO {float(loss_c)!r}, acc {float(acc_p)!r}"
-        f" vs {float(acc_c)!r}; gradients: max ||diff||/||COO|| {norm_err:.3e} ({worst}),"
-        f" max |diff| / max|COO| {elem_err:.3e}")
+    log(f"  first step: {engine} f32 loss {float(loss_p)!r} vs {ref} {float(loss_c)!r}, acc {float(acc_p)!r}"
+        f" vs {float(acc_c)!r}; gradients: max ||diff||/||{ref}|| {norm_err:.3e} ({worst}),"
+        f" max |diff| / max|{ref}| {elem_err:.3e}")
 
 
 def phase_main_path(ds) -> dict:
@@ -424,7 +470,8 @@ def phase_main_path(ds) -> dict:
     torch.cuda.synchronize()
     del pair
     t0 = time.perf_counter()
-    coo = build_agg_pair(ds.graph, impl="xla", device=dev)
+    coo = coo_pair_on_card(ds.graph)
+    torch.cuda.synchronize()
     out["coo_build_s"] = time.perf_counter() - t0
     loss_c, acc_c, grads_c = coo_step(params, coo, x, y, config)
     torch.cuda.synchronize()
@@ -533,6 +580,168 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# the dist path: -P 4 -R 1 on one card (ring_fwd, ring_bwd)
+
+
+def phase_dist_path(ds) -> dict:
+    """BASELINE's canonical ``-P 4 -R 1`` run on the main path's dataset,
+    its DIST_PARTS partitions all on cuda:0, through ``parallel.dist``: the
+    gate of train.dist_pattern_engine must take the pattern pair; the pair is
+    built on the card (m_loc, n_pad, bytes and seconds logged); one float32
+    fused step (``dist_loss_and_grad``) is held against the single-card
+    pattern step from the same seed-99 parameters by the rule of phase 4;
+    then EPOCHS bfloat16 fused epochs with finite losses falling from the
+    first to the last and 1 int8 epoch. The counters are zeroed before the
+    float32 step and read after the int8 epoch: exactly 3 ``ring_fwd`` + 2
+    ``ring_bwd`` launches a partition and epoch (forward at d_pad 128, 128,
+    48; backward at 48, 128) and no other kernel. Then one bfloat16 epoch
+    each of the ``ring`` and ``all_gather`` exchanges from the same
+    parameters as the fused epoch 0: losses within rtol 1e-4 of it."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.parallel import dist
+    from mg_gcn_tpu_torch.train import build_agg_pair, dist_pattern_engine
+
+    dev = torch.device("cuda:0")
+    P, n = DIST_PARTS, ds.num_nodes
+    config = GCNConfig(sizes=(FEATURES, *HIDDEN, DIST_CLASSES))
+    params = init_params(config, device=dev)
+    x = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+    single = build_agg_pair(ds.graph, impl="pattern", pattern_dtype="float32", device=dev)
+    ref = loss_and_grad(params, single, x, y, config)
+    torch.cuda.synchronize()
+    del single, x, y
+    torch.cuda.empty_cache()  # the single-card 6.8 GB pack goes before the dist build
+
+    mesh = dist.make_mesh(P, [dev] * P)
+    fits, why = dist_pattern_engine(ds.graph, P, P, torch.cuda.get_device_properties(dev).total_memory)
+    log(f"  gate: {why}")
+    if not fits:
+        raise AssertionError("the dist pattern gate refused the main path's graph")
+    out = {}
+    reset_counts()  # the dist path starts here
+    t0 = time.perf_counter()
+    pair = dist.DistPatternPair.from_binary_csr(ds.graph, mesh, dtype="bfloat16")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    pack_gb = 2 * sum(p.numel() for p in pair.pack_fwd) * 4 / 1e9
+    log(f"  DistPatternPair: P = {P} on {dev}, m_loc = {pair.m_loc}, n_pad = {pair.n_pad},"
+        f" packs {pack_gb / P:.2f} GB a partition, {pack_gb:.2f} GB in all, built on the card in"
+        f" {out['build_s']:.2f} s")
+    xs, ys, masks = dist.shard_dataset(ds, mesh, pair.n_pad)
+
+    def aggs(dtype, strategy):
+        return (lambda hs: dist.dist_aggregate_pattern(pair, hs, "PT", dtype, strategy),
+                lambda gs: dist.dist_aggregate_pattern(pair, gs, "P", dtype, strategy))
+
+    got = dist.dist_loss_and_grad([params] * P, *aggs("float32", "fused"), xs, ys, config, n, masks)
+    torch.cuda.synchronize()
+    compare_with_coo("dist fused", got, ref, ref="single-card pattern")
+    del got, ref
+
+    def run(dtype, strategy, epochs):
+        step = dist.make_dist_train_step(config, mesh, n, strategy=strategy, pair_kind="pattern", pattern_dtype=dtype)
+        p, st = dist.replicate(params, mesh), dist.replicate(adam.adam_init(params), mesh)
+        losses, seconds = [], []
+        for e in range(epochs):
+            t0 = time.perf_counter()
+            p, st, loss, acc = step(p, st, pair, xs, ys, masks)
+            losses.append(float(loss))  # waits for the card
+            seconds.append(time.perf_counter() - t0)
+            log(f"  dist {strategy} {dtype} epoch {e} {losses[-1]} {float(acc)} {seconds[-1]}")
+        return losses, seconds
+
+    torch.cuda.reset_peak_memory_stats()
+    out["losses"], out["epoch_seconds"] = run("bfloat16", "fused", EPOCHS)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["int8_losses"], out["int8_seconds"] = run("int8", "fused", 1)
+    torch.cuda.synchronize()
+    out["launches"] = counts()  # the dist path ends here
+    want = {}
+    for dtype, epochs in (("float32", 1), ("bfloat16", EPOCHS), ("int8", 1)):
+        want[("ring_fwd", dtype)], want[("ring_bwd", dtype)] = 3 * P * epochs, 2 * P * epochs
+    expect_launches(out["launches"], want)
+    by_width = {(name, dp): v for name in ("ring_fwd", "ring_bwd")
+                for (dt, dp), v in out["launches"][name].items() if dt == "bfloat16"}
+    if by_width != {("ring_fwd", 128): 2 * P * EPOCHS, ("ring_fwd", 48): P * EPOCHS,
+                    ("ring_bwd", 128): P * EPOCHS, ("ring_bwd", 48): P * EPOCHS}:
+        raise AssertionError(f"dist bf16 launches by width {by_width}")
+    losses = out["losses"]
+    if not all(math.isfinite(v) for v in losses + out["int8_losses"]) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dist losses bf16 {losses}, int8 {out['int8_losses']}: not finite, or not falling")
+    steady = sorted(out["epoch_seconds"][1:])
+    out["epoch_s_median"] = steady[len(steady) // 2]
+    log(f"  launches on the dist path: { {k: v for k, v in out['launches'].items() if v} }")
+    log(f"  dist fused bf16 epoch median (epochs 1-{EPOCHS - 1}) {out['epoch_s_median']:.4f} s,"
+        f" peak memory {out['peak_mem_gb']:.2f} GB")
+    for strategy in ("ring", "all_gather"):
+        other, sec = run("bfloat16", strategy, 1)
+        if not math.isclose(other[0], losses[0], rel_tol=1e-4):
+            raise AssertionError(f"dist {strategy} bf16 epoch 0 loss {other[0]} vs fused {losses[0]}")
+        log(f"  dist {strategy} bf16 epoch 0: loss {other[0]!r} (fused {losses[0]!r}), {sec[0]:.4f} s")
+    out["pair"] = pair
+    return out
+
+
+def slab_library(ds, m: int, n_pad: int, transpose: bool):
+    """torch.sparse.mm's float32 CSR of partition 0's m x n_pad slab of Pᵀ
+    (``transpose``: the columns of slab 0, for ring_fwd) or of P (its rows,
+    for ring_bwd), and its nonzeros; a yardstick the port never calls."""
+    g = ds.graph
+    if not transpose:
+        e = int(g.indptr[m])
+        crow = torch.from_numpy(g.indptr[: m + 1]).cuda()
+        return csr_library(crow, torch.from_numpy(g.indices[:e]).cuda(), torch.ones(e, device="cuda"),
+                           (m, n_pad)), e
+    cols = torch.from_numpy(g.indices).cuda().long()
+    rows = torch.repeat_interleave(torch.arange(g.nrows, device="cuda"), torch.from_numpy(np.diff(g.indptr)).cuda())
+    sel = cols < m
+    key, _ = torch.sort(cols[sel] * n_pad + rows[sel])
+    del cols, rows, sel
+    crow = torch.zeros(m + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(key // n_pad, minlength=m), 0)
+    return csr_library(crow, key % n_pad, torch.ones(key.numel(), device="cuda"), (m, n_pad)), key.numel()
+
+
+def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
+    """ring_fwd and ring_bwd at the dist path's shape: partition 0's launch
+    (its P = 4 blocks of m_loc², slot s = partition s's block) for each
+    dtype x the path's widths, against the plain version summed in float64
+    (int8 equal), timed with CUDA events beside the bound (the P packs, the
+    P slots and C at the memory rate, or 2·nnz_0·d operations), the plain
+    version and (float32) torch.sparse.mm on the partition's slab of Pᵀ / P
+    against the gathered operand."""
+    from mg_gcn_tpu_torch.ops import spmm_pattern_ring as ring
+
+    P, m = pair.parts, pair.m_loc
+    rows = []
+    for name, kernel, plain, pack in (("ring_fwd", ring.ring_pattern_fwd, ring.ring_pattern_fwd_plain, pair.pack_fwd[0]),
+                                      ("ring_bwd", ring.ring_pattern_bwd, ring.ring_pattern_bwd_plain, pair.pack_bwd[0])):
+        lib, nnz = slab_library(ds, m, pair.n_pad, transpose=name == "ring_fwd")
+        for dtype in DTYPES:
+            for d in DIST_WIDTHS:
+                slots = operand(P * m, d, dtype, seed=d).reshape(P, m, -1)
+                check, ms, plain_ms = check_and_time(
+                    f"{name} {dtype} d={d} (dist shape)", lambda: kernel(pack, slots),
+                    lambda: plain(pack, slots, None if dtype == "int8" else torch.float64), dtype, 5,
+                    lambda: plain(pack, slots), 2)
+                library_ms = None
+                if dtype == "float32":
+                    bl = slots.reshape(P * m, -1)[:, :d].contiguous()
+                    library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+                    del bl
+                moved = pack.numel() * 4 + slots.numel() * elt_size(slots) + m * d * 4
+                rows.append(kernel_row(name, dtype, d, m, nnz, launches[name].get((dtype, slots.shape[2]), 0),
+                                       check, ms, plain_ms, library_ms, moved))
+                log_row(rows[-1])
+                del slots
+                torch.cuda.empty_cache()
+        del lib
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the O(nnz) engines: edge (path A) and gather (path B)
 
 
@@ -619,7 +828,8 @@ def drive_path(engine: str, ds, hidden, runs, impl: str = "auto") -> dict:
     out["fwd"] = pair.fwd  # the forward matrix, for the kernels at this path's shape
     del pair
     t0 = time.perf_counter()
-    coo = build_agg_pair(ds.graph, impl="xla", device=dev)
+    coo = coo_pair_on_card(ds.graph)
+    torch.cuda.synchronize()
     out["coo_build_s"] = time.perf_counter() - t0
     step_coo = coo_step(params, coo, x, y, config)
     torch.cuda.synchronize()
@@ -645,13 +855,12 @@ def drive_path(engine: str, ds, hidden, runs, impl: str = "auto") -> dict:
     return out
 
 
-def phase_engines_binary(ds, own: str, own_median: float, runs=(("edge", "bfloat16"), ("gather", "float32"))) -> None:
+def phase_engines_binary(ds, own: str, own_median: float, runs) -> None:
     """Other engines on a binary graph where impl="auto" picks ``own``
     (bfloat16 epoch median ``own_median``): ``train`` with each (impl,
-    dtype) of ``runs`` — by default impl="edge" in bfloat16 (the auto run's
-    dtype) and impl="gather" in float32 (its one mode) — EPOCHS epochs each,
-    for the rule of impl="auto" (ROADMAP queue 1 item 5b). Losses must be
-    finite; no launch counter is read."""
+    dtype) of ``runs``, EPOCHS epochs each, for the rule of impl="auto"
+    (ROADMAP queue 1 item 5b). Losses must be finite; no launch counter is
+    read."""
     from mg_gcn_tpu_torch.train import train
 
     for impl, dtype in runs:
@@ -1300,8 +1509,9 @@ def run_cli(tmp: str, ds, args: list[str], csv_name: str) -> list[str]:
 
 def phase_cli() -> None:
     """The CLI on a small binary dataset: GCN (``train <dir> 2 128 128``,
-    where ``auto`` must pick the pattern pair) and GAT (``--model gat
-    --heads 2 train <dir> 1 16``); then ``data.prep synthetic`` and ``prep
+    where ``auto`` must pick the pattern pair), GAT (``--model gat
+    --heads 2 train <dir> 1 16``) and ``-P 4 -R 1`` GCN on one card (the
+    dist pattern pair, the fused exchange by ``auto``); then ``data.prep synthetic`` and ``prep
     cluster`` (RCM) write a dataset and its clustered copy, and GCN trains on
     the copy with ``--impl block`` and ``--impl pallas``."""
     from mg_gcn_tpu_torch import sparse
@@ -1323,6 +1533,12 @@ def phase_cli() -> None:
         if not any(line.startswith("aggregation engine: pattern") for line in lines):
             raise AssertionError("CLI: no pattern engine line")
         run_cli(tmp, ds, ["--model", "gat", "--heads", "2", "train", toy, "1", "16"], "toy_32_16_7_1.csv")
+        # -P 4 -R 1, the four partitions on one card; 7 labels round up to 8
+        lines = run_cli(tmp, ds, ["-P", "4", "-R", "1", "--device", ",".join(["cuda:0"] * 4), "train", toy, "2",
+                                  "128", "128"], "toy_32_128_128_8_4.csv")
+        if "exchange: fused ring (auto)" not in lines or not any(
+                line.startswith("aggregation engine: pattern") for line in lines):
+            raise AssertionError("CLI -P 4: no pattern pair or no fused exchange")
 
         log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["synthetic", "-n", "20000", "--deg", "16",
                                                                   "--feat", "32", "--labels", "7", "-o", tmp]).strip())
@@ -1384,35 +1600,40 @@ def main() -> int:
     kernels = phase_kernels_main(ds, main_path["launches"])
     torch.cuda.empty_cache()  # the 6.8 GB pack goes before the O(nnz) paths
 
-    phase("[6] the O(nnz) engines on the main path's binary graph")
-    phase_engines_binary(ds, "pattern", main_path["bf16_epoch_s_median"])
+    phase(f"[6] dist path: -P {DIST_PARTS} -R 1 on one card, n = {N_MAIN}")
+    dist_path = phase_dist_path(ds)
+    torch.cuda.empty_cache()
 
-    phase(f"[7] banded path: bench.py's block-banded graph on the block pair, n = {N_MAIN}")
+    phase("[7] ring kernels at the dist path's shape")
+    kernels += phase_ring_kernels(ds, dist_path.pop("pair"), dist_path["launches"])
+    torch.cuda.empty_cache()  # the 15.1 GB of ring packs go before the banded path
+
+    phase(f"[8] banded path: bench.py's block-banded graph on the block pair, n = {N_MAIN}")
     ds_band = banded_dataset(ds)
     band = phase_banded_path(ds_band)
     phase_engines_binary(ds_band, "block", band["bf16_epoch_s_median"],
                          runs=(("pattern", "bfloat16"), ("edge", "bfloat16")))
 
-    phase("[8] block kernels at the banded path's shape")
+    phase("[9] block kernels at the banded path's shape")
     kernels += phase_block_kernels_main(ds_band, band.pop("fwd"), band["launches"])
     del ds_band
     torch.cuda.empty_cache()
 
-    phase(f"[9] ELL path: impl='pallas' on random_graph({N_SMALL}, {DEG_SMALL}, seed=3)")
+    phase(f"[10] ELL path: impl='pallas' on random_graph({N_SMALL}, {DEG_SMALL}, seed=3)")
     kernels += phase_ell_path(ds)
     torch.cuda.empty_cache()
 
-    phase(f"[10] GAT: one float32 step on the card against the CPU, n = {N_SMALL}")
+    phase(f"[11] GAT: one float32 step on the card against the CPU, n = {N_SMALL}")
     phase_gat_card_vs_cpu()
 
-    phase(f"[11] GAT path, n = {N_MAIN}")
+    phase(f"[12] GAT path, n = {N_MAIN}")
     gat_path = phase_gat_path(ds)
 
-    phase("[12] attention kernels at the GAT path's shape")
+    phase("[13] attention kernels at the GAT path's shape")
     kernels += phase_gat_kernels(gat_path.pop("graph"), gat_path["launches"])
     torch.cuda.empty_cache()
 
-    phase("[13] path A: weighted Reddit on the edge engine")
+    phase("[14] path A: weighted Reddit on the edge engine")
     from mg_gcn_tpu_torch.ops.spmm_edges import expected_fill
 
     ds_a = path_a_dataset(ds)
@@ -1424,11 +1645,11 @@ def main() -> int:
                                          ("edge_i8", "int8"): 5})
     del ds_a, g
 
-    phase("[14] edge kernels at path A's shape")
+    phase("[15] edge kernels at path A's shape")
     kernels += phase_edge_main(path_a.pop("fwd"), path_a["launches"])
     torch.cuda.empty_cache()
 
-    phase(f"[15] path B: products scale on the gather engine, n = {N_PROD}")
+    phase(f"[16] path B: products scale on the gather engine, n = {N_PROD}")
     ds_b = path_b_dataset()
     path_b = drive_path("gather", ds_b, HIDDEN_PROD, [("float32", EPOCHS)])
     if path_b["fwd"].has_w:
@@ -1436,11 +1657,11 @@ def main() -> int:
     expect_launches(path_b["launches"], {("gather", "float32"): 5 * (1 + EPOCHS)})
     del ds_b
 
-    phase("[16] gather kernel at path B's shape")
+    phase("[17] gather kernel at path B's shape")
     kernels += phase_gather_main(path_b.pop("fwd"), path_b["launches"])
     torch.cuda.empty_cache()
 
-    phase("[17] CLI")
+    phase("[18] CLI")
     phase_cli()
     phase("done")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

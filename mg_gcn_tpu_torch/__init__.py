@@ -1,10 +1,13 @@
 """mg_gcn_tpu_torch — the PyTorch/CUDA port of mg_gcn_tpu, for NVIDIA Hopper.
 
-Full-batch GCN and GAT training on one card. The aggregation engines — the
-bit-packed dense-pattern pair (``ops/spmm_pattern.py``), its block-sparse
-form for clustered graphs (``ops/spmm_pattern_sparse.py``), the
-weighted-CSR edge engine (``ops/spmm_edges.py``), the serial-gather engine
-(``ops/spmm_gather.py``) and the tiled-ELL debug engine
+Full-batch GCN and GAT training on one card, and row-partitioned GCN
+training over P partitions driven by one process (``parallel/dist.py``,
+the CLI's ``-P N -R 1``; partitions may share a card). The aggregation
+engines — the bit-packed dense-pattern pair (``ops/spmm_pattern.py``), its
+ring form for the partitions (``ops/spmm_pattern_ring.py``), its
+block-sparse form for clustered graphs (``ops/spmm_pattern_sparse.py``),
+the weighted-CSR edge engine (``ops/spmm_edges.py``), the serial-gather
+engine (``ops/spmm_gather.py``) and the tiled-ELL debug engine
 (``ops/spmm_pallas.py``) — and the attention stack (``ops/sddmm.py``, the
 transposed edge product, ``ops/edge_attention.py``, ``models/gat.py``) run
 on hand-written CUDA kernels (``csrc/``, built with nvcc at first use).

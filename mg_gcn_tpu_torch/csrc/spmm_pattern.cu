@@ -23,153 +23,37 @@
 // chunk and keeps every sum on chip until its one store. The dense-row
 // traffic (one 4-feature slice per lane per set bit) goes through L2.
 //
-// Offsets into the pack (up to 1.7e9 words) and into B/C are 64-bit.
+// Offsets into the pack (up to 1.7e9 words) and into B/C are 64-bit. The
+// two walks live in pattern_dense.cuh, shared with the ring kernels of
+// spmm_pattern_ring.cu; this file runs them over one square pack.
 
-#include "pattern_modes.cuh"
+#include "pattern_dense.cuh"
 
 namespace {
 
-using pattern::add;
+using pattern::kBwdRows;
 using pattern::kChunkF;
-using pattern::kFull;
-using pattern::kGroup;
-using pattern::kLaneF;
+using pattern::kFwdWords;
 using pattern::Mode;
-using pattern::zero;
 
-constexpr int kFwdWords = 8;           // forward: words (= warps) per block
-constexpr int kFwdRows = 128;          // forward: pack rows per staged tile
-constexpr int kBwdRows = 8;            // backward: rows (= warps) per block
-
-// Backward, C = P B. One warp per output row; each lane owns 4 features of
-// the block's 128-feature chunk. The warp streams its row's words 128 at a
-// time (16 B a lane, coalesced, the next span's load in flight), skips an
-// all-zero span with one vote, decodes the set bits of each 32-word
-// sub-span into a per-warp list of columns j, then gathers B[j, chunk] four
-// rows at a time into register sums. Sums run in (word, bit) order: the
-// result is deterministic and no atomics are used.
+// The walks are pattern_dense.cuh's, over one square pack (one round).
 template <typename T>
 __global__ void __launch_bounds__(kBwdRows * 32)
 pattern_bwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
                    typename Mode<T>::Acc* __restrict__ c, long long words, int d_pad) {
-  using Acc4 = typename Mode<T>::Acc4;
-  __shared__ int cols[kBwdRows][32 * 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long i = (long long)blockIdx.x * kBwdRows + warp;
-  const int f0 = blockIdx.y * kChunkF + lane * kLaneF;
-  const bool active = f0 < d_pad;
-  int* list = cols[warp];
-  const T* bcol = b + f0;
-
-  Acc4 acc;
-  zero(acc);
-  const uint4* row = reinterpret_cast<const uint4*>(pack + i * words);
-  uint4 next = __ldg(row + lane);
-  for (long long base = 0; base < words; base += 128) {
-    const uint4 cur = next;
-    if (base + 128 < words) next = __ldg(row + (base + 128) / 4 + lane);
-    if (!__any_sync(kFull, (cur.x | cur.y | cur.z | cur.w) != 0u)) continue;
-    const uint32_t span[4] = {cur.x, cur.y, cur.z, cur.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long wi = base + 4 * lane + q;  // this lane's word index
-      pattern::gather_bits<T>(span[q], (int)(wi >> 7) * kGroup + (int)(wi & 127), list, bcol, d_pad,
-                              active, acc);
-    }
-  }
-  if (active) *reinterpret_cast<Acc4*>(c + i * d_pad + f0) = acc;
+  pattern::bwd_rows<T>(pack, b, c, words, d_pad, 1, 0, 0);
 }
 
-// Forward, C = P^T B: C[j, :] = sum_i P[i, j] B[i, :]. A column of the
-// row-major pack is strided, so a block owns 8 consecutive words of one
-// group (one word per warp = 256 output columns) and walks ALL rows in
-// order, staging a 128-row x 8-word tile (32 B a row) in shared memory with
-// the next tile's load in flight. Each warp keeps a shared-memory sum for its
-// 32 columns x the chunk's features; for its nonzero words it loads
-// B[i, chunk] four rows at a time and adds it to the sum of every set bit.
-// Each sum element belongs to one lane and is summed in row order: the result
-// is deterministic and no atomics are used. Only the shared n^2/8 pack is
-// read; no transposed copy of the pattern is stored.
 template <typename T>
 __global__ void __launch_bounds__(kFwdWords * 32)
 pattern_fwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
                    typename Mode<T>::Acc* __restrict__ c, long long n_pad,
                    long long words, int d_pad) {
-  using Acc = typename Mode<T>::Acc;
-  using Acc4 = typename Mode<T>::Acc4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint4* tile = reinterpret_cast<uint4*>(smem);  // [kFwdRows][2] x 4 words
-  const uint32_t* tile_words = reinterpret_cast<const uint32_t*>(smem);
-  Acc* sums = reinterpret_cast<Acc*>(smem + kFwdRows * kFwdWords * sizeof(uint32_t));
-
-  const int fc = min(kChunkF, d_pad - (int)blockIdx.y * kChunkF);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long w_first = (long long)blockIdx.x * kFwdWords;
-  const int f0 = blockIdx.y * kChunkF + lane * kLaneF;
-  const bool active = lane * kLaneF < fc;
-  for (int t = threadIdx.x; t < kFwdWords * 32 * fc; t += blockDim.x) sums[t] = Acc(0);
-  Acc* mine = sums + warp * 32 * fc + lane * kLaneF;  // + bit * fc
-
-  // thread t stages half a tile row: row t/2, words 4*(t%2) .. 4*(t%2)+3
-  const uint32_t* src =
-      pack + (long long)(threadIdx.x >> 1) * words + w_first + 4 * (threadIdx.x & 1);
-  uint4 next = __ldg(reinterpret_cast<const uint4*>(src));
-  for (long long r0 = 0; r0 < n_pad; r0 += kFwdRows) {
-    __syncthreads();  // the previous tile is consumed (and the sums zeroed)
-    tile[threadIdx.x] = next;
-    __syncthreads();
-    if (r0 + kFwdRows < n_pad)
-      next = __ldg(reinterpret_cast<const uint4*>(src + (r0 + kFwdRows) * words));
-    for (int s = 0; s < kFwdRows; s += 32) {
-      const uint32_t w = tile_words[(s + lane) * kFwdWords + warp];
-      unsigned m = __ballot_sync(kFull, w != 0u);
-      while (m) {
-        int r[4];
-        uint32_t bits[4];
-        Acc4 v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {  // up to 4 nonzero rows at once
-          r[q] = m ? __ffs(m) - 1 : -1;
-          m &= m - 1;
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          bits[q] = __shfl_sync(kFull, w, r[q] < 0 ? 0 : r[q]);
-          zero(v[q]);
-          if (r[q] >= 0 && active)
-            v[q] = Mode<T>::load(b + (size_t)(r0 + s + r[q]) * d_pad + f0);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          uint32_t x = r[q] < 0 ? 0u : bits[q];
-          while (x) {
-            const int bit = __ffs(x) - 1;
-            x &= x - 1;
-            if (active) {
-              Acc4* a = reinterpret_cast<Acc4*>(mine + bit * fc);
-              Acc4 t = *a;
-              add(t, v[q]);
-              *a = t;
-            }
-          }
-        }
-      }
-    }
-  }
-  // each lane reads back only the sum elements it wrote
-  const long long wi = w_first + warp;
-  const long long jbase = (wi >> 7) * kGroup + (wi & 127);
-  if (active) {
-    for (int bit = 0; bit < 32; ++bit)
-      *reinterpret_cast<Acc4*>(c + (jbase + bit * 128) * d_pad + f0) =
-          *reinterpret_cast<const Acc4*>(mine + bit * fc);
-  }
+  pattern::fwd_cols<T>(pack, b, c, n_pad, words, d_pad);
 }
 
 bool bad_shape(long long n_pad, int d_pad) {
-  return n_pad <= 0 || n_pad % kGroup != 0 || d_pad <= 0 || d_pad % 8 != 0;
+  return n_pad <= 0 || n_pad % pattern::kGroup != 0 || d_pad <= 0 || d_pad % 8 != 0;
 }
 
 template <typename T>
@@ -177,9 +61,7 @@ int launch_fwd(const void* pack, const void* b, void* c, long long n_pad, int d_
                cudaStream_t stream) {
   using Acc = typename Mode<T>::Acc;
   const long long words = n_pad / 32;
-  const int fc_max = d_pad < kChunkF ? d_pad : kChunkF;
-  const size_t smem = (size_t)kFwdRows * kFwdWords * sizeof(uint32_t) +
-                      (size_t)kFwdWords * 32 * fc_max * sizeof(Acc);
+  const size_t smem = pattern::fwd_smem_bytes<T>(d_pad);
   cudaError_t err = cudaFuncSetAttribute(
       pattern_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

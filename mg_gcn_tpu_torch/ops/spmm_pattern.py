@@ -100,11 +100,17 @@ def pack_bits_on_device(csr: CSRData, n_pad: int, device: torch.device) -> torch
         cols = torch.from_numpy(csr.indices[e0:e1].astype(np.int64)).to(device)
         counts = torch.from_numpy(np.diff(indptr[r0 : r1 + 1])).to(device)
         rows = torch.repeat_interleave(torch.arange(r1 - r0, device=device), counts)
-        pos = rows * words + (cols >> 12) * 128 + (cols & 127)
-        bit = (cols >> 7) & 31
-        val = torch.where(bit == 31, -(1 << 31), 1 << bit).to(torch.int32)
-        pack[r0:r1].view(-1).index_add_(0, pos, val)
+        add_bits(pack[r0:r1].view(-1), rows * words, cols)
     return pack
+
+
+def add_bits(flat: torch.Tensor, row_word: torch.Tensor, cols: torch.Tensor) -> None:
+    """Set the bits of columns ``cols`` (int64) in a flat int32 pack whose
+    rows start at word ``row_word`` (int64, one an entry), by one
+    ``index_add_`` of powers of two (see :func:`pack_bits_on_device`)."""
+    bit = (cols >> 7) & 31
+    val = torch.where(bit == 31, -(1 << 31), 1 << bit).to(torch.int32)
+    flat.index_add_(0, row_word + (cols >> 12) * 128 + (cols & 127), val)
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,9 @@
 """Host-side graph/CSR preprocessing (numpy, scipy).
 
-Port of ``mg_gcn_tpu/sparse.py`` without its 2-D ``partition_blocks``
-(distributed slice): degree normalization and the counting-sort transpose
-(reference matrix.hpp:340-424), self loops, the uniform partition and its
-communication volume, symmetric permutations and the locality orderings
+Port of ``mg_gcn_tpu/sparse.py``: degree normalization and the
+counting-sort transpose (reference matrix.hpp:340-424), self loops, the
+uniform partition, its 2-D block split and its communication volume,
+symmetric permutations and the locality orderings
 of ``data.prep cluster``, and the synthetic generators ``random_graph``,
 ``planted_graph`` and ``planted_features``. The C++/OpenMP fast path
 (``native``) waits for a later slice (ROADMAP queue 1 item 4b).
@@ -94,6 +94,35 @@ def uniform_partition(n: int, parts: int) -> np.ndarray:
     """The reference's uniform 1-D partition, p[i] = i*n/P (main.cpp:139-141):
     P+1 boundaries."""
     return np.array([i * n // parts for i in range(parts + 1)], dtype=np.int64)
+
+
+def partition_blocks(csr: CSRData, row_part: np.ndarray, col_part: np.ndarray) -> list[list[CSRData]]:
+    """Split A into a P×Q grid of CSR blocks (the reference's
+    dist_row_csr_matrix construction, dist_matrix.hpp:215-259): block[i][j]
+    holds rows [row_part[i], row_part[i+1]) and the columns in
+    [col_part[j], col_part[j+1]), column indices shifted down by
+    col_part[j]."""
+    rows = _expand_rows(csr)
+    cols = csr.indices.astype(np.int64)
+    col_block = np.searchsorted(col_part[1:], cols, side="right")
+    out = []
+    for i in range(len(row_part) - 1):
+        r0, r1 = int(row_part[i]), int(row_part[i + 1])
+        e0, e1 = int(csr.indptr[r0]), int(csr.indptr[r1])
+        row_i, col_i, cb_i, dat_i = rows[e0:e1] - r0, cols[e0:e1], col_block[e0:e1], csr.data[e0:e1]
+        blocks = []
+        for j in range(len(col_part) - 1):
+            sel = cb_i == j
+            indptr = np.zeros(r1 - r0 + 1, dtype=np.int64)
+            np.cumsum(np.bincount(row_i[sel], minlength=r1 - r0), out=indptr[1:])
+            blocks.append(CSRData(
+                indptr=indptr,
+                indices=(col_i[sel] - int(col_part[j])).astype(np.int32),
+                data=dat_i[sel].astype(np.float32),
+                shape=(r1 - r0, int(col_part[j + 1] - col_part[j])),
+            ))
+        out.append(blocks)
+    return out
 
 
 def comm_volume(csr: CSRData, part: np.ndarray) -> np.ndarray:

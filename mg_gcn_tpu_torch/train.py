@@ -27,7 +27,7 @@ from .ops.spmm_pallas import TiledMat
 from .timers import TimerRegistry
 
 # engines of the JAX package that later slices port, by ROADMAP item
-LATER_IMPLS = {"halo": "ROADMAP queue 1 item 9 (distributed training)"}
+LATER_IMPLS = {"halo": "ROADMAP queue 1 item 9d (dist_halo.py)"}
 IMPLS = ("auto", "pattern", "block", "edge", "gather", "xla", "pallas")
 # impl="auto" takes the block pair over the dense pack when tiles or planes
 # are this sparse (the JAX package's rule, train.py:165-179)
@@ -88,6 +88,21 @@ def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = F
     fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
     impl = _edge_or_gather(graph)
     return impl, f"{why}, expected edge-tile fill {fill:.3f} {'>=' if impl == 'edge' else '<'} {EDGE_FILL_MIN}"
+
+
+def dist_pattern_engine(graph: CSRData, parts: int, per_card: int, card_bytes: int) -> tuple[bool, str]:
+    """(take the pattern pair, reason) at ``parts`` partitions: the JAX
+    CLI's gate (cli.py:546-552), a binary adjacency whose two packs,
+    2·n²/8/P bytes a partition, fit PATTERN_MEM_FRACTION of a card of
+    ``card_bytes``. A card holds the packs of all its ``per_card``
+    partitions."""
+    if not spmm_pattern.is_binary(graph):
+        return False, "weighted adjacency"
+    pack_gb = 2 * graph.nrows**2 / 8 / parts * per_card / 1e9
+    budget_gb = spmm_pattern.PATTERN_MEM_FRACTION * card_bytes / 1e9
+    fits = pack_gb <= budget_gb
+    return fits, (f"binary adjacency, packs of {per_card} partition(s) {pack_gb:.2f} GB a card"
+                  f" {'within' if fits else 'over'} {budget_gb:.1f} GB")
 
 
 def build_agg_pair(

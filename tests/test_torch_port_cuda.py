@@ -19,7 +19,9 @@ from mg_gcn_tpu_torch.ops import spmm_edges as se
 from mg_gcn_tpu_torch.ops import spmm_gather as sg
 from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
 from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+from mg_gcn_tpu_torch.ops import spmm_pattern_ring as ring
 from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
+from mg_gcn_tpu_torch.parallel import dist
 from mg_gcn_tpu_torch.train import build_agg_pair, make_train_step, train
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden")
@@ -502,3 +504,114 @@ def test_train_pallas_on_card_matches_cpu():
     cpu = train(ds, [16, 16], epochs=5, impl="pallas", device="cpu", log=False)
     assert gpu.engine == cpu.engine == "pallas"
     np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the ring pair and the row-partitioned step
+
+
+def _ring_graph(parts):
+    """A binary graph over P slabs of m = 4,096 rows: 100 padded rows in the
+    last slab, and (P > 1) no edge from slab 0's rows into slab 1's columns,
+    so partition 0's backward round 1 and partition 1's forward round P-1
+    are empty."""
+    n = parts * 4096 - 100
+    g = sparse.random_graph(n, 16, seed=5)
+    rows = np.repeat(np.arange(n), np.diff(g.indptr))
+    keep = ~((rows < 4096) & (g.indices >= 4096) & (g.indices < 8192))
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows[keep], minlength=n), out=indptr[1:])
+    return CSRData(indptr, g.indices[keep], g.data[keep], g.shape)
+
+
+@pytest.mark.parametrize("d", [41, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_ring_kernel_matches_plain(which, parts, dtype, d):
+    """ring_fwd / ring_bwd against their plain versions summed in float64
+    (int8: equal), every partition, with an empty round, bit 31 set and
+    padded rows, whose outputs must be 0."""
+    g = _ring_graph(parts)
+    pair = dist.DistPatternPair.from_binary_csr(g, dist.make_mesh(parts, ["cuda:0"] * parts))
+    packs = pair.pack_fwd if which == "fwd" else pair.pack_bwd
+    kernel, plain = ((ring.ring_pattern_fwd, ring.ring_pattern_fwd_plain) if which == "fwd"
+                     else (ring.ring_pattern_bwd, ring.ring_pattern_bwd_plain))
+    assert any(bool((p < 0).any()) for p in packs)  # bit 31 of some word
+    if parts > 1:
+        assert not packs[1][parts - 1].any() if which == "fwd" else not packs[0][1].any()
+    m, d_pad = pair.m_loc, sp.round_up(d, 8)
+    key = (str(dtype).removeprefix("torch."), d_pad)
+    for j in range(parts):
+        slots = torch.zeros((parts, m, d_pad), dtype=dtype, device="cuda")
+        slots[:, :, :d] = _operand(parts * m, d, dtype, seed=j).reshape(parts, m, d)
+        before = kernel.launches[key]
+        got = kernel(packs[j], slots)
+        torch.cuda.synchronize()
+        assert kernel.launches[key] == before + 1
+        assert got.shape == (m, d_pad) and got.dtype == (torch.int32 if dtype == torch.int8 else torch.float32)
+        if dtype == torch.int8:
+            assert torch.equal(got, plain(packs[j], slots))
+        else:
+            want = plain(packs[j], slots, torch.float64)
+            torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+        if j == parts - 1:
+            assert not got[m - 100:].any()
+
+
+def test_ring_wrappers_reject_bad_operands():
+    pair = dist.DistPatternPair.from_binary_csr(_ring_graph(2), dist.make_mesh(2, ["cuda:0"] * 2))
+    m = pair.m_loc
+    with pytest.raises(ValueError, match="d_pad % 8"):
+        ring.ring_pattern_fwd(pair.pack_fwd[0], torch.zeros((2, m, 12), device="cuda"))
+    with pytest.raises(ValueError, match=r"\(P, m, d_pad\)"):
+        ring.ring_pattern_bwd(pair.pack_bwd[0], torch.zeros((3, m, 16), device="cuda"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ring.ring_pattern_fwd(pair.pack_fwd[0].cpu(), torch.zeros((2, m, 16), device="cuda"))
+
+
+@pytest.mark.parametrize("orientation", ["PT", "P"])
+def test_strategies_equal_in_int8_on_card(orientation):
+    """fused = ring = all_gather in int8 on the card, and = the CPU."""
+    g = _ring_graph(4)
+    h = np.random.default_rng(1).standard_normal((4 * 4096, 41)).astype(np.float32)
+    h[g.nrows:] = 0
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = dist.make_mesh(4, [dev] * 4)
+        pair = dist.DistPatternPair.from_binary_csr(g, mesh, dtype="int8")
+        for strategy in ("fused", "ring", "all_gather"):
+            out = dist.dist_aggregate_pattern(pair, dist.shard(h, mesh), orientation, strategy=strategy)
+            outs[(dev, strategy)] = torch.cat([o.cpu() for o in out])
+    first = outs[("cuda:0", "fused")]
+    assert all(torch.equal(first, o) for o in outs.values())
+
+
+def test_dist_step_on_card_matches_cpu():
+    """Three float32 steps of the fused P = 4 pattern step on one card
+    against the CPU (plain versions), from the same seed-99 parameters;
+    exactly 3 ring_fwd + 2 ring_bwd launches a partition and step."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
+    from mg_gcn_tpu_torch.nn import adam
+
+    ds = Dataset.load(GOLDEN)
+    config = GCNConfig(sizes=(ds.num_features, 16, 16, ds.num_labels))
+    losses = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = dist.make_mesh(4, [dev] * 4)
+        pair = dist.DistPatternPair.from_binary_csr(ds.graph, mesh, dtype="float32")
+        xs, ys, masks = dist.shard_dataset(ds, mesh, pair.n_pad)
+        params = init_params(config, device=dev)
+        params, opt = dist.replicate(params, mesh), dist.replicate(adam.adam_init(params), mesh)
+        step = dist.make_dist_train_step(config, mesh, ds.num_nodes, strategy="fused", pair_kind="pattern",
+                                         pattern_dtype="float32")
+        ring.ring_pattern_fwd.launches.clear()
+        ring.ring_pattern_bwd.launches.clear()
+        losses[dev] = []
+        for _ in range(3):
+            params, opt, loss, _ = step(params, opt, pair, xs, ys, masks)
+            losses[dev].append(float(loss))
+        if dev == "cuda:0":
+            assert sum(ring.ring_pattern_fwd.launches.values()) == 3 * 3 * 4
+            assert sum(ring.ring_pattern_bwd.launches.values()) == 3 * 2 * 4
+    np.testing.assert_allclose(losses["cuda:0"], losses["cpu"], rtol=1e-5)

@@ -309,13 +309,13 @@ def test_cli_save_load_resumes(tmp_path, capsys):
 @pytest.mark.parametrize(
     "args",
     [
-        ["-P", "2", "-R", "1", "train"],
+        ["-P", "2", "-R", "0", "train"],
         ["--model", "sage", "train"],
         ["-P", "2", "-R", "1", "--model", "gat", "train"],
         ["--f64", "train"],
         ["--mmap", "train"],
         ["--multihost", "train"],
-        ["--exchange", "ring", "train"],
+        ["-P", "2", "-R", "1", "--impl", "gather", "train"],
         ["--time-phases", "train"],
         ["--profile", "prof", "train"],
         ["--impl", "halo", "train"],
