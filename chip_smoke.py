@@ -41,6 +41,9 @@ the result line:
 5. pattern kernels at the main-path shape — each kernel x dtype x width
    against its plain version again, timed with CUDA events beside its bound
    and beside torch.sparse.mm (float32; a yardstick the port never calls);
+   ``pattern_fwd`` launched twice must give the same bits, and its launch
+   geometry (grid, threads, dynamic shared memory, row slices, resident
+   blocks an SM) is logged and put in its kernels-line rows;
 6. the dist path — BASELINE's canonical ``-P 4 -R 1`` run (BASELINE.md:13)
    on the main path's dataset, sizes (608, 128, 128, 44) (41 classes round
    up to a multiple of P), its 4 partitions all on cuda:0, through
@@ -56,7 +59,8 @@ the result line:
    the fused epoch 0;
 7. ring kernels at the dist path's shape — partition 0's launch, each
    kernel x dtype x width as phase 5, beside torch.sparse.mm on the
-   partition's slab of Pᵀ / P against the gathered operand;
+   partition's slab of Pᵀ / P against the gathered operand; ``ring_fwd``'s
+   repeat check and geometry as ``pattern_fwd``'s in phase 5;
 8. the banded path — bench.py's block-banded graph (bench.py:276-292, n =
    232,968, 493 draws a row in row ± 4096, ~111M edges) with the main path's
    features, labels and model: impl="auto" must pick the block pair (its
@@ -564,6 +568,11 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
                 torch.cuda.synchronize()
                 check = check_close(f"{name} {dtype} d={d} (main shape)", got, plain(fwd.pack, b, torch.float64),
                                     dtype)
+                extra = {}
+                if name == "pattern_fwd":
+                    extra = forward_repeat_and_geometry(f"{name} {dtype} d={d} (main shape)", got,
+                                                        lambda: kernel(fwd.pack, b),
+                                                        sp.pattern_fwd_geometry(n_pad, b.shape[1], b.dtype))
                 del got
                 ms = cuda_ms(lambda: kernel(fwd.pack, b), 5)
                 plain_ms = cuda_ms(lambda: plain(fwd.pack, b), 2)
@@ -573,10 +582,25 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
                     library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
                 moved = n_pad * n_pad / 8 + n * d * elt_size(b) + n * d * 4
                 rows.append(kernel_row(name, dtype, d, n, nnz, launches[name].get((dtype, b.shape[1]), 0),
-                                       check, ms, plain_ms, library_ms, moved))
+                                       check, ms, plain_ms, library_ms, moved) | extra)
                 log_row(rows[-1])
         del lib
     return rows
+
+
+def forward_repeat_and_geometry(label: str, got: torch.Tensor, run, geometry: dict) -> dict:
+    """The forward walk's contract at the path's shape: a second launch gives
+    the same bits as ``got`` (fixed sum order, no atomics); logs the launch
+    geometry (grid, threads, dynamic shared memory, row slices, resident
+    blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Returns the row's extra keys."""
+    again = run()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    del again
+    log(f"  {label}: two launches equal bit for bit; geometry {geometry}")
+    return {"repeat_equal": True, "geometry": geometry}
 
 
 # ---------------------------------------------------------------------------
@@ -722,6 +746,11 @@ def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
         for dtype in DTYPES:
             for d in DIST_WIDTHS:
                 slots = operand(P * m, d, dtype, seed=d).reshape(P, m, -1)
+                extra = {}
+                if name == "ring_fwd":
+                    extra = forward_repeat_and_geometry(
+                        f"{name} {dtype} d={d} (dist shape)", kernel(pack, slots), lambda: kernel(pack, slots),
+                        ring.ring_pattern_fwd_geometry(P, m, slots.shape[2], slots.dtype))
                 check, ms, plain_ms = check_and_time(
                     f"{name} {dtype} d={d} (dist shape)", lambda: kernel(pack, slots),
                     lambda: plain(pack, slots, None if dtype == "int8" else torch.float64), dtype, 5,
@@ -733,7 +762,7 @@ def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
                     del bl
                 moved = pack.numel() * 4 + slots.numel() * elt_size(slots) + m * d * 4
                 rows.append(kernel_row(name, dtype, d, m, nnz, launches[name].get((dtype, slots.shape[2]), 0),
-                                       check, ms, plain_ms, library_ms, moved))
+                                       check, ms, plain_ms, library_ms, moved) | extra)
                 log_row(rows[-1])
                 del slots
                 torch.cuda.empty_cache()

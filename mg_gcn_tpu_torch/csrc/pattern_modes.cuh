@@ -28,21 +28,30 @@ __device__ __forceinline__ void add(int4& a, const int4& v) {
 // Operand type -> accumulator type and a 4-feature load widened to it.
 template <typename T> struct Mode;
 
+// ``raw`` loads 4 features as stored and ``widen`` converts them, so that a
+// batch of loads can be in flight in few registers.
 template <> struct Mode<float> {
   using Acc = float;
   using Acc4 = float4;
+  using Raw = float4;
   __device__ __forceinline__ static Acc4 load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
   }
+  __device__ __forceinline__ static Raw raw(const float* p) { return load(p); }
+  __device__ __forceinline__ static Acc4 widen(const Raw& r) { return r; }
 };
 
 template <> struct Mode<__nv_bfloat16> {
   using Acc = float;
   using Acc4 = float4;
-  __device__ __forceinline__ static Acc4 load(const __nv_bfloat16* p) {
-    uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
+  using Raw = uint2;
+  __device__ __forceinline__ static Acc4 load(const __nv_bfloat16* p) { return widen(raw(p)); }
+  __device__ __forceinline__ static Raw raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ static Acc4 widen(Raw r) {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r.y));
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
 };
@@ -50,10 +59,12 @@ template <> struct Mode<__nv_bfloat16> {
 template <> struct Mode<int8_t> {
   using Acc = int;
   using Acc4 = int4;
-  __device__ __forceinline__ static Acc4 load(const int8_t* p) {
-    const char4 v = __ldg(reinterpret_cast<const char4*>(p));
-    return make_int4(v.x, v.y, v.z, v.w);
+  using Raw = char4;
+  __device__ __forceinline__ static Acc4 load(const int8_t* p) { return widen(raw(p)); }
+  __device__ __forceinline__ static Raw raw(const int8_t* p) {
+    return __ldg(reinterpret_cast<const char4*>(p));
   }
+  __device__ __forceinline__ static Acc4 widen(Raw v) { return make_int4(v.x, v.y, v.z, v.w); }
 };
 
 // One warp adds B[j, chunk] into ``acc`` for every set bit of the 32 words

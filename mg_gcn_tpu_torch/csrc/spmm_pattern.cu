@@ -19,24 +19,28 @@
 // (n_pad = 233,472) the pack is n_pad^2/8 = 6.8 GB and each launch reads it
 // once, >= 2.0 ms. The 2*nnz*d arithmetic (115M edges x 128 features) is
 // under 0.5 ms even on the 67 TFLOP/s float32 units, so both kernels are
-// bound by bytes; the design reads the pack exactly once per 128-feature
-// chunk and keeps every sum on chip until its one store. The dense-row
-// traffic (one 4-feature slice per lane per set bit) goes through L2.
+// bound by bytes; each reads the pack once per 128-feature chunk and keeps
+// every sum in registers until its one store. The dense-row traffic (one
+// 4-feature slice per lane per set bit) goes through L2.
 //
 // Offsets into the pack (up to 1.7e9 words) and into B/C are 64-bit. The
-// two walks live in pattern_dense.cuh, shared with the ring kernels of
-// spmm_pattern_ring.cu; this file runs them over one square pack.
+// walks are shared with the ring kernels of spmm_pattern_ring.cu: the
+// forward (sums in registers, bit tiles staged by cp.async into an
+// mbarrier ring, row slices as clusters; its sum order) in
+// pattern_fwd.cuh, the backward in pattern_dense.cuh. This file runs them
+// over one square pack.
 
 #include "pattern_dense.cuh"
+#include "pattern_fwd.cuh"
 
 namespace {
 
 using pattern::kBwdRows;
 using pattern::kChunkF;
-using pattern::kFwdWords;
 using pattern::Mode;
 
-// The walks are pattern_dense.cuh's, over one square pack (one round).
+// The backward walk is pattern_dense.cuh's and the forward pattern_fwd.cuh's,
+// over one square pack (one round).
 template <typename T>
 __global__ void __launch_bounds__(kBwdRows * 32)
 pattern_bwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
@@ -44,32 +48,33 @@ pattern_bwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
   pattern::bwd_rows<T>(pack, b, c, words, d_pad, 1, 0, 0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kFwdWords * 32)
+template <typename T, int G>
+__global__ void __launch_bounds__(pattern::FwdCfg<G>::kThreads, pattern::FwdCfg<G>::kMinBlocks)
 pattern_fwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
-                   typename Mode<T>::Acc* __restrict__ c, long long n_pad,
-                   long long words, int d_pad) {
-  pattern::fwd_cols<T>(pack, b, c, n_pad, words, d_pad);
+                   typename Mode<T>::Acc* __restrict__ c, long long n_pad, long long words,
+                   int d_pad, int slices) {
+  pattern::fwd_cols<T, G>(pack, b, c, n_pad, words, d_pad, slices);
 }
 
 bool bad_shape(long long n_pad, int d_pad) {
   return n_pad <= 0 || n_pad % pattern::kGroup != 0 || d_pad <= 0 || d_pad % 8 != 0;
 }
 
+// Two lane groups a warp at d_pad <= 64 (pattern_fwd.cuh).
 template <typename T>
 int launch_fwd(const void* pack, const void* b, void* c, long long n_pad, int d_pad,
                cudaStream_t stream) {
-  using Acc = typename Mode<T>::Acc;
   const long long words = n_pad / 32;
-  const size_t smem = pattern::fwd_smem_bytes<T>(d_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      pattern_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(words / kFwdWords), (unsigned)((d_pad + kChunkF - 1) / kChunkF));
-  pattern_fwd_kernel<T><<<grid, kFwdWords * 32, smem, stream>>>(
-      static_cast<const uint32_t*>(pack), static_cast<const T*>(b),
-      static_cast<Acc*>(c), n_pad, words, d_pad);
-  return (int)cudaGetLastError();
+  if (d_pad <= 64)
+    return (int)pattern::fwd_launch<T, 2>(pattern_fwd_kernel<T, 2>, pack, b, c, n_pad, words, d_pad, stream);
+  return (int)pattern::fwd_launch<T, 1>(pattern_fwd_kernel<T, 1>, pack, b, c, n_pad, words, d_pad, stream);
+}
+
+template <typename T>
+int geometry_fwd(long long n_pad, int d_pad, int* out) {
+  const long long words = n_pad / 32;
+  if (d_pad <= 64) return (int)pattern::fwd_geometry<T, 2>(pattern_fwd_kernel<T, 2>, n_pad, words, d_pad, out);
+  return (int)pattern::fwd_geometry<T, 1>(pattern_fwd_kernel<T, 1>, n_pad, words, d_pad, out);
 }
 
 template <typename T>
@@ -97,6 +102,20 @@ int mggcn_pattern_fwd(const void* pack, const void* b, void* c, long long n_pad,
     case 0: return launch_fwd<float>(pack, b, c, n_pad, d_pad, s);
     case 1: return launch_fwd<__nv_bfloat16>(pack, b, c, n_pad, d_pad, s);
     case 2: return launch_fwd<int8_t>(pack, b, c, n_pad, d_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The forward's launch geometry for these operands, written to out[0..6]:
+// grid x, grid y, threads, dynamic shared memory, row slices (the cluster
+// size), resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and resident blocks on the card. Returns a cudaError_t.
+int mggcn_pattern_fwd_geometry(long long n_pad, int d_pad, int dtype, int* out) {
+  if (bad_shape(n_pad, d_pad)) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return geometry_fwd<float>(n_pad, d_pad, out);
+    case 1: return geometry_fwd<__nv_bfloat16>(n_pad, d_pad, out);
+    case 2: return geometry_fwd<int8_t>(n_pad, d_pad, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,9 +18,9 @@
 // parallel/dist.py) fills the slots before the launch, so the code is the
 // same whether partitions share a card or not. The TPU kernel's RDMA ring,
 // semaphores, VMEM staging, D_MAX chunking and bit-plane matmuls have no
-// counterpart: the walks are the single-pack kernels' (pattern_dense.cuh,
-// shared with spmm_pattern.cu) with the rounds added, and the sums stay on
-// chip across all rounds, with one store:
+// counterpart: the walks are the single-pack kernels' (pattern_fwd.cuh and
+// pattern_dense.cuh, shared with spmm_pattern.cu) with the rounds added,
+// and the sums stay in registers across all rounds, with one store:
 //   float32 / bfloat16 operands -> float32 sums;  int8 -> int32 sums.
 // A round whose block has no set bit adds nothing; a column no round
 // reaches (padded rows m*P > n among them) is stored as 0.
@@ -29,26 +29,31 @@
 // P*m^2/8 bytes (1.9 GB at P = 4, m = 61,440) and each launch reads them
 // once, >= 0.56 ms; the slots and C add P*m*d_pad + m*d_pad elements. The
 // 2*nnz_j*d arithmetic is far below the float32 peak at Reddit density, so
-// both are bound by bytes, as the single-pack kernels are.
+// both are bound by bytes, as the single-pack kernels are. A partition's
+// pack has a quarter of the main pack's words (1,920 at m = 61,440), too
+// few column blocks to fill the card twice over, so the forward's launcher
+// splits its P*m-row walk into row slices (pattern_fwd.cuh: clusters whose
+// partials meet in distributed shared memory, added in slice order).
 //
 // Offsets are 64-bit throughout.
 
 #include "pattern_dense.cuh"
+#include "pattern_fwd.cuh"
 
 namespace {
 
 using pattern::kBwdRows;
 using pattern::kChunkF;
-using pattern::kFwdWords;
 using pattern::Mode;
 
 // The rounds are consecutive row blocks of the stacked pack (P*m, m/32) and
 // slots (P*m, d_pad): one forward walk over P*m rows sums them in order.
-template <typename T>
-__global__ void __launch_bounds__(kFwdWords * 32)
+template <typename T, int G>
+__global__ void __launch_bounds__(pattern::FwdCfg<G>::kThreads, pattern::FwdCfg<G>::kMinBlocks)
 ring_fwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ slots,
-                typename Mode<T>::Acc* __restrict__ c, long long rows, long long words, int d_pad) {
-  pattern::fwd_cols<T>(pack, slots, c, rows, words, d_pad);
+                typename Mode<T>::Acc* __restrict__ c, long long rows, long long words, int d_pad,
+                int slices) {
+  pattern::fwd_cols<T, G>(pack, slots, c, rows, words, d_pad, slices);
 }
 
 // Each output row walks its row of every round: round s at pack + s*m*words
@@ -65,20 +70,21 @@ bool bad_shape(int parts, long long m, int d_pad) {
   return parts <= 0 || m <= 0 || m % pattern::kGroup != 0 || d_pad <= 0 || d_pad % 8 != 0;
 }
 
+// Two lane groups a warp at d_pad <= 64 (pattern_fwd.cuh).
 template <typename T>
 int launch_fwd(const void* pack, const void* slots, void* c, int parts, long long m, int d_pad,
                cudaStream_t stream) {
-  using Acc = typename Mode<T>::Acc;
-  const long long words = m / 32;
-  const size_t smem = pattern::fwd_smem_bytes<T>(d_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      ring_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(words / kFwdWords), (unsigned)((d_pad + kChunkF - 1) / kChunkF));
-  ring_fwd_kernel<T><<<grid, kFwdWords * 32, smem, stream>>>(
-      static_cast<const uint32_t*>(pack), static_cast<const T*>(slots), static_cast<Acc*>(c),
-      (long long)parts * m, words, d_pad);
-  return (int)cudaGetLastError();
+  const long long rows = (long long)parts * m, words = m / 32;
+  if (d_pad <= 64)
+    return (int)pattern::fwd_launch<T, 2>(ring_fwd_kernel<T, 2>, pack, slots, c, rows, words, d_pad, stream);
+  return (int)pattern::fwd_launch<T, 1>(ring_fwd_kernel<T, 1>, pack, slots, c, rows, words, d_pad, stream);
+}
+
+template <typename T>
+int geometry_fwd(int parts, long long m, int d_pad, int* out) {
+  const long long rows = (long long)parts * m, words = m / 32;
+  if (d_pad <= 64) return (int)pattern::fwd_geometry<T, 2>(ring_fwd_kernel<T, 2>, rows, words, d_pad, out);
+  return (int)pattern::fwd_geometry<T, 1>(ring_fwd_kernel<T, 1>, rows, words, d_pad, out);
 }
 
 template <typename T>
@@ -106,6 +112,17 @@ int mggcn_ring_fwd(const void* pack, const void* slots, void* c, int parts, long
     case 0: return launch_fwd<float>(pack, slots, c, parts, m, d_pad, s);
     case 1: return launch_fwd<__nv_bfloat16>(pack, slots, c, parts, m, d_pad, s);
     case 2: return launch_fwd<int8_t>(pack, slots, c, parts, m, d_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The forward's launch geometry, as mggcn_pattern_fwd_geometry (spmm_pattern.cu).
+int mggcn_ring_fwd_geometry(int parts, long long m, int d_pad, int dtype, int* out) {
+  if (bad_shape(parts, m, d_pad)) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return geometry_fwd<float>(parts, m, d_pad, out);
+    case 1: return geometry_fwd<__nv_bfloat16>(parts, m, d_pad, out);
+    case 2: return geometry_fwd<int8_t>(parts, m, d_pad, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

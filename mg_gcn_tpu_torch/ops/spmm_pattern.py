@@ -220,9 +220,32 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    lib.mggcn_pattern_fwd_geometry.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.mggcn_pattern_fwd_geometry.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "slices", "blocks_per_sm", "resident_blocks")
+
+
+def query_geometry(lib: ctypes.CDLL, name: str, *args) -> dict:
+    """The launch geometry the forward launcher ``name`` would use for
+    ``args`` on the current card (:data:`GEOMETRY_KEYS`; blocks_per_sm from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); raises on an error."""
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    err = getattr(lib, name)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} ({lib.mggcn_error_string(err).decode()})")
+    return dict(zip(GEOMETRY_KEYS, out))
+
+
+def pattern_fwd_geometry(n_pad: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`pattern_fwd` for an (n_pad, d_pad)
+    operand of ``dtype``: grid, threads, dynamic shared memory, row slices
+    and resident blocks."""
+    return query_geometry(_lib(), "mggcn_pattern_fwd_geometry", n_pad, d_pad, _DTYPE_CODE[dtype])
 
 
 def _launch(name: str, pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ import functools
 import torch
 
 from .. import _build
-from .spmm_pattern import _DTYPE_CODE, GROUP, pattern_bwd_plain, pattern_fwd_plain
+from .spmm_pattern import _DTYPE_CODE, GROUP, pattern_bwd_plain, pattern_fwd_plain, query_geometry
 
 
 def _plain(plain, pack: torch.Tensor, slots: torch.Tensor, acc_dtype: torch.dtype | None) -> torch.Tensor:
@@ -60,9 +60,19 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    lib.mggcn_ring_fwd_geometry.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
+    lib.mggcn_ring_fwd_geometry.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ring_pattern_fwd_geometry(parts: int, m: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`ring_pattern_fwd` for a (P, m, m/32)
+    pack and (P, m, d_pad) slots of ``dtype`` (see
+    ``spmm_pattern.query_geometry``)."""
+    return query_geometry(_lib(), "mggcn_ring_fwd_geometry", parts, m, d_pad, _DTYPE_CODE[dtype])
 
 
 def _launch(name: str, pack: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:

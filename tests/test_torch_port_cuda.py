@@ -524,7 +524,7 @@ def _ring_graph(parts):
     return CSRData(indptr, g.indices[keep], g.data[keep], g.shape)
 
 
-@pytest.mark.parametrize("d", [41, 128])
+@pytest.mark.parametrize("d", [8, 41, 64, 128, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("parts", [1, 2, 4])
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
@@ -615,3 +615,101 @@ def test_dist_step_on_card_matches_cpu():
             assert sum(ring.ring_pattern_fwd.launches.values()) == 3 * 3 * 4
             assert sum(ring.ring_pattern_bwd.launches.values()) == 3 * 2 * 4
     np.testing.assert_allclose(losses["cuda:0"], losses["cpu"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the forward walk (pattern_fwd, ring_fwd): register sums, staged bit tiles,
+# row slices
+
+
+def _fwd_stress_graph(kind):
+    """n = 12,288: three 4096-column groups. "gappy": random edges (8 a row),
+    rows 256..319 empty (two 32-row spans with no set bit), rows 5 and 4000
+    setting every bit of words 0 and 130 (each lane group's 16 owned columns
+    full), bit 31 (columns g*4096 + 31*128 + w) in 600 rows, and no edge into
+    columns 8192..8447 (bits 0 and 1 of group 2), whose outputs must be 0.
+    "dense": random edges and column 4100 set in every row (12,288 terms)."""
+    n = 12_288
+    rng = np.random.default_rng(7)
+    src, dst = rng.integers(0, n, 8 * n), rng.integers(0, n, 8 * n)
+    if kind == "dense":
+        src, dst = np.r_[src, np.arange(n)], np.r_[dst, np.full(n, 4100)]
+    else:
+        full = np.arange(32) * 128
+        src = np.r_[src, np.full(64, 5), np.full(64, 4000), rng.integers(0, n, 600)]
+        dst = np.r_[dst, full, 4096 + 2 + full, full, 4096 + 2 + full,
+                    rng.integers(0, 3, 600) * 4096 + 31 * 128 + rng.integers(0, 128, 600)]
+        keep = ((src < 256) | (src >= 320)) & ((dst < 8192) | (dst >= 8448))
+        src, dst = src[keep], dst[keep]
+    key = np.unique(src.astype(np.int64) * n + dst)
+    indptr = np.r_[0, np.cumsum(np.bincount(key // n, minlength=n))].astype(np.int64)
+    return CSRData(indptr, (key % n).astype(np.int32), np.ones(key.size, np.float32), (n, n))
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 64, 128, 136, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("kind", ["gappy", "dense"])
+def test_forward_walk_stress_matches_plain(kind, dtype, d_pad):
+    """pattern_fwd on a three-group pack with an empty 64-row stretch, full
+    words, bit 31 and unreached columns (0), or with a column set in every
+    row (held to the float64 sum-error bound), at every width class of the
+    walk (two lane groups a warp at d_pad <= 64, two feature chunks above
+    128); int8 equal."""
+    g = _fwd_stress_graph(kind)
+    pack = sp.pack_bits_on_device(g, g.nrows, torch.device("cuda"))
+    if kind == "gappy":
+        assert not bool(pack[256:320].any()) and bool((pack[5, :1] == -1).all()) and bool((pack < 0).any())
+    b = _operand(g.nrows, d_pad, dtype, seed=d_pad)
+    got = sp.pattern_fwd(pack, b)
+    torch.cuda.synchronize()
+    if kind == "gappy":
+        assert not bool(got[8192:8448].any())
+    if dtype == torch.int8 or kind == "gappy":
+        _assert_matches_plain(got, sp.pattern_fwd_plain(pack, b, None if dtype == torch.int8 else torch.float64)
+                              .to(got.dtype), dtype)
+        return
+    rows, cols = sp.decode_pattern(pack, 0, g.nrows)
+    zero = torch.zeros((g.nrows, d_pad), dtype=torch.float64, device="cuda")
+    exact = zero.clone().index_add_(0, cols, b.double().index_select(0, rows))
+    mag = zero.index_add_(0, cols, b.double().abs().index_select(0, rows))
+    _assert_within_sum_error(got, exact, mag, torch.bincount(cols, minlength=g.nrows).double()[:, None])
+
+
+@pytest.mark.parametrize("d_pad", [48, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("which", ["pattern", "ring"])
+def test_forward_walks_repeat_bit_for_bit(which, dtype, d_pad):
+    """Two launches of pattern_fwd / ring_pattern_fwd give the same bits: the
+    sum order is fixed (row order in a slice, slices in order) and no
+    atomics are used."""
+    if which == "pattern":
+        g = _fwd_stress_graph("gappy")
+        pack = sp.pack_bits_on_device(g, g.nrows, torch.device("cuda"))
+        b = _operand(g.nrows, d_pad, dtype, seed=3)
+        first, again = sp.pattern_fwd(pack, b), sp.pattern_fwd(pack, b)
+    else:
+        pair = dist.DistPatternPair.from_binary_csr(_ring_graph(4), dist.make_mesh(4, ["cuda:0"] * 4))
+        slots = _operand(4 * pair.m_loc, d_pad, dtype, seed=3).reshape(4, pair.m_loc, d_pad)
+        first, again = ring.ring_pattern_fwd(pair.pack_fwd[1], slots), ring.ring_pattern_fwd(pair.pack_fwd[1], slots)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_forward_geometry_fills_the_card():
+    """The launcher's geometry: at least 16 resident warps an SM; a small
+    pack (48 column blocks) is split into row slices (clusters), a 65,536-
+    node pack (256 column blocks at d_pad 128) is not, and both agree with
+    the plain version. Rows come in multiples of 4096 (16 tiles of 256) and
+    the slice count (1, 2, 4 or 8) divides them."""
+    for n, sliced in ((12_288, True), (65_536, False)):
+        for d_pad in (48, 128):
+            geo = sp.pattern_fwd_geometry(n, d_pad, torch.bfloat16)
+            assert geo["blocks_per_sm"] * geo["threads"] // 32 >= 16, geo
+            assert geo["grid_x"] == n // 32 // 8 * geo["slices"], geo
+        assert (sp.pattern_fwd_geometry(n, 128, torch.bfloat16)["slices"] > 1) == sliced
+        g = sparse.random_graph(n, 4, seed=9)
+        pack = sp.pack_bits_on_device(g, n, torch.device("cuda"))
+        b = _operand(n, 128, torch.int8, seed=1)
+        assert torch.equal(sp.pattern_fwd(pack, b), sp.pattern_fwd_plain(pack, b))
+    geo = ring.ring_pattern_fwd_geometry(4, 61_440, 48, torch.bfloat16)
+    assert geo["slices"] > 1 and geo["blocks_per_sm"] * geo["threads"] // 32 >= 16
