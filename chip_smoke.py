@@ -24,7 +24,11 @@ the result line:
    version on the card: float within rtol 1e-5 / atol 1e-6 of the output
    scale of the plain version summed in float64 (same rounded inputs; the
    reference does not move with the order of index_add_'s atomics), int8
-   SpMM equal; each check logs the share of the tolerance it used;
+   SpMM equal; each check logs the share of the tolerance it used; then
+   (logged, ROADMAP queue 3 item 2) one float32 step of the main path's
+   model on that banded graph through the block pair and through COO,
+   each layer's output and gradient leaves held against the float64
+   oracle tests/torch_oracle.py, and the block step against COO;
 4. main path at full width — bench.py's uniform configuration
    (n = 232,968, random_graph(n, 493, seed=1) ~ 115M edges, 608 features,
    41 classes, sizes (608, 128, 128, 41), parity mode, Adam, seed-99 init)
@@ -69,12 +73,21 @@ the result line:
    epoch 0 to 4 and 1 int8 epoch; counters zeroed before and read after:
    exactly 3 ``block_fwd`` + 2 ``block_bwd`` launches an epoch in each
    dtype; build seconds, epoch median, peak memory; then (logged only) 5
-   bfloat16 epochs each of the pattern pair and ``edge`` on the same graph;
-9. block kernels at the banded path's shape — as phase 5;
+   bfloat16 epochs each of the pattern pair and ``edge`` on the same graph,
+   and the float32 step again with ``block_fwd_plain`` (float32, round to
+   nearest) in the kernel's place, each step's gap to COO logged;
+9. block kernels at the banded path's shape — as phase 5; ``block_fwd``
+   (tensor cores over the live bit planes) launched twice must give the
+   same bits, its geometry and the count of its dense products over the
+   live planes (2 · live planes · 128 · tile_r · d_pad operations, three
+   bf16 passes in float32) are put in its rows, and the lean of its float
+   sums against the float64 sum is logged beside the plain version's; its
+   float32 bound prices the operations as three bf16 passes;
 10. the ELL path — ``train(impl="pallas")`` at the main path's widths on
    random_graph(20,000, 64, seed=3): one float32 step against COO, 5
    float32 epochs with exactly 5 ``tiled`` launches an epoch, K and the
-   store's bytes logged; ``tiled`` at the path's widths as phase 5; and
+   store's bytes logged; ``tiled`` at the path's widths as phase 5, with
+   its repeat check and geometry as ``block_fwd``'s; and
    ``TiledMat.from_csr`` must refuse the main path's graph, as JAX's does;
 11. GAT, card vs CPU — one float32 step of the GAT path's model on
    random_graph(20,000, 16, seed=3) on the card against the port's CPU
@@ -328,6 +341,63 @@ def phase_block_kernels_small() -> None:
             f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms (K = {mat.ell_k})")
 
 
+def phase_block_layers_small() -> None:
+    """ROADMAP queue 3 item 2, the block half: one float32 step of the main
+    path's model (608 -> 128 -> 128 -> 41, seed-99 init) on the small banded
+    graph, with planted features and labels from seed 5, through the block
+    pair and through the COO engine, each held layer by layer against the
+    float64 oracle ``tests/torch_oracle.py`` (the reference's semantics,
+    independent of the port's code) on the same parameters: every layer's
+    output and every gradient leaf, ||engine - oracle|| / ||oracle||; then
+    the block step against COO by the rule of phase 4. Logged; phase 8
+    holds the full-size step to its limit."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_oracle
+
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, forward, init_params, loss_and_grad
+    from mg_gcn_tpu_torch.train import build_agg_pair
+
+    g = small_banded_graph()
+    rng = np.random.default_rng(5)
+    labels = rng.integers(0, CLASSES, N_SMALL)
+    proj = rng.standard_normal((CLASSES, FEATURES)).astype(np.float32)
+    x_np = proj[labels] + 10.0 * rng.standard_normal((N_SMALL, FEATURES)).astype(np.float32)
+    dev = torch.device("cuda")
+    config = GCNConfig(sizes=(FEATURES, *HIDDEN, CLASSES))
+    params = init_params(config, device=dev)
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(labels).to(dev)
+
+    def step(pair):
+        with torch.no_grad():
+            caches = forward(params, pair, x, config, return_caches=True)[1]
+        return [c["post"].double().cpu() for c in caches], loss_and_grad(params, pair, x, y, config)
+
+    block = step(build_agg_pair(g, impl="block", pattern_dtype="float32", device=dev))
+    with deterministic():
+        coo = step(coo_pair_on_card(g))
+    # the oracle's Â (column-normalized, main.cpp:143) and Âᵀ in float64 on the host
+    cols = g.indices.astype(np.int64)
+    vals = 1.0 / np.bincount(cols, minlength=g.ncols).astype(np.float64)[cols]
+    rows = np.repeat(np.arange(g.nrows), np.diff(g.indptr))
+    a_hat = torch.sparse_coo_tensor(np.stack([rows, cols]), vals, g.shape).coalesce()
+    a_hat_t = a_hat.t().coalesce()
+    ref_params = [{"W": p_["W"].double().cpu(), "b": p_["b"].reshape(-1).double().cpu()} for p_ in params]
+    acts, loss_ref, _, grads_ref = torch_oracle.run_parity(a_hat, a_hat_t, ref_params, x_np, labels)
+    rel = lambda got, want: float(torch.linalg.vector_norm(got.double().cpu().reshape(want.shape) - want)  # noqa: E731
+                                  / torch.linalg.vector_norm(want))
+    for i in range(len(params)):
+        line = f"  layer {i}: output"
+        for name, (posts, _) in (("block", block), ("COO", coo)):
+            line += f" {name} {rel(posts[i], acts[i]):.3e}"
+        for k in ("W", "b"):
+            line += f"; grad {k}"
+            for name, (_, (_, _, grads)) in (("block", block), ("COO", coo)):
+                line += f" {name} {rel(grads[i][k], grads_ref[i][k]):.3e}"
+        log(line + "  (||f32 - f64 oracle|| / ||oracle||)")
+    log(f"  loss: block {float(block[1][0])!r}, COO {float(coo[1][0])!r}, oracle {loss_ref!r}")
+    compare_with_coo("block", block[1], coo[1])
+
+
 def main_dataset():
     from mg_gcn_tpu_torch import sparse
     from mg_gcn_tpu_torch.formats import Dataset
@@ -530,13 +600,17 @@ def elt_size(t: torch.Tensor) -> int:
     return (torch.finfo(t.dtype).bits if t.is_floating_point() else torch.iinfo(t.dtype).bits) // 8
 
 
-def kernel_row(name, dtype, d, n, nnz, launches, check, ms, plain_ms, library_ms, moved) -> dict:
+def kernel_row(name, dtype, d, n, nnz, launches, check, ms, plain_ms, library_ms, moved,
+               datapath: tuple[int, str] | None = None) -> dict:
     """One entry of the kernels line. ``check`` is check_close's (max_err,
     tolerance used). bound_ms is the larger of the bytes the function must
     move (``moved``: each input read once, each output written once) over
     the memory rate and its 2*nnz*d operations over the peak rate of the
-    operand type."""
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, 2.0 * nnz * d / PEAK_OPS[dtype]
+    datapath the kernel computes them on: the operand type's, or for
+    ``datapath`` = (passes, type) that many passes at the peak of ``type``
+    (block_fwd's float32 mode: three bfloat16 passes on the tensor cores)."""
+    passes, ops_type = datapath or (1, dtype)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, passes * 2.0 * nnz * d / PEAK_OPS[ops_type]
     err, use = check
     return dict(
         name=name, route="cuda", source=f"mg_gcn_tpu_torch/csrc/{SOURCES[name]}", replaces=KERNELS[name],
@@ -589,11 +663,12 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
 
 
 def forward_repeat_and_geometry(label: str, got: torch.Tensor, run, geometry: dict) -> dict:
-    """The forward walk's contract at the path's shape: a second launch gives
-    the same bits as ``got`` (fixed sum order, no atomics); logs the launch
-    geometry (grid, threads, dynamic shared memory, row slices, resident
-    blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-    Returns the row's extra keys."""
+    """A redesigned kernel's contract at the path's shape (the forward walk,
+    block_fwd, tiled): a second launch gives the same bits as ``got`` (fixed
+    sum order, no atomics); logs the launch geometry (grid, threads, dynamic
+    shared memory, row slices or stages, resident blocks an SM from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns the row's extra
+    keys."""
     again = run()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -1086,16 +1161,67 @@ def phase_banded_path(ds) -> dict:
     return out
 
 
+def phase_banded_f32_witness(ds) -> None:
+    """Logged, after the banded path's counted run (ROADMAP queue 3 item 2):
+    the float32 step of phase 8 (same seed-99 parameters) three ways, the
+    block pair on its kernels, the block pair with block_fwd's plain version
+    summed in float32 (index_add_ under :func:`deterministic`, round to
+    nearest) in its place, and COO; each leaf's ||a - b|| / ||b|| between
+    them, the largest and where. If the kernel's gap to COO is the plain
+    version's, the gap is the float32 sum order's; if it is larger, the
+    kernel's own sums add it."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
+    from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
+    from mg_gcn_tpu_torch.train import build_agg_pair
+
+    dev = torch.device("cuda")
+    config = GCNConfig(sizes=(ds.num_features, *HIDDEN, ds.num_labels))
+    x = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+    params = init_params(config, device=dev)
+    pair = build_agg_pair(ds.graph, impl="block", pattern_dtype="float32", device=dev)
+    kernel_step = loss_and_grad(params, pair, x, y, config)
+    kernel_fn = sps.block_fwd
+    sps.block_fwd = lambda mat, b: sps.block_fwd_plain(mat, b)  # noqa: E731
+    try:
+        with deterministic():
+            plain_step = loss_and_grad(params, pair, x, y, config)
+    finally:
+        sps.block_fwd = kernel_fn
+    del pair
+    with deterministic():
+        coo_step_ = loss_and_grad(params, coo_pair_on_card(ds.graph), x, y, config)
+    torch.cuda.synchronize()
+
+    def gap(a, b):
+        worst = max((float(torch.linalg.vector_norm(ga[k] - gb[k]) / torch.linalg.vector_norm(gb[k])), f"layer {i} {k}")
+                    for i, (ga, gb) in enumerate(zip(a[2], b[2])) for k in gb)
+        return f"{worst[0]:.3e} ({worst[1]})"
+
+    log(f"  float32 step, max over leaves of ||a - b|| / ||b||: block kernel vs COO {gap(kernel_step, coo_step_)};"
+        f" block with block_fwd_plain (float32, round to nearest) vs COO {gap(plain_step, coo_step_)};"
+        f" block kernel vs block_fwd_plain {gap(kernel_step, plain_step)}")
+    del kernel_step, plain_step, coo_step_
+    torch.cuda.empty_cache()
+
+
 def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
     """block_fwd and block_bwd at the banded path's shape, each dtype x
     width against its plain version, timed beside the bound (the store, B
-    and C at the memory rate, or 2·nnz·d operations), the plain version and
-    torch.sparse.mm on the float32 Pᵀ / P (a yardstick the port never
-    calls)."""
+    and C at the memory rate, or 2·nnz·d operations on the kernel's
+    datapath), the plain version and torch.sparse.mm on the float32 Pᵀ / P
+    (a yardstick the port never calls). block_fwd besides: two launches
+    equal bit for bit, its launch geometry, the bias of its float sums
+    (:func:`rounding_bias`) and the count of the dense products it runs on
+    the tensor cores over the live planes (2 · live planes · 128 · tile_r ·
+    d_pad operations, three times over in float32), logged beside their
+    time at the MMA type's peak."""
     from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
 
     n, n_pad, nnz = fwd.n, fwd.n_pad, fwd.nnz
     index_bytes = 4 * (3 * fwd.num_tiles + fwd.n_pad // fwd.tile_r + fwd.n_pad // sps.GROUP + 2)
+    live_planes = int(((fwd.pmask.long()[:, None] >> torch.arange(32, device=fwd.pmask.device)) & 1).sum())
+    log(f"  live (tile, plane) pairs: {live_planes} of {32 * fwd.num_tiles}")
     rows = []
     for name, kernel, plain in (("block_fwd", sps.block_fwd, sps.block_fwd_plain),
                                 ("block_bwd", sps.block_bwd, sps.block_bwd_plain)):
@@ -1103,10 +1229,31 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
         for dtype in DTYPES:
             for d in WIDTHS:
                 b = operand(n_pad, d, dtype, seed=d)
-                check, ms, plain_ms = check_and_time(
-                    f"{name} {dtype} d={d} (banded shape)", lambda: kernel(fwd, b),
-                    lambda: plain(fwd, b, None if dtype == "int8" else torch.float64), dtype, 5,
-                    lambda: plain(fwd, b), 2)
+                label = f"{name} {dtype} d={d} (banded shape)"
+                reference = lambda: plain(fwd, b, None if dtype == "int8" else torch.float64)  # noqa: E731
+                extra, datapath = {}, None
+                if name == "block_fwd":
+                    got = kernel(fwd, b)
+                    torch.cuda.synchronize()
+                    want = reference()
+                    check = check_close(label, got, want, dtype)
+                    extra = forward_repeat_and_geometry(label, got, lambda: kernel(fwd, b),
+                                                        sps.block_fwd_geometry(n_pad, fwd.tile_r, b.shape[1], b.dtype))
+                    if dtype != "int8":
+                        rounding_bias(label, got, want, lambda: plain(fwd, b), b,
+                                      lambda bb: (kernel(fwd, bb), plain(fwd, bb), plain(fwd, bb, torch.float64)))
+                    del got, want
+                    torch.cuda.empty_cache()
+                    ms, plain_ms = cuda_ms(lambda: kernel(fwd, b), 5), cuda_ms(lambda: plain(fwd, b), 2)
+                    datapath = (3, "bfloat16") if dtype == "float32" else (1, dtype)
+                    dense_ops = datapath[0] * 2.0 * live_planes * 128 * fwd.tile_r * b.shape[1]
+                    extra |= {"live_planes": live_planes, "dense_ops": dense_ops}
+                    log(f"  {label}: dense live-plane products {dense_ops / 1e9:.1f}"
+                        f" G{'OP' if dtype == 'int8' else 'FLOP'}, {dense_ops / PEAK_OPS[datapath[1]] * 1e3:.3f} ms"
+                        f" at the {datapath[1]} peak (computed, not measured)")
+                else:
+                    check, ms, plain_ms = check_and_time(label, lambda: kernel(fwd, b), reference, dtype, 5,
+                                                         lambda: plain(fwd, b), 2)
                 library_ms = None
                 if dtype == "float32":
                     bl = b[:n, :d].contiguous()
@@ -1114,12 +1261,33 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                     del bl
                 moved = fwd.store_bytes + index_bytes + n * d * elt_size(b) + n * d * 4
                 rows.append(kernel_row(name, dtype, d, n, nnz, launches[name].get((dtype, b.shape[1]), 0),
-                                       check, ms, plain_ms, library_ms, moved))
+                                       check, ms, plain_ms, library_ms, moved, datapath) | extra)
                 log_row(rows[-1])
                 del b
                 torch.cuda.empty_cache()
         del lib
     return rows
+
+
+def rounding_bias(label: str, got, want, plain_f32, b, on_abs) -> None:
+    """Logged: whether a kernel's float sums lean one way. For each output
+    element with a nonzero float64 sum ``want``, e = got - want; the share
+    sum(e · sign(want)) / sum(|e|) is 0 for unbiased rounding and -1 when
+    every error shrinks the sum's magnitude (truncation toward zero). It is
+    logged for the kernel and for the plain version summed in float32
+    (index_add_, round to nearest), on ``b`` and on |b| (every partial sum
+    positive, where truncation shows as -1); ``on_abs(bb)`` gives (kernel,
+    plain float32, plain float64) on an operand bb."""
+    def share(x, ref):
+        e = x.double() - ref.double()
+        return float((e * torch.sign(ref.double())).sum() / e.abs().sum().clamp_min(1e-300))
+
+    line = f"  {label}: sum(e·sign(sum)) / sum(|e|) against the float64 sum: kernel {share(got, want):+.4f},"
+    line += f" plain float32 {share(plain_f32(), want):+.4f}"
+    k_abs, p_abs, want_abs = on_abs(b.abs())
+    line += f"; on |B|: kernel {share(k_abs, want_abs):+.4f}, plain float32 {share(p_abs, want_abs):+.4f}"
+    del k_abs, p_abs, want_abs
+    log(line + " (0: unbiased; -1: every error toward zero)")
 
 
 def ell_dataset(ds):
@@ -1155,15 +1323,20 @@ def phase_ell_path(ds_main) -> list[dict]:
     rows = []
     for d in (128, 41):
         b = operand(fwd.n_cb * fwd.bc, d, "float32", seed=d)[:, :d].contiguous()
-        check, ms, plain_ms = check_and_time(
-            f"tiled d={d} (ELL path shape)", lambda: tpl.tiled(fwd, b), lambda: tpl.tiled_plain(fwd, b, torch.float64),
-            "float32", 5, lambda: tpl.tiled_plain(fwd, b), 2)
+        label = f"tiled d={d} (ELL path shape)"
+        got = tpl.tiled(fwd, b)
+        torch.cuda.synchronize()
+        check = check_close(label, got, tpl.tiled_plain(fwd, b, torch.float64), "float32")
+        extra = forward_repeat_and_geometry(label, got, lambda: tpl.tiled(fwd, b), tpl.tiled_geometry(fwd, d))
+        del got
+        ms, plain_ms = cuda_ms(lambda: tpl.tiled(fwd, b), 5), cuda_ms(lambda: tpl.tiled_plain(fwd, b), 2)
         bl = b[: fwd.n_cols].contiguous()
         library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
         used = int(fwd.nsteps.sum()) * fwd.br  # the slots the kernel reads: k < nsteps
         moved = 8 * used + 4 * fwd.nsteps.numel() + fwd.n_cols * d * 4 + fwd.n_rows * d * 4
         rows.append(kernel_row("tiled", "float32", d, fwd.n_rows, fwd.nnz,
-                               out["launches"]["tiled"].get(("float32", d), 0), check, ms, plain_ms, library_ms, moved))
+                               out["launches"]["tiled"].get(("float32", d), 0), check, ms, plain_ms, library_ms, moved)
+                    | extra)
         log_row(rows[-1])
     t0 = time.perf_counter()
     try:
@@ -1617,6 +1790,7 @@ def main() -> int:
     phase_csr_kernels_small()
     phase_attention_kernels_small()
     phase_block_kernels_small()
+    phase_block_layers_small()
 
     phase(f"[4] main path, n = {N_MAIN}")
     ds = main_dataset()
@@ -1640,6 +1814,7 @@ def main() -> int:
     phase(f"[8] banded path: bench.py's block-banded graph on the block pair, n = {N_MAIN}")
     ds_band = banded_dataset(ds)
     band = phase_banded_path(ds_band)
+    phase_banded_f32_witness(ds_band)
     phase_engines_binary(ds_band, "block", band["bf16_epoch_s_median"],
                          runs=(("pattern", "bfloat16"), ("edge", "bfloat16")))
 

@@ -59,6 +59,7 @@
 
 #include <cmath>
 
+#include "async_copy.cuh"
 #include "pattern_modes.cuh"
 
 namespace pattern {
@@ -100,32 +101,15 @@ inline size_t fwd_smem_bytes(int slices) {
   return kFwdBarBytes + (size_t)FwdCfg<G>::kWarps * kFwdRows + (partials > walk ? partials : walk);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity ``parity`` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
+using async_copy::cp_async_arrive;
+using async_copy::cp_async_ca;
+using async_copy::cp_async_cg16;
+using async_copy::cp_async_commit;
+using async_copy::cp_async_wait;
+using async_copy::mbar_arrive;
+using async_copy::mbar_init;
+using async_copy::mbar_wait;
+using async_copy::smem_u32;
 
 // One warp copies a 256-row x 8-word tile into ``stage`` (two 16 B chunks
 // a row, stored chunk-major: stage[c][r][4 words]) and has each lane's
@@ -138,11 +122,9 @@ __device__ __forceinline__ void fwd_issue_tile(uint32_t stage, uint32_t full, co
     const int idx = lane + 32 * i;
     const int r = idx >> 1, ch = idx & 1;  // lanes 2r, 2r+1 copy row r's 32 B
     const uint32_t* src = pack + (row0 + r) * words + w_first + 4 * ch;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(stage + (uint32_t)((ch * kFwdRows + r) * 16)),
-                 "l"(src)
-                 : "memory");
+    cp_async_cg16(stage + (uint32_t)((ch * kFwdRows + r) * 16), src);
   }
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(full) : "memory");
+  cp_async_arrive(full);
 }
 
 // The column block and lane ownership of thread (warp, lane): the block's
@@ -170,14 +152,9 @@ __device__ __forceinline__ void fwd_gather(typename Mode<T>::Raw* slots, int buf
 #pragma unroll 4
   for (int e = 0; e < n; ++e) {
     const int r = list[e];
-    if (copier)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst + e * kL)),
-                   "l"(bspan + (long long)r * d_pad), "n"(sizeof(Raw))
-                   : "memory");
+    if (copier) cp_async_ca<(int)sizeof(Raw)>(smem_u32(dst + e * kL), bspan + (long long)r * d_pad);
   }
 }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // Adds a landed buffer: for each owned column k (static), the entries
 // (lane e: its row's word ``word_e``, 0 past the last) with bit shift + k,
@@ -288,7 +265,7 @@ __device__ __forceinline__ void fwd_cols(const uint32_t* __restrict__ pack, cons
     const T* bspan = b + (t_first + t) * kFwdRows * d_pad + own.f0;
     if (fill + cnt > kE && fill > 0) {
       cp_async_commit();
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the previous buffer has landed
+      cp_async_wait<1>();  // the previous buffer has landed
       __syncwarp();
       if (prev) fwd_add<T, G>(acc, slots, buf ^ 1, prev_word, own.shift, lane);
       prev_word = cur_word;
@@ -304,7 +281,7 @@ __device__ __forceinline__ void fwd_cols(const uint32_t* __restrict__ pack, cons
       fill += cnt;
     } else {  // more rows than a buffer holds (dense rows): everything pending first, in order
       cp_async_commit();
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      cp_async_wait<0>();
       __syncwarp();
       if (prev) fwd_add<T, G>(acc, slots, buf ^ 1, prev_word, own.shift, lane);
       if (fill > 0) fwd_add<T, G>(acc, slots, buf, cur_word, own.shift, lane);
@@ -314,7 +291,7 @@ __device__ __forceinline__ void fwd_cols(const uint32_t* __restrict__ pack, cons
         __syncwarp();  // every lane has read what the buffer held
         fwd_gather<T, G>(slots, buf, 0, n, list + c0, bspan, d_pad, copier, lane);
         cp_async_commit();
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        cp_async_wait<0>();
         __syncwarp();
         fwd_add<T, G>(acc, slots, buf, word_e, own.shift, lane);
       }
@@ -333,7 +310,7 @@ __device__ __forceinline__ void fwd_cols(const uint32_t* __restrict__ pack, cons
     }
   }
   cp_async_commit();
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait<0>();
   __syncwarp();
   if (prev) fwd_add<T, G>(acc, slots, buf ^ 1, prev_word, own.shift, lane);
   if (fill > 0) fwd_add<T, G>(acc, slots, buf, cur_word, own.shift, lane);

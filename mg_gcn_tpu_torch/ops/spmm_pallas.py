@@ -10,10 +10,14 @@ one hub row inflates every tile: ``TiledMat.from_csr`` refuses a store over
 cross-check engine on small and regular graphs.
 
 The product runs as a hand-written CUDA kernel (``csrc/spmm_tiled.cu``),
-:func:`tiled`, in float32. The wrapper launches it for a CUDA tensor and
-uses its plain PyTorch version for a CPU tensor — only because the tensor
-lies on the CPU; nothing falls back from one to the other. It counts its
-launches in ``tiled.launches`` by (dtype, d).
+:func:`tiled`, in float32: threads over a row block's rows, each reading
+its own slots and keeping 16 features of sums in registers, with each
+column block's B rows staged in shared memory and padding slots skipped.
+The wrapper launches it for a CUDA tensor and uses its plain PyTorch
+version for a CPU tensor — only because the tensor lies on the CPU; nothing
+falls back from one to the other. It counts its launches in
+``tiled.launches`` by (dtype, d); :func:`tiled_geometry` reports the launch
+geometry.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from .. import _build
 from ..formats import CSRData
+from .spmm_pattern import query_geometry
 
 STORE_BYTES_CAP = 4e9  # the JAX package's refusal (spmm_pallas.py:131-142)
 _PLAIN_ELEMENTS_CAP = 1 << 26  # gathered B elements the plain version holds at once
@@ -156,9 +161,21 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mggcn_tiled.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.mggcn_tiled.restype = ctypes.c_int
+    lib.mggcn_tiled_geometry.argtypes = [i, i, i, i, i, i, p]
+    lib.mggcn_tiled_geometry.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+TILED_GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "stages", "blocks_per_sm", "resident_blocks")
+
+
+def tiled_geometry(mat: TiledMat, d: int) -> dict:
+    """The launch geometry of :func:`tiled` for ``mat`` and B of width d:
+    grid, threads, dynamic shared memory, B stages and resident blocks."""
+    return query_geometry(_lib(), "mggcn_tiled_geometry", mat.n_rb, mat.n_cb, mat.ell_k, mat.br, mat.bc, d,
+                          keys=TILED_GEOMETRY_KEYS)
 
 
 def tiled(mat: TiledMat, b: torch.Tensor) -> torch.Tensor:

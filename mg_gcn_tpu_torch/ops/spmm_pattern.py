@@ -230,15 +230,15 @@ def _lib() -> ctypes.CDLL:
 GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "slices", "blocks_per_sm", "resident_blocks")
 
 
-def query_geometry(lib: ctypes.CDLL, name: str, *args) -> dict:
-    """The launch geometry the forward launcher ``name`` would use for
-    ``args`` on the current card (:data:`GEOMETRY_KEYS`; blocks_per_sm from
+def query_geometry(lib: ctypes.CDLL, name: str, *args, keys: tuple[str, ...] = GEOMETRY_KEYS) -> dict:
+    """The launch geometry the launcher ``name`` would use for ``args`` on
+    the current card, one int a key of ``keys`` (blocks_per_sm from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); raises on an error."""
-    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    out = (ctypes.c_int * len(keys))()
     err = getattr(lib, name)(*args, out)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.mggcn_error_string(err).decode()})")
-    return dict(zip(GEOMETRY_KEYS, out))
+    return dict(zip(keys, out))
 
 
 def pattern_fwd_geometry(n_pad: int, d_pad: int, dtype: torch.dtype) -> dict:

@@ -14,7 +14,10 @@ One store serves both directions, ``Âᵀ B = diag(s) (Pᵀ B)`` and
 ``Â G = P (diag(s) G)``, through :func:`.spmm_pattern.apply_pattern_calls`
 (the same scale and int8 rounding points as the dense pattern pair). The two
 products run as hand-written CUDA kernels (``csrc/spmm_pattern_sparse.cu``):
-:func:`block_fwd` (Pᵀ B) and :func:`block_bwd` (P B). Beside the store they
+:func:`block_fwd` (Pᵀ B) on the tensor cores, each live (tile, plane)
+decoded to a 0/1 matrix and multiplied by the tile's B rows (float32
+operands as three exact bfloat16 parts, :func:`split_bf16x3_plain`), and
+:func:`block_bwd` (P B) by a walk over the set bits. Beside the store they
 read each tile's (rb, g), a by-group tile list (forward), the by-row-block
 tile ranges (backward) and each tile's live-plane mask. The TPU schedules
 (K_PLANES plane-compacted steps, padding slots, the dummy zero tile,
@@ -44,6 +47,7 @@ from .spmm_pattern import (
     GROUP,
     apply_pattern_calls,
     is_binary,
+    query_geometry,
     round_up,
     sum_decoded,
 )
@@ -277,6 +281,45 @@ def block_bwd_plain(mat: BlockPatternMat, b: torch.Tensor, acc_dtype: torch.dtyp
     return sum_decoded(decode_tiles(mat), b, False, acc_dtype)
 
 
+def split_bf16x3_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the float32 mode's operand split in :func:`block_fwd`
+    (``split3`` in ``csrc/spmm_pattern_sparse.cu``): x = hi + mid + lo, each
+    a bfloat16 value held in a float32. hi is x truncated to bfloat16, mid is
+    x - hi truncated, lo = x - hi - mid; both differences are exact. The sum
+    is exact for finite |x| >= 2^-100; below it lo may lose bits under
+    2^-126. For the tests; the kernel splits in registers."""
+    x = x.to(torch.float32)
+    mask = torch.tensor(-65536, dtype=torch.int32, device=x.device)  # 0xFFFF0000: a bfloat16's bits
+    hi = (x.view(torch.int32) & mask).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & mask).view(torch.float32)
+    return hi, mid, r - mid
+
+
+def block_fwd_planes_plain(mat: BlockPatternMat, b: torch.Tensor, acc_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The plane formulation of :func:`block_fwd`, in the kernel's order: for
+    each group, its tiles in row-block order, and each live plane p of a tile
+    (``pmask`` bit p), the 0/1 plane (128 x tile_r, bit p of the tile's
+    words) times the tile's B rows, added into output rows g*4096 + p*128 +
+    w. Float operands sum in float32 or ``acc_dtype``, int8 exactly; C is
+    float32 (int32 for int8). For the tests: it loops over tiles."""
+    exact = b.dtype == torch.int8
+    src = b.to(torch.float64 if exact else acc_dtype or torch.float32)
+    out = torch.zeros((mat.n_pad, b.shape[1]), dtype=src.dtype, device=b.device)
+    shifts = torch.arange(32, device=b.device)
+    g_ptr, g_tiles = mat.g_ptr.tolist(), mat.g_tiles.tolist()
+    for g in range(len(g_ptr) - 1):
+        for t in g_tiles[g_ptr[g] : g_ptr[g + 1]]:
+            live = torch.nonzero((mat.pmask[t].long() >> shifts) & 1).flatten()
+            r0 = int(mat.tile_rb[t]) * mat.tile_r
+            # planes[p, r, w] = bit p of tiles[t, r, w]; int64 keeps bit 31
+            planes = ((mat.tiles[t].long()[None] >> live[:, None, None]) & 1).to(src.dtype)
+            prod = torch.einsum("prw,rd->pwd", planes, src[r0 : r0 + mat.tile_r])
+            for k, p in enumerate(live.tolist()):
+                out[g * GROUP + p * 128 : g * GROUP + (p + 1) * 128] += prod[k]
+    return out.to(torch.int32) if exact else out
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 
@@ -288,9 +331,23 @@ def _lib() -> ctypes.CDLL:
     lib.mggcn_block_fwd.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.mggcn_block_bwd.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.mggcn_block_fwd.restype = lib.mggcn_block_bwd.restype = ctypes.c_int
+    lib.mggcn_block_fwd_geometry.argtypes = [ctypes.c_longlong, i, i, i, p]
+    lib.mggcn_block_fwd_geometry.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+BLOCK_FWD_GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "stages", "blocks_per_sm", "resident_blocks")
+
+
+def block_fwd_geometry(n_pad: int, tile_r: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`block_fwd` for a store of ``n_pad``
+    nodes in tiles of ``tile_r`` rows and an (n_pad, d_pad) operand of
+    ``dtype``: grid (feature chunks x 16-word runs, groups), threads,
+    dynamic shared memory, stages and resident blocks."""
+    return query_geometry(_lib(), "mggcn_block_fwd_geometry", n_pad, tile_r, d_pad, _DTYPE_CODE[dtype],
+                          keys=BLOCK_FWD_GEOMETRY_KEYS)
 
 
 def _launch(name: str, mat: BlockPatternMat, b: torch.Tensor, index: tuple[torch.Tensor, ...]) -> torch.Tensor:

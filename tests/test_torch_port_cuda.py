@@ -498,6 +498,142 @@ def test_tiled_kernel_matches_plain(hub_graph, d, br):
         tpl.tiled(mat, b.to(torch.bfloat16))
 
 
+def _planes_graph():
+    """8,192 nodes: rows 0..511 x columns 0..4095 all set (a tile with all 32
+    planes live and bit 31 in every word), row 600 -> column 5000 (a tile
+    with one live plane), and random edges in rows 1024..8191."""
+    n = 8192
+    rng = np.random.default_rng(4)
+    rows = np.r_[np.repeat(np.arange(512), 4096), 600, rng.integers(1024, n, 6000)]
+    cols = np.r_[np.tile(np.arange(4096), 512), 5000, rng.integers(0, n, 6000)]
+    key = np.unique(rows.astype(np.int64) * n + cols)
+    indptr = np.r_[0, np.cumsum(np.bincount(key // n, minlength=n))].astype(np.int64)
+    return CSRData(indptr, (key % n).astype(np.int32), np.ones(key.size, np.float32), (n, n))
+
+
+@pytest.fixture(scope="module")
+def planes_mat():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mat = sps.block_pattern_pair_from_binary_csr(_planes_graph(), device="cuda")[0]
+    masks = mat.pmask.cpu().numpy().view(np.uint32)
+    assert (masks == 0xFFFFFFFF).any() and (np.bitwise_count(masks) == 1).any()
+    assert bool((mat.tiles < 0).any())  # bit 31
+    return mat
+
+
+@pytest.mark.parametrize("d_pad", [8, 48, 128, 136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_block_fwd_tensor_cores_match_plain(planes_mat, dtype, d_pad):
+    """block_fwd on the tensor cores against its float64 plain version
+    (int8 at +-127, equal), with a fully live tile and a one-plane tile, at
+    every width class; two launches give the same bits."""
+    b = _operand(planes_mat.n_pad, d_pad, dtype, seed=d_pad)
+    if dtype == torch.int8:
+        b[:, 0], b[:, 1] = 127, -127
+    got = sps.block_fwd(planes_mat, b)
+    again = sps.block_fwd(planes_mat, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = sps.block_fwd_plain(planes_mat, b, None if dtype == torch.int8 else torch.float64)
+    _assert_matches_plain(got, want.to(got.dtype), dtype)
+
+
+def test_block_fwd_float32_keeps_every_significand_bit(planes_mat):
+    """float32 operands 1 + k 2^-23 need all 24 significand bits, and one
+    column mixes magnitudes 2^40 apart: the three-part bf16 split with its
+    two sets of sums keeps every sum within the float32 sum-error bound of
+    the float64 sum (a TF32 or two-part split misses it by far)."""
+    n = planes_mat.n_pad
+    k = torch.arange(n, device="cuda") % (1 << 20) + 1
+    base = (1.0 + k.double() * 2.0**-23).float()
+    b = torch.zeros((n, 8), device="cuda")
+    b[:, 0] = base
+    b[:, 1] = torch.where(k % 2 == 0, base * 2.0**20, base * 2.0**-20)
+    b[:, 2] = -3.0 * base
+    got = sps.block_fwd(planes_mat, b)
+    torch.cuda.synchronize()
+    rows, cols = (torch.cat(t) for t in zip(*sps.decode_tiles(planes_mat)))
+    zero = torch.zeros(got.shape, dtype=torch.float64, device="cuda")
+    exact = zero.clone().index_add_(0, cols, b.double().index_select(0, rows))
+    mag = zero.index_add_(0, cols, b.double().abs().index_select(0, rows))
+    _assert_within_sum_error(got, exact, mag, torch.bincount(cols, minlength=n).double()[:, None])
+    _assert_matches_plain(got, sps.block_fwd_plain(planes_mat, b, torch.float64).float(), torch.float32)
+
+
+def _long_group_graph():
+    """77,824 nodes: every row has two edges into columns 0..4095, so group 0
+    holds a tile of every row block (608 at tile_r = 128, 1,216 at 64: more
+    than the 512 a block_fwd block tables at a time), and rows 0..8191 one
+    edge into group 1."""
+    n = 19 * 4096
+    rng = np.random.default_rng(8)
+    rows = np.r_[np.repeat(np.arange(n), 2), np.arange(8192)]
+    cols = np.r_[rng.integers(0, 4096, 2 * n), 4096 + rng.integers(0, 4096, 8192)]
+    key = np.unique(rows.astype(np.int64) * n + cols)
+    indptr = np.r_[0, np.cumsum(np.bincount(key // n, minlength=n))].astype(np.int64)
+    return CSRData(indptr, (key % n).astype(np.int32), np.ones(key.size, np.float32), (n, n))
+
+
+@pytest.mark.parametrize("tile_r", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_block_fwd_group_of_many_tiles(tile_r, dtype):
+    """block_fwd on a group of more tiles than its shared tile table holds
+    (two and three windows of 512) against its float64 plain version, int8
+    equal; two launches give the same bits."""
+    mat = sps.block_pattern_pair_from_binary_csr(_long_group_graph(), device="cuda", tile_r=tile_r)[0]
+    assert int(torch.diff(mat.g_ptr).max()) == mat.n_pad // tile_r > 512
+    b = _operand(mat.n_pad, 48, dtype, seed=tile_r)
+    got, again = sps.block_fwd(mat, b), sps.block_fwd(mat, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = sps.block_fwd_plain(mat, b, None if dtype == torch.int8 else torch.float64)
+    _assert_matches_plain(got, want.to(got.dtype), dtype)
+
+
+def _tiled_gappy_graph():
+    """2,048 nodes, uniform weights: rows 0..511 have no entry in columns
+    512..1023 (a tile with nsteps 0 at br = 512, four at br = 128), row 5 has
+    no entry at all (a row whose slots are all padding), row 9 has 300
+    entries in columns 0..511 (ELL K >= 64)."""
+    n = 2048
+    rng = np.random.default_rng(6)
+    rows, cols = rng.integers(0, n, 30_000), rng.integers(0, n, 30_000)
+    keep = ~((rows < 512) & (cols >= 512) & (cols < 1024)) & (rows != 5)
+    rows, cols = np.r_[rows[keep], np.full(300, 9)], np.r_[cols[keep], rng.choice(512, 300, replace=False)]
+    key = np.unique(rows.astype(np.int64) * n + cols)
+    indptr = np.r_[0, np.cumsum(np.bincount(key // n, minlength=n))].astype(np.int64)
+    data = rng.random(key.size).astype(np.float32) + 0.5
+    return CSRData(indptr, (key % n).astype(np.int32), data, (n, n))
+
+
+@pytest.mark.parametrize("br", [128, 512])
+@pytest.mark.parametrize("d", [1, 41, 128, 200])
+def test_tiled_skips_empty_tiles_and_padding(br, d):
+    """tiled against its float64 plain version on a store with empty tiles
+    (nsteps 0) and an all-padding row (its output 0); two launches give the
+    same bits."""
+    mat = tpl.TiledMat.from_csr(_tiled_gappy_graph(), br=br, bc=br, device="cuda")
+    assert bool((mat.nsteps == 0).any()) and mat.ell_k >= 64
+    b = _operand(mat.n_cb * br, d, torch.float32, seed=d)
+    got, again = tpl.tiled(mat, b), tpl.tiled(mat, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not bool(got[5].any())
+    _assert_matches_plain(got, tpl.tiled_plain(mat, b, torch.float64).float(), torch.float32)
+
+
+def test_new_geometries_fill_the_card():
+    """block_fwd and tiled launch geometry at the banded and ELL paths'
+    shapes: 16 warps an SM for block_fwd (one block of 512 threads), and the
+    tiled grid covers every row block x 16-feature chunk."""
+    geo = sps.block_fwd_geometry(233_472, 512, 128, torch.bfloat16)
+    assert geo["threads"] == 512 and geo["blocks_per_sm"] >= 1 and geo["grid_y"] == 57, geo
+    mat = tpl.TiledMat.from_csr(_tiled_gappy_graph(), device="cuda")
+    geo = tpl.tiled_geometry(mat, 41)
+    assert geo["grid_x"] == mat.n_rb and geo["grid_y"] == 3 and geo["blocks_per_sm"] >= 1, geo
+
+
 def test_train_pallas_on_card_matches_cpu():
     ds = Dataset.load(GOLDEN)
     gpu = train(ds, [16, 16], epochs=5, impl="pallas", device="cuda", log=False)
