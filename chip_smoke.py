@@ -24,7 +24,13 @@ the result line:
    version on the card: float within rtol 1e-5 / atol 1e-6 of the output
    scale of the plain version summed in float64 (same rounded inputs; the
    reference does not move with the order of index_add_'s atomics), int8
-   SpMM equal; each check logs the share of the tolerance it used; then
+   SpMM equal; each check logs the share of the tolerance it used; the
+   CSR walk's narrow group sizes on tests/test_torch_port_cuda.py's hub
+   graph (a row of degree 5,000, empty rows): ``edge`` {bfloat16, float32},
+   ``edge_i8`` and ``edge_t`` {bfloat16, float32} at d_pad 8 and 16 within
+   the float32 sum bound 4 sqrt(deg + 2) 2^-24 sum|terms| of the plain
+   version summed in float64 (int8 equal), empty rows zero, two launches
+   equal bit for bit; then
    (logged, ROADMAP queue 3 item 2) one float32 step of the main path's
    model on that banded graph through the block pair and through COO,
    each layer's output and gradient leaves held against the float64
@@ -108,23 +114,28 @@ the result line:
    5, beside torch.sparse.sampled_addmm (SDDMM) and torch.sparse.mm on the
    transposed CSR (``edge_t``), float32 yardsticks the port never calls;
    ``edge`` bfloat16 at the same widths; d = 128 is checked and logged, not
-   put in the kernels line (no launch of the path has it);
+   put in the kernels line (no launch of the path has it); ``edge`` and
+   ``edge_t`` launched twice must give the same bits, and the CSR walk's
+   geometry (lanes and groups a warp, grid, threads, resident blocks an
+   SM) goes in their rows, as in phases 15 and 17;
 14. path A, weighted Reddit on the edge engine — the same graph with
    bench.py's edge values (rng(5).random + 0.5): auto must pick ``edge``;
    one float32 step against the COO engine by the rule of phase 4; 5
    bfloat16 epochs and 1 int8 epoch with finite losses; counters zeroed
    before and read after: exactly 5 ``edge`` launches an epoch (float32,
    bfloat16) and 5 ``edge_i8`` in the int8 epoch;
-15. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, then
-   (logged only) ``gather`` on the same matrix;
+15. edge kernels at path A's shape — as phase 5, on path A's Âᵀ, with the
+   repeat check and walk geometry of phase 13, then (logged only)
+   ``gather`` on the same matrix;
 16. path B, products scale on the gather engine — BASELINE config 2's model
    (100 features, 48 classes, sizes (100, 256, 256, 48)) on bench.py's
    uniform products graph, random_graph(2,449,029, 50, seed=3): auto must
    pick ``gather`` (the binary pair); one float32 step against the COO
    engine; 5 epochs with finite losses and exactly 5 ``gather`` launches an
    epoch; peak memory and the pair's build seconds;
-17. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, then
-   (logged only) ``edge`` on the same matrix;
+17. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, with the
+   repeat check and walk geometry of phase 13, then (logged only) ``edge``
+   on the same matrix;
 18. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
    ``... --model gat --heads 2 -E 3 train <dir> 1 16`` on a small binary
    dataset; ``python -m mg_gcn_tpu_torch.data.prep synthetic`` (n = 20,000)
@@ -849,27 +860,123 @@ def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
 # the O(nnz) engines: edge (path A) and gather (path B)
 
 
-def check_and_time(label, run, reference, dtype, reps, plain, plain_reps):
+def check_and_time(label, run, reference, dtype, reps, plain, plain_reps, repeat: bool = False):
     """Check the kernel call ``run()`` against ``reference()`` (see
-    check_close), then time ``plain()`` and the kernel; returns ((max_err,
-    tolerance used), kernel ms, plain ms), the plain ms None for
-    ``plain_reps=0``."""
+    check_close), with ``repeat`` a second call equal bit for bit, then time
+    ``plain()`` and the kernel; returns ((max_err, tolerance used), kernel
+    ms, plain ms), the plain ms None for ``plain_reps=0``."""
     got = run()
     torch.cuda.synchronize()
     check = check_close(label, got, reference(), dtype)
+    if repeat:
+        again = run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two launches differ")
+        del again
     del got
     torch.cuda.empty_cache()
     plain_ms = cuda_ms(plain, plain_reps) if plain_reps else None
     return check, cuda_ms(run, reps), plain_ms
 
 
-def time_against_plain(label, kernel, plain, args, dtype, reps, plain_reps):
+def time_against_plain(label, kernel, plain, args, dtype, reps, plain_reps, repeat: bool = False):
     """:func:`check_and_time` for the CSR kernel ``kernel(*args)`` against
     its plain version, summed in float64 for a float kernel."""
     from mg_gcn_tpu_torch.ops.spmm_edges import csr_plain
 
     reference = (lambda: plain(*args)) if dtype == "int8" else (lambda: csr_plain(*args, torch.float64))
-    return check_and_time(label, lambda: kernel(*args), reference, dtype, reps, lambda: plain(*args), plain_reps)
+    return check_and_time(label, lambda: kernel(*args), reference, dtype, reps, lambda: plain(*args), plain_reps,
+                          repeat)
+
+
+def walk_geometry(label: str, geometry: dict) -> dict:
+    """The CSR walk's launch geometry for a kernels-line row (lanes L and
+    groups G a warp, grid, threads, resident blocks an SM), logged."""
+    keep = {k: geometry[k] for k in ("lanes", "groups", "grid_x", "threads", "blocks_per_sm", "resident_blocks")}
+    log(f"  {label}: two launches equal bit for bit; walk geometry {keep}")
+    return {"repeat_equal": True, "geometry": keep}
+
+
+def hub_graph():
+    """tests/test_torch_port_cuda.py's hub graph: random_graph(5000, 16,
+    seed=4) with weights rng(1).random + 0.5, a hub row 7 of degree 5,000
+    and empty rows 100..199."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.formats import CSRData
+
+    g = sparse.random_graph(5000, 16, seed=4, weights="uniform")
+    rows = [g.indices[g.indptr[r] : g.indptr[r + 1]] for r in range(g.nrows)]
+    rows[7] = np.arange(5000, dtype=np.int32)
+    for r in range(100, 200):
+        rows[r] = rows[r][:0]
+    indptr = np.r_[0, np.cumsum([len(c) for c in rows])].astype(np.int64)
+    data = np.random.default_rng(1).random(indptr[-1], np.float32) + 0.5
+    return CSRData(indptr, np.concatenate(rows).astype(np.int32), data, g.shape)
+
+
+def within_sum_bound(label: str, got, indptr, indices, w, b) -> float:
+    """A float CSR kernel against its plain version summed in float64 on the
+    same rounded inputs, element by element within 4 sqrt(deg + 2) 2^-24
+    sum|terms| (a float32 sum of deg terms in any order stays inside it; a
+    dropped or doubled term does not); returns the share of the bound used."""
+    from mg_gcn_tpu_torch.ops.spmm_edges import csr_plain
+
+    exact = csr_plain(indptr, indices, w, b, torch.float64)
+    mag = csr_plain(indptr, indices, None if w is None else w.abs(), b.abs(), torch.float64)
+    bound = 4.0 * (indptr.diff().double()[:, None] + 2).sqrt() * 2.0**-24 * mag
+    diff = (got.double() - exact).abs()
+    use = float((diff / bound.clamp_min(1e-300)).max())
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"{label}: outside the float32 sum bound ({use:.3f} of it)")
+    return use
+
+
+def phase_csr_walk_small() -> None:
+    """The walk's narrow group sizes on the hub graph: ``edge`` {bfloat16,
+    float32}, ``edge_i8`` and ``edge_t`` {bfloat16, float32} (over the hub
+    graph's transpose: a column of 5,000 entries, empty columns) at d_pad 8
+    (16 groups of 2 lanes) and 16 (8 of 4), each against its plain version
+    summed in float64 (float within the float32 sum bound, int8 equal),
+    empty rows zero, two launches equal bit for bit."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.ops import spmm_edges as se
+
+    g = hub_graph()
+    ip, ix = torch.from_numpy(g.indptr).cuda(), torch.from_numpy(g.indices).cuda()
+    w32 = torch.from_numpy(g.data).cuda()
+    wq = torch.from_numpy(np.random.default_rng(2).integers(-127, 128, g.nnz).astype(np.int8)).cuda()
+    mat = se.edge_tile_mat_from_csr(sparse.transpose(g), dtype="float32", device="cuda", merge=False)
+    t = se.transposed_schedule(mat)
+    for d_pad in (8, 16):
+        cases = [("edge", dtype, se.edge, (ip, ix, w32.to(se.DTYPES[dtype]))) for dtype in ("bfloat16", "float32")]
+        cases += [("edge_i8", "int8", se.edge_i8, (ip, ix, wq))]
+        cases += [("edge_t", dtype, se.edge_t, (t.t_indptr, t.t_rows, t.perm, mat.w.to(se.DTYPES[dtype])))
+                  for dtype in ("bfloat16", "float32")]
+        for name, dtype, kernel, head in cases:
+            label = f"{name} {dtype} d_pad={d_pad} (hub graph)"
+            b = operand(g.nrows, d_pad, dtype, seed=d_pad)
+            got, again = kernel(*head, b), kernel(*head, b)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two launches differ")
+            if name == "edge_t":  # the walk over (t_indptr, t_rows) with the weights through perm
+                args = (t.t_indptr, t.t_rows, head[3][t.perm.long()], b)
+            else:
+                args = (*head, b)
+            if dtype == "int8":
+                if not torch.equal(got, se.edge_i8_plain(*args)):
+                    raise AssertionError(f"{label}: differs from the plain version")
+                use = 0.0
+            else:
+                use = within_sum_bound(label, got, *args)
+            empty = args[0].diff() == 0
+            if bool(got[empty].any()) or not bool(empty[100:200].all()):
+                raise AssertionError(f"{label}: an empty row is not zero")
+            geo = se.csr_walk_geometry(d_pad)
+            log(f"  {label}: two launches equal bit for bit; {geo['groups']} groups of {geo['lanes']} lanes;"
+                f" sum bound used {use:.3f}")
+            del got, again
 
 
 def phase_csr_kernels_small() -> None:
@@ -1038,8 +1145,11 @@ def phase_edge_main(fwd, launches: dict) -> list[dict]:
         kernel, plain = (se.edge_i8, se.edge_i8_plain) if dtype == "int8" else (se.edge, se.edge_plain)
         for d in (128, 41):
             b = operand(fwd.n_in, d, dtype, seed=d)
-            check, ms, plain_ms = time_against_plain(f"{name} {dtype} d={d} (path A shape)", kernel, plain,
-                                                     (fwd.indptr, fwd.indices, weights[dtype], b), dtype, 5, 2)
+            label = f"{name} {dtype} d={d} (path A shape)"
+            check, ms, plain_ms = time_against_plain(label, kernel, plain,
+                                                     (fwd.indptr, fwd.indices, weights[dtype], b), dtype, 5, 2,
+                                                     repeat=True)
+            extra = walk_geometry(label, se.edge_geometry(name, fwd.n_out, b.shape[1], b.dtype))
             library_ms = None
             if dtype == "float32":
                 bl = b[:, :d].contiguous()
@@ -1047,7 +1157,7 @@ def phase_edge_main(fwd, launches: dict) -> list[dict]:
             moved = (8 * (fwd.n_out + 1) + 4 * fwd.nnz + elt_size(weights[dtype]) * fwd.nnz
                      + fwd.n_in * d * elt_size(b) + fwd.n_out * d * 4)
             rows.append(kernel_row(name, dtype, d, fwd.n_out, fwd.nnz, launches[name].get((dtype, b.shape[1]), 0),
-                                   check, ms, plain_ms, library_ms, moved))
+                                   check, ms, plain_ms, library_ms, moved) | extra)
             log_row(rows[-1])
     cross_engine("path A's Âᵀ (edge regime)", fwd, fwd.w, rows)
     return rows
@@ -1098,8 +1208,10 @@ def phase_gather_main(fwd, launches: dict) -> list[dict]:
     measured = []
     for dtype, d in (("float32", 256), ("float32", 100), ("float32", 48), ("bfloat16", 256)):
         b = operand(fwd.n_in, d, dtype, seed=d)
-        check, ms, plain_ms = time_against_plain(f"gather {dtype} d={d} (path B shape)", sg.gather,
-                                                 sg.gather_plain, (fwd.indptr, fwd.indices, None, b), dtype, 5, 2)
+        label = f"gather {dtype} d={d} (path B shape)"
+        check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain,
+                                                 (fwd.indptr, fwd.indices, None, b), dtype, 5, 2, repeat=True)
+        extra = walk_geometry(label, sg.gather_geometry(fwd.n_out, b.shape[1], b.dtype, False))
         library_ms = None
         if dtype == "float32":
             bl = b[:, :d].contiguous()
@@ -1108,7 +1220,7 @@ def phase_gather_main(fwd, launches: dict) -> list[dict]:
         moved = 8 * (fwd.n_out + 1) + 4 * fwd.nnz + fwd.n_in * d * elt_size(b) + fwd.n_out * d * 4
         measured.append(kernel_row("gather", dtype, d, fwd.n_out, fwd.nnz,
                                    launches["gather"].get((dtype, b.shape[1]), 0),
-                                   check, ms, plain_ms, library_ms, moved))
+                                   check, ms, plain_ms, library_ms, moved) | extra)
         log_row(measured[-1])
         del b
         torch.cuda.empty_cache()
@@ -1169,7 +1281,9 @@ def phase_banded_f32_witness(ds) -> None:
     nearest) in its place, and COO; each leaf's ||a - b|| / ||b|| between
     them, the largest and where. If the kernel's gap to COO is the plain
     version's, the gap is the float32 sum order's; if it is larger, the
-    kernel's own sums add it."""
+    kernel's own sums add it. Then each step against the float64 oracle
+    (:func:`oracle_grads_on_card`), which says which of them the gap
+    between two float32 steps comes from."""
     from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
     from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
     from mg_gcn_tpu_torch.train import build_agg_pair
@@ -1194,15 +1308,43 @@ def phase_banded_f32_witness(ds) -> None:
     torch.cuda.synchronize()
 
     def gap(a, b):
-        worst = max((float(torch.linalg.vector_norm(ga[k] - gb[k]) / torch.linalg.vector_norm(gb[k])), f"layer {i} {k}")
+        worst = max((float(torch.linalg.vector_norm((ga[k] - gb[k].reshape(ga[k].shape)).double())
+                           / torch.linalg.vector_norm(gb[k].double())), f"layer {i} {k}")
                     for i, (ga, gb) in enumerate(zip(a[2], b[2])) for k in gb)
         return f"{worst[0]:.3e} ({worst[1]})"
 
     log(f"  float32 step, max over leaves of ||a - b|| / ||b||: block kernel vs COO {gap(kernel_step, coo_step_)};"
         f" block with block_fwd_plain (float32, round to nearest) vs COO {gap(plain_step, coo_step_)};"
         f" block kernel vs block_fwd_plain {gap(kernel_step, plain_step)}")
-    del kernel_step, plain_step, coo_step_
+    oracle = (None, None, oracle_grads_on_card(ds, params, x, y))
+    log(f"  the same steps against the float64 oracle (tests/torch_oracle.py on the card), max over leaves of"
+        f" ||step - oracle|| / ||oracle||: block kernel {gap(kernel_step, oracle)}; block with block_fwd_plain"
+        f" {gap(plain_step, oracle)}; COO {gap(coo_step_, oracle)}")
+    del kernel_step, plain_step, coo_step_, oracle
     torch.cuda.empty_cache()
+
+
+def oracle_grads_on_card(ds, params, x, y) -> list[dict]:
+    """The gradient leaves of one parity-mode step of the float64 oracle
+    ``tests/torch_oracle.py`` (the reference's semantics, independent of the
+    port's code) from ``params`` on ``ds``: Â column-normalized (main.cpp:143)
+    as a float64 sparse tensor on the card, the forward and the hand-rolled
+    backward on the card, the softmax loss on the host."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_oracle
+
+    g = ds.graph
+    cols = torch.from_numpy(g.indices).cuda().long()
+    rows = torch.repeat_interleave(torch.arange(g.nrows, device="cuda"), torch.from_numpy(np.diff(g.indptr)).cuda())
+    vals = 1.0 / torch.bincount(cols, minlength=g.ncols).double()[cols]
+    a_hat = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, g.shape).coalesce()
+    del rows, cols, vals
+    a_hat_t = a_hat.t().coalesce()
+    ref = [{"W": p["W"].double(), "b": p["b"].reshape(-1).double()} for p in params]
+    x64 = x.double()
+    acts, h = torch_oracle.forward_ref(a_hat_t, ref, x64)
+    _, _, g_loss = torch_oracle.softmax_xent_ref(h.cpu(), y.cpu())
+    return torch_oracle.parity_backward_ref(a_hat, a_hat_t, ref, x64, acts, g_loss.to(x.device))
 
 
 def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
@@ -1270,24 +1412,31 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
 
 
 def rounding_bias(label: str, got, want, plain_f32, b, on_abs) -> None:
-    """Logged: whether a kernel's float sums lean one way. For each output
-    element with a nonzero float64 sum ``want``, e = got - want; the share
-    sum(e · sign(want)) / sum(|e|) is 0 for unbiased rounding and -1 when
-    every error shrinks the sum's magnitude (truncation toward zero). It is
-    logged for the kernel and for the plain version summed in float32
-    (index_add_, round to nearest), on ``b`` and on |b| (every partial sum
-    positive, where truncation shows as -1); ``on_abs(bb)`` gives (kernel,
-    plain float32, plain float64) on an operand bb."""
+    """Logged: whether a kernel's float sums lean one way, and how large
+    their errors are. For each output element with a nonzero float64 sum
+    ``want``, e = got - want; the share sum(e · sign(want)) / sum(|e|) is 0
+    for unbiased rounding and -1 when every error shrinks the sum's
+    magnitude (truncation toward zero), and ||e|| / ||want|| the errors'
+    size. Both are logged for the kernel and for the plain version summed in
+    float32 (index_add_, round to nearest), on ``b`` and on |b| (every
+    partial sum positive, where truncation shows as -1); ``on_abs(bb)``
+    gives (kernel, plain float32, plain float64) on an operand bb."""
     def share(x, ref):
         e = x.double() - ref.double()
         return float((e * torch.sign(ref.double())).sum() / e.abs().sum().clamp_min(1e-300))
 
+    def size(x, ref):
+        return float(torch.linalg.vector_norm(x.double() - ref.double()) / torch.linalg.vector_norm(ref.double()))
+
+    plain = plain_f32()
     line = f"  {label}: sum(e·sign(sum)) / sum(|e|) against the float64 sum: kernel {share(got, want):+.4f},"
-    line += f" plain float32 {share(plain_f32(), want):+.4f}"
+    line += f" plain float32 {share(plain, want):+.4f}"
     k_abs, p_abs, want_abs = on_abs(b.abs())
     line += f"; on |B|: kernel {share(k_abs, want_abs):+.4f}, plain float32 {share(p_abs, want_abs):+.4f}"
-    del k_abs, p_abs, want_abs
-    log(line + " (0: unbiased; -1: every error toward zero)")
+    line += (f" (0: unbiased; -1: every error toward zero); ||e|| / ||sum||: kernel {size(got, want):.3e}, plain"
+             f" float32 {size(plain, want):.3e}; on |B| {size(k_abs, want_abs):.3e}, {size(p_abs, want_abs):.3e}")
+    del k_abs, p_abs, want_abs, plain
+    log(line)
 
 
 def ell_dataset(ds):
@@ -1397,7 +1546,7 @@ def check_qskip(label, mat, args, reps) -> float:
     return cuda_ms(run, reps)
 
 
-def check_edge_t(label, mat, t, w, d, dtype, reps, plain_reps):
+def check_edge_t(label, mat, t, w, d, dtype, reps, plain_reps, repeat: bool = False):
     """edge_t over ``mat``'s transpose ``t`` with entry weights ``w``
     against its plain version; (operand, check, ms, plain ms)."""
     from mg_gcn_tpu_torch.ops import spmm_edges as se
@@ -1407,7 +1556,7 @@ def check_edge_t(label, mat, t, w, d, dtype, reps, plain_reps):
     check, ms, plain_ms = check_and_time(
         label, lambda: se.edge_t(*args),
         lambda: se.csr_plain(t.t_indptr, t.t_rows, w[t.perm.long()], a, torch.float64),
-        "float32", reps, lambda: se.edge_t_plain(*args), plain_reps)
+        "float32", reps, lambda: se.edge_t_plain(*args), plain_reps, repeat)
     return a, check, ms, plain_ms
 
 
@@ -1648,18 +1797,22 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
     w16 = w32.to(torch.bfloat16)
     for d in GAT_WIDTHS:  # the edge kernel at the path's own widths (d = 1 pads to 8 as d = 2 does)
         b = operand(n_in, d, "bfloat16", seed=d)
-        check, ms, plain_ms = time_against_plain(f"edge bfloat16 d={d} (GAT shape)", se.edge, se.edge_plain,
-                                                 (mat.indptr, mat.indices, w16, b), "bfloat16", 5, 2)
+        label = f"edge bfloat16 d={d} (GAT shape)"
+        check, ms, plain_ms = time_against_plain(label, se.edge, se.edge_plain, (mat.indptr, mat.indices, w16, b),
+                                                 "bfloat16", 5, 2, repeat=True)
+        extra = walk_geometry(label, se.edge_geometry("edge", n, b.shape[1], b.dtype))
         moved = 8 * (n + 1) + 4 * nnz + 2 * nnz + n_in * d * 2 + n * d * 4
         keep(kernel_row("edge", "bfloat16", d, n, nnz, launches["edge"].get(("bfloat16", b.shape[1]), 0),
-                        check, ms, plain_ms, None, moved))
+                        check, ms, plain_ms, None, moved) | extra)
         del b
     del w16
     transposed = csr_library(t.t_indptr, t.t_rows, w32[t.perm.long()], (n_in, n))
     for dtype in ("bfloat16", "float32"):
         w = w32.to(se.DTYPES[dtype])
         for d in GAT_WIDTHS + ATT_EXTRA_WIDTHS:
-            a, check, ms, plain_ms = check_edge_t(f"edge_t {dtype} d={d} (GAT shape)", mat, t, w, d, dtype, 5, 2)
+            label = f"edge_t {dtype} d={d} (GAT shape)"
+            a, check, ms, plain_ms = check_edge_t(label, mat, t, w, d, dtype, 5, 2, repeat=True)
+            extra = walk_geometry(label, se.edge_geometry("edge_t", n_in, a.shape[1], a.dtype))
             library_ms = None
             if dtype == "float32":
                 al = a[:, :d].contiguous()
@@ -1667,7 +1820,7 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
                 del al
             moved = 8 * (n_in + 1) + 8 * nnz + elt_size(w) * nnz + n * d * elt_size(a) + n_in * d * 4
             keep(kernel_row("edge_t", dtype, d, n_in, nnz, launches["edge_t"].get((dtype, a.shape[1]), 0),
-                            check, ms, plain_ms, library_ms, moved))
+                            check, ms, plain_ms, library_ms, moved) | extra)
             del a
             torch.cuda.empty_cache()
     return rows
@@ -1773,7 +1926,7 @@ def main() -> int:
     built = _build.build_all()
     for name, (seconds, compiler_log) in built.items():
         log(f"  {name}: built in {seconds:.1f} s")
-        log("  " + "\n  ".join(line for line in compiler_log.splitlines() if "ptxas" in line))
+        log("  " + "\n  ".join(line for line in compiler_log.splitlines() if "ptxas" in line or "spill" in line))
     if not built:
         log("  kernels already built")
 
@@ -1788,6 +1941,7 @@ def main() -> int:
     phase(f"[3] kernels vs plain, n = {N_SMALL}")
     phase_kernels_small()
     phase_csr_kernels_small()
+    phase_csr_walk_small()
     phase_attention_kernels_small()
     phase_block_kernels_small()
     phase_block_layers_small()

@@ -1,7 +1,8 @@
 // Asynchronous copies into shared memory, their barriers, and the launch
 // geometry report, shared by the kernels that stage operands in a ring of
 // shared-memory stages: pattern_fwd.cuh (spmm_pattern.cu,
-// spmm_pattern_ring.cu), spmm_pattern_sparse.cu and spmm_tiled.cu.
+// spmm_pattern_ring.cu), spmm_pattern_sparse.cu and spmm_tiled.cu; the row
+// walk of csr_walk.cuh reports its geometry through write_geometry too.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -9,12 +9,13 @@
 //   mggcn_edge_t   <-  _edge_t_kernel  (spmm_edges.py:980):
 //       C[c, :] = sum_{e in column c} f32(w_e) * f32(A[r_e, :]), i.e. M^T(w) A,
 //       float32 sums, C float32 (n_in, d_pad); w and A as for mggcn_edge
-// All run the row walk of csr_walk.cuh (walk_kernel<T, T, true, NV, PERM>). The
-// matrix is row-sorted CSR (indptr int64, indices int32, one weight per
-// entry, duplicates merged at build). The TPU kernels' slot chunks, one-hot
-// MXU selects, step schedule and D_MAX_E chunking routed a gather through
-// the MXU and fit SMEM/VMEM; here a gather is an ordinary load, so each
-// entry's B row is read directly.
+// All run the row walk of csr_walk.cuh (walk_kernel<T, T, true, L, NV, PERM>:
+// a warp a row, in G = 32 / L groups of L lanes that split the row's
+// entries, L following d_pad). The matrix is row-sorted CSR (indptr int64,
+// indices int32, one weight per entry, duplicates merged at build). The TPU
+// kernels' slot chunks, one-hot MXU selects, step schedule and D_MAX_E
+// chunking routed a gather through the MXU and fit SMEM/VMEM; here a
+// gather is an ordinary load, so each entry's B row is read directly.
 //
 // What bounds them on an H100 SXM (3.35 TB/s): the bytes each input is read
 // once and the output written once. At the weighted-Reddit shape (n =
@@ -22,8 +23,12 @@
 // 0.23 GB of weights, 60 MB of B and 119 MB of C, >= 0.26 ms; the 2*nnz*d
 // operations are far below any peak. A row walk reads B once per ENTRY, not
 // once: nnz * d * 2 bytes = 29 GB at d = 128, which only the 50 MB L2 can
-// turn into less device-memory traffic. The walk keeps kUnroll B rows in
-// flight per lane and writes each output row once, deterministically.
+// turn into less device-memory traffic. On the GAT path (the same graph,
+// bf16) the bytes bound mggcn_edge at every width it runs: indices +
+// weights 0.69 GB, >= 0.207 ms at d_pad 8, where B is 3.7 MB and lives in
+// L2; 0.224 / 0.233 ms at d_pad 48 / 64 (B 22 / 30 MB). There the groups
+// keep every lane busy: at d_pad 8, 16 groups of 2 lanes take 16 entries
+// at once where one warp took one.
 //
 // mggcn_edge_t walks the matrix's CSR transpose (t_indptr int64 over the
 // n_in columns, t_rows int32) with PERM: the weight of transposed entry j
@@ -33,10 +38,13 @@
 // column-window-sorted step schedule (TSched, dummy zero-init steps, split
 // parts) accumulated output windows across sequential grid steps; here
 // each output row is one warp's walk, and a column with no entries writes
-// zeros. Its bound adds 4 bytes of perm per entry to mggcn_edge's: at the
-// GAT shape (nnz = 114,964,049, d_pad 8 bf16) 0.46 GB indices + 0.46 GB
-// perm + 0.23 GB w + 3.7 MB A + 7.5 MB C, >= 0.35 ms; the weights are read
-// in permuted (scattered) order, 32-byte sectors for 2-byte values.
+// zeros. Its bytes bound adds 4 bytes of perm per entry to mggcn_edge's: at
+// the GAT shape (nnz = 114,964,049, d_pad 8 bf16) 0.46 GB indices + 0.46 GB
+// perm + 0.23 GB w + 3.7 MB A + 7.5 MB C, >= 0.35 ms. But the weights are
+// read in permuted (scattered) order, one 32-byte sector for each 2-byte
+// weight: 3.7 GB, >= 1.1 ms at the memory rate, the floor for this layout
+// (a permuted copy of the weights would move it, at a write of the copy
+// each time the weights change).
 
 #include "csr_walk.cuh"
 
@@ -76,6 +84,21 @@ int mggcn_edge_t(const void* t_indptr, const void* t_rows, const void* perm, con
                                                                    perm);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launch geometry of the walk for kernel 0 = mggcn_edge, 1 =
+// mggcn_edge_i8, 2 = mggcn_edge_t (dtype as theirs; ignored for 1) over
+// n_out output rows of width d_pad, written to out[0..8] (csr::geometry).
+// Returns a cudaError_t.
+int mggcn_edge_geometry(long long n_out, int d_pad, int kernel, int dtype, int* out) {
+  using bf16 = __nv_bfloat16;
+  if (kernel == 1) return csr::geometry<int8_t, int8_t, true>(n_out, d_pad, out);
+  if ((kernel != 0 && kernel != 2) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (kernel == 2)
+    return dtype == 0 ? csr::geometry<float, float, true, true>(n_out, d_pad, out)
+                      : csr::geometry<bf16, bf16, true, true>(n_out, d_pad, out);
+  return dtype == 0 ? csr::geometry<float, float, true>(n_out, d_pad, out)
+                    : csr::geometry<bf16, bf16, true>(n_out, d_pad, out);
 }
 
 const char* mggcn_error_string(int err) {

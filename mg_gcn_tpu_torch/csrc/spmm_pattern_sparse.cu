@@ -113,7 +113,7 @@ block_bwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
 // - A block owns (16-word run, group g, feature chunk): 16 warps, warp k the
 //   planes 2k, 2k+1 and the chunk's n8 tiles (8 of them, 64 features; 4 and
 //   32 in float32), so a lane holds 2 planes x 8 tiles of mma.sync m16n8
-//   accumulators (64 sums). Each decoded A fragment feeds 8 MMAs: the
+//   running sums (64; 32 in float32). Each decoded A fragment feeds 8 MMAs: the
 //   decode, not the MMA, was what a narrower chunk spent its time on. A warp
 //   skips a tile's stages when both its planes are dead there (pmask); a
 //   dead plane beside a live one is multiplied through (its A fragments are
@@ -142,7 +142,7 @@ block_bwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
 //   a warp that skips a dead tile run a stage or two ahead of the others;
 //   the barrier makes it wait (not measured against an mbarrier ring).
 // - Operand modes (pattern_modes.cuh's contract):
-//   bfloat16: bf16 MMA, float32 sums.
+//   bfloat16: bf16 MMA, float32 sums (fresh sums a stage, below).
 //   int8: s8 x s8 -> s32 MMA, exact. A lane reads 4 features of 4 rows and
 //     transposes the 16 bytes in registers; within each 32 features the n8
 //     tiles then hold features strided by 4 (tile j: features 4n + j), which
@@ -150,19 +150,28 @@ block_bwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
 //   float32: no TF32. Each B value is split exactly into three bf16 parts,
 //     hi = x truncated to bf16, mid = (x - hi) truncated, lo = x - hi - mid
 //     (exact for |x| >= 2^-100; below, the error is under 2^-126), and
-//     three MMAs add them (a 0/1 operand makes every product exact). The
-//     tensor cores' float32 sums drop the bits of an addend below the
-//     accumulator's last place, and over thousands of MMAs that drift passes
-//     the float32 tolerance when a sum holds values of 24 significant bits.
-//     So hi goes into one set of sums, where 8-bit values add exactly as in
-//     bf16 mode, and mid and lo into a second, 2^8 smaller, so its drift is
-//     2^8 smaller; the two are added once at the end. Holding both halves
-//     the chunk: 32 features. B must be finite.
+//     three MMAs add them (a 0/1 operand makes every product exact). hi
+//     goes into one set of sums, where 8-bit values add exactly as in bf16
+//     mode, and mid and lo into a second, 2^8 smaller. Holding both sets the
+//     chunk: 32 features. B must be finite.
+// - Fresh sums a stage (both float modes). The tensor cores' float32 sums
+//   drop the bits of an addend below the accumulator's last place: they
+//   truncate toward zero, so errors kept in one accumulator over a column's
+//   ~475 set bits all lean one way (sum(e sign) / sum|e| = -0.87 against the
+//   float64 sum on a positive float32 operand, with sums kept on the tensor
+//   cores from the first tile to the last). So a stage's MMAs (64 tile rows)
+//   go into zeroed fragments, whose partial sums are small enough that hi
+//   values add exactly, and at the end of the stage a float32 add, which
+//   rounds to nearest, takes them into the running sums (float32: hi + (mid
+//   + lo) first). To keep the stage's fragments and the running sums in
+//   registers together, a stage decodes its A fragments for every MMA step
+//   first and then walks its n8 tiles one (float32) or two (bf16, one
+//   ldmatrix) at a time. int8 sums are exact and keep the step-major order.
 //
 // Sum order, fixed: every output element is one lane's accumulator, summed
-// over (tile, stage, MMA step) in order (float32: hi in one sum, mid then
-// lo in another, added at the end). Two launches give the same bits; rows
-// no live plane reaches are stored as 0.
+// over (tile, stage) in order, each stage's MMA steps in order into fresh
+// sums first (int8: over (tile, stage, MMA step) in one integer sum). Two
+// launches give the same bits; rows no live plane reaches are stored as 0.
 
 constexpr int kRunWords = 16;   // words a block owns: one M fragment a plane
 constexpr int kRuns = 128 / kRunWords;
@@ -244,6 +253,35 @@ __device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid, uin
   lo = __float_as_uint(r - __uint_as_float(mid));
 }
 
+// The A fragments (0/1, as bf16 or int8) of the warp's kPlanes planes at
+// MMA step s of a stage: lane (g, t) reads its kQ bit words, one prmt
+// gathers the byte that holds the planes, and a plane is a shift and a
+// mask (bf16: times 0x3F80, the bits of 1.0).
+template <typename T>
+__device__ __forceinline__ void decode_planes(const unsigned char* st, int s, int g, int t, uint32_t m, int sh,
+                                              uint32_t (&a)[kPlanes][4]) {
+  using F = Fwd<T>;
+  uint32_t x[F::kQ];
+#pragma unroll
+  for (int q = 0; q < F::kQ; ++q)
+    x[q] = *reinterpret_cast<const uint32_t*>(st + F::bit_off(s * F::kStep + F::q_row(q, t), g + 8 * (q & 1)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t y;
+    if constexpr (F::kInt8) {  // byte i' <- row 4t + i' (+16), word g (+8)
+      const int q0 = (j >> 1) * 8 + (j & 1);
+      const uint32_t sel = m * 0x11u + 0x40u;
+      y = __byte_perm(__byte_perm(x[q0], x[q0 + 2], sel), __byte_perm(x[q0 + 4], x[q0 + 6], sel), 0x5410);
+    } else {  // half 0 <- row 2t (+8), half 1 <- row 2t + 1 (+8), word g (+8)
+      const int q0 = (j >> 1) * 4 + (j & 1);
+      y = __byte_perm(x[q0], x[q0 + 2], m * 0x1111u + 0x4400u);
+    }
+    y >>= sh;
+#pragma unroll
+    for (int i = 0; i < kPlanes; ++i) a[i][j] = F::kInt8 ? (y >> i) & 0x01010101u : ((y >> i) & 0x00010001u) * 0x3F80u;
+  }
+}
+
 // The block fills ``stage`` with unit (tile ti, rows r0 .. r0 + 64) and
 // commits the copies as one group: the run's 16 bit words of each row in
 // 16-byte copies (bit_off), then the B rows (b_off).
@@ -297,13 +335,13 @@ block_fwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
   const uint32_t m = (uint32_t)plane0 >> 3;
   const int sh = plane0 & 7;
 
-  Acc acc[kPlanes][kNT][4], low[kPlanes][kNT][4];  // low: float32's mid and lo parts
+  Acc acc[kPlanes][kNT][4];
 #pragma unroll
   for (int i = 0; i < kPlanes; ++i)
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = low[i][j][e] = Acc(0);
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
 
   // The group's tiles go by in windows of kTab: each window's (tile id, first
   // B row, plane mask) is read into shared memory once, then its units
@@ -346,32 +384,11 @@ block_fwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
       if (!((tab_pm[u / nk] >> plane0) & ((1u << kPlanes) - 1))) continue;  // both planes dead here
       const unsigned char* st = smem + (u % kFwdStages) * F::kStageBytes;
       const unsigned char* bst = st + kBitBytes;
+      if constexpr (F::kInt8) {
 #pragma unroll
-      for (int s = 0; s < F::kSteps; ++s) {
-        uint32_t x[F::kQ];
-#pragma unroll
-        for (int q = 0; q < F::kQ; ++q)
-          x[q] = *reinterpret_cast<const uint32_t*>(st + F::bit_off(s * F::kStep + F::q_row(q, t), g + 8 * (q & 1)));
-        // a[i]: the A fragment of plane plane0 + i
-        uint32_t a[kPlanes][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t y;
-          if constexpr (F::kInt8) {  // byte i' <- row 4t + i' (+16), word g (+8)
-            const int q0 = (j >> 1) * 8 + (j & 1);
-            const uint32_t sel = m * 0x11u + 0x40u;
-            y = __byte_perm(__byte_perm(x[q0], x[q0 + 2], sel), __byte_perm(x[q0 + 4], x[q0 + 6], sel), 0x5410);
-          } else {  // half 0 <- row 2t (+8), half 1 <- row 2t + 1 (+8), word g (+8)
-            const int q0 = (j >> 1) * 4 + (j & 1);
-            y = __byte_perm(x[q0], x[q0 + 2], m * 0x1111u + 0x4400u);
-          }
-          y >>= sh;
-#pragma unroll
-          for (int i = 0; i < kPlanes; ++i)
-            a[i][j] = F::kInt8 ? (y >> i) & 0x01010101u : ((y >> i) & 0x00010001u) * 0x3F80u;
-        }
-
-        if constexpr (F::kInt8) {
+        for (int s = 0; s < F::kSteps; ++s) {
+          uint32_t a[kPlanes][4];
+          decode_planes<T>(st, s, g, t, m, sh, a);
 #pragma unroll
           for (int qd = 0; qd < kNT / 4; ++qd) {
             if (32 * qd + f0 >= d_pad) break;
@@ -395,40 +412,56 @@ block_fwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
 #pragma unroll
               for (int j = 0; j < 4; ++j) mma_s8(acc[i][4 * qd + j], a[i], bq[0][j], bq[1][j]);
           }
-        } else if constexpr (F::kF32) {
+        }
+      } else {
+        // a[s][i]: the A fragment of plane plane0 + i at MMA step s
+        uint32_t a[F::kSteps][kPlanes][4];
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            if (j >= nt_live) break;
-            const int x = 4 * (8 * j + g);
-            const int r0 = s * 16 + 2 * t;
-            uint32_t hv[4], mv[4], lv[4];
+        for (int s = 0; s < F::kSteps; ++s) decode_planes<T>(st, s, g, t, m, sh, a[s]);
+        // kJ n8 tiles at a time, the stage's MMAs into fresh sums (float32:
+        // hi in one set, mid and lo in another), then added into acc by
+        // float32 adds, which round to nearest
+        constexpr int kJ = F::kF32 ? 1 : 2;
 #pragma unroll
-            for (int e = 0; e < 4; ++e)  // rows r0, r0 + 1, r0 + 8, r0 + 9
-              split3(*reinterpret_cast<const float*>(bst + F::b_off(r0 + (e & 1) + 8 * (e >> 1), x)), hv[e], mv[e],
-                     lv[e]);
-            const uint32_t bh0 = __byte_perm(hv[0], hv[1], 0x7632), bh1 = __byte_perm(hv[2], hv[3], 0x7632);
-            const uint32_t bm0 = __byte_perm(mv[0], mv[1], 0x7632), bm1 = __byte_perm(mv[2], mv[3], 0x7632);
-            const uint32_t bl0 = __byte_perm(lv[0], lv[1], 0x7632), bl1 = __byte_perm(lv[2], lv[3], 0x7632);
+        for (int jj = 0; jj < kNT; jj += kJ) {
+          if (jj >= nt_live) break;
+          float hi[kPlanes][kJ][4] = {}, lo[kPlanes][kJ][4] = {};
 #pragma unroll
-            for (int i = 0; i < kPlanes; ++i) {
-              mma_bf16(acc[i][j], a[i], bh0, bh1);
-              mma_bf16(low[i][j], a[i], bm0, bm1);
-              mma_bf16(low[i][j], a[i], bl0, bl1);
+          for (int s = 0; s < F::kSteps; ++s) {
+            if constexpr (F::kF32) {
+              const int x = 4 * (8 * jj + g);
+              const int r0 = s * 16 + 2 * t;
+              uint32_t hv[4], mv[4], lv[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)  // rows r0, r0 + 1, r0 + 8, r0 + 9
+                split3(*reinterpret_cast<const float*>(bst + F::b_off(r0 + (e & 1) + 8 * (e >> 1), x)), hv[e],
+                       mv[e], lv[e]);
+              const uint32_t bh0 = __byte_perm(hv[0], hv[1], 0x7632), bh1 = __byte_perm(hv[2], hv[3], 0x7632);
+              const uint32_t bm0 = __byte_perm(mv[0], mv[1], 0x7632), bm1 = __byte_perm(mv[2], mv[3], 0x7632);
+              const uint32_t bl0 = __byte_perm(lv[0], lv[1], 0x7632), bl1 = __byte_perm(lv[2], lv[3], 0x7632);
+#pragma unroll
+              for (int i = 0; i < kPlanes; ++i) {
+                mma_bf16(hi[i][0], a[s][i], bh0, bh1);
+                mma_bf16(lo[i][0], a[s][i], bm0, bm1);
+                mma_bf16(lo[i][0], a[s][i], bl0, bl1);
+              }
+            } else {
+              uint32_t b0[2], b1[2];
+              const int r = s * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+              ldsm_x4_trans(smem_u32(bst + F::b_off(r, 16 * (jj + (lane >> 4)))), b0[0], b1[0], b0[1], b1[1]);
+#pragma unroll
+              for (int i = 0; i < kPlanes; ++i) {
+                mma_bf16(hi[i][0], a[s][i], b0[0], b1[0]);
+                if (jj + 1 < nt_live) mma_bf16(hi[i][1], a[s][i], b0[1], b1[1]);
+              }
             }
           }
-        } else {
 #pragma unroll
-          for (int jj = 0; jj < kNT; jj += 2) {
-            if (jj >= nt_live) break;
-            uint32_t b0[2], b1[2];
-            const int r = s * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-            ldsm_x4_trans(smem_u32(bst + F::b_off(r, 16 * (jj + (lane >> 4)))), b0[0], b1[0], b0[1], b1[1]);
+          for (int i = 0; i < kPlanes; ++i)
 #pragma unroll
-            for (int i = 0; i < kPlanes; ++i) {
-              mma_bf16(acc[i][jj], a[i], b0[0], b1[0]);
-              if (jj + 1 < nt_live) mma_bf16(acc[i][jj + 1], a[i], b0[1], b1[1]);
-            }
-          }
+            for (int q = 0; q < kJ; ++q)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[i][jj + q][e] += F::kF32 ? hi[i][q][e] + lo[i][q][e] : hi[i][q][e];
         }
       }
     }
@@ -459,7 +492,7 @@ block_fwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ til
         for (int j = 0; j < kNT; ++j)
           if (j < nt_live)
             *reinterpret_cast<float2*>(crow + 8 * j + 2 * t) =
-                make_float2(acc[i][j][2 * h] + low[i][j][2 * h], acc[i][j][2 * h + 1] + low[i][j][2 * h + 1]);
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
     }
   }

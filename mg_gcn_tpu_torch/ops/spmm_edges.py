@@ -37,7 +37,10 @@ the row walk of ``csrc/csr_walk.cuh`` that the gather kernel shares):
 :func:`edge_t` (``_edge_t_kernel``).
 Each wrapper launches its kernel for a CUDA tensor and uses its plain
 PyTorch version for a CPU tensor — only because the tensor lies on the CPU.
-Each counts its launches in ``.launches`` by (dtype, d_pad).
+Each counts its launches in ``.launches`` by (dtype, d_pad). The walk
+splits each row's entries over groups of lanes whose size follows d_pad:
+:func:`csr_walk_geometry` states the rule, :func:`edge_geometry` reports a
+launch's geometry from the card.
 
 **The transposed product** (``TSched``, ``transposed_schedule``,
 ``spmm_edge_tiles_t``; ``spmm_edges.py:748-1131``), the backward half of
@@ -68,7 +71,7 @@ import torch
 
 from .. import _build
 from ..formats import CSRData
-from .spmm_pattern import round_up
+from .spmm_pattern import query_geometry, round_up
 
 # dispatch numbers of the JAX edge-tile schedule (spmm_edges.py:63-64, 75),
 # kept only for expected_fill: the edge-vs-gather choice of impl="auto"
@@ -306,7 +309,42 @@ def load_csr_lib(name: str, **entries: tuple[int, int]) -> ctypes.CDLL:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return load_csr_lib("spmm_edges", mggcn_edge=(4, 1), mggcn_edge_i8=(4, 0), mggcn_edge_t=(5, 1))
+    lib = load_csr_lib("spmm_edges", mggcn_edge=(4, 1), mggcn_edge_i8=(4, 0), mggcn_edge_t=(5, 1))
+    i = ctypes.c_int
+    lib.mggcn_edge_geometry.argtypes = [ctypes.c_longlong, i, i, i, ctypes.c_void_p]
+    lib.mggcn_edge_geometry.restype = i
+    return lib
+
+
+# the CSR walk's launch geometry (csrc/csr_walk.cuh csr::geometry): the
+# stages slot of async_copy::write_geometry holds the B rows a lane has in
+# flight
+CSR_WALK_GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "in_flight", "blocks_per_sm", "resident_blocks",
+                          "lanes", "groups")
+_EDGE_KERNEL_CODE = {"edge": 0, "edge_i8": 1, "edge_t": 2}
+
+
+def csr_walk_geometry(d_pad: int) -> dict:
+    """The row walk's split of a warp at width ``d_pad`` (``csr_walk.cuh``
+    ``lanes_for``): ``lanes`` L, the smallest power of two >= d_pad / 4
+    (a lane loads 4 features) capped at 32, and ``groups`` G = 32 / L, the
+    groups that take a row's entries in strides (group k: entries k, k + G,
+    ...). d_pad 8 gives (2, 16), 48 and 64 give (16, 2), >= 128 (32, 1)."""
+    if d_pad <= 0 or d_pad % 8:
+        raise ValueError(f"d_pad must be a positive multiple of 8, got {d_pad}")
+    lanes = 2
+    while lanes < 32 and 4 * lanes < d_pad:
+        lanes *= 2
+    return {"lanes": lanes, "groups": 32 // lanes}
+
+
+def edge_geometry(name: str, n_out: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of kernel ``name`` (``edge``, ``edge_i8`` or
+    ``edge_t``) over ``n_out`` output rows of width ``d_pad`` in ``dtype``,
+    from the card: grid, threads, B rows in flight a lane, resident blocks,
+    and the walk's ``lanes`` and ``groups`` (:func:`csr_walk_geometry`)."""
+    return query_geometry(_lib(), "mggcn_edge_geometry", n_out, d_pad, _EDGE_KERNEL_CODE[name],
+                          _W_CODE.get(dtype, 0), keys=CSR_WALK_GEOMETRY_KEYS)
 
 
 def check_csr_operands(name: str, indptr, indices, w, b, w_dtypes, b_dtypes) -> None:

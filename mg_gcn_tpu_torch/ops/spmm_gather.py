@@ -24,7 +24,7 @@ on the row walk of ``csrc/csr_walk.cuh`` that the edge kernels share):
 :func:`gather` (``_gather_kernel``). The wrapper launches it for a CUDA
 tensor and uses its plain PyTorch version for a CPU tensor — only because
 the tensor lies on the CPU. It counts its launches in ``gather.launches``
-by (B's dtype, d_pad).
+by (B's dtype, d_pad); :func:`gather_geometry` reports a launch's geometry.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ import torch
 from .. import sparse
 from ..formats import CSRData
 from .spmm_edges import (
-    check_csr, check_csr_operands, csr_plain, load_csr_lib, pad_features, run_csr_kernel,
+    CSR_WALK_GEOMETRY_KEYS, check_csr, check_csr_operands, csr_plain, load_csr_lib, pad_features, run_csr_kernel,
 )
+from .spmm_pattern import query_geometry
 
 _B_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -139,7 +140,19 @@ def gather_plain(indptr, indices, w, b) -> torch.Tensor:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return load_csr_lib("spmm_gather", mggcn_gather=(4, 1))
+    lib = load_csr_lib("spmm_gather", mggcn_gather=(4, 1))
+    i = ctypes.c_int
+    lib.mggcn_gather_geometry.argtypes = [ctypes.c_longlong, i, i, i, ctypes.c_void_p]
+    lib.mggcn_gather_geometry.restype = i
+    return lib
+
+
+def gather_geometry(n_out: int, d_pad: int, dtype: torch.dtype, weighted: bool) -> dict:
+    """The launch geometry of :func:`gather` over ``n_out`` output rows of
+    width ``d_pad`` with B in ``dtype``, from the card (the keys of
+    ``spmm_edges.edge_geometry``)."""
+    return query_geometry(_lib(), "mggcn_gather_geometry", n_out, d_pad, int(weighted), _B_CODE[dtype],
+                          keys=CSR_WALK_GEOMETRY_KEYS)
 
 
 def gather(indptr: torch.Tensor, indices: torch.Tensor, w: torch.Tensor | None, b: torch.Tensor) -> torch.Tensor:

@@ -178,9 +178,13 @@ def _assert_within_sum_bound(got, indptr, indices, w, b):
     assert not bool(got[100:200].any())
 
 
-@pytest.mark.parametrize("d_pad", [8, 48, 128, 256, 264])
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 128, 256, 264])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_edge_kernels_match_plain(hub_graph, dtype, d_pad):
+    """Every group size of the walk (d_pad 8: 16 groups of 2 lanes; 16: 8 of
+    4; 48: 2 of 16; >= 128: one warp) on the hub row and empty rows, within
+    the float32 sum bound of the float64 plain version (int8 equal); two
+    launches give the same bits."""
     indptr, indices = _csr_on_card(hub_graph)
     b = _operand(hub_graph.ncols, d_pad, dtype, seed=d_pad)
     if dtype == torch.int8:
@@ -191,8 +195,10 @@ def test_edge_kernels_match_plain(hub_graph, dtype, d_pad):
         kernel, key = se.edge, (str(dtype).removeprefix("torch."), d_pad)
     before = kernel.launches[key]
     got = kernel(indptr, indices, w, b)
+    again = kernel(indptr, indices, w, b)
     torch.cuda.synchronize()
-    assert kernel.launches[key] == before + 1
+    assert kernel.launches[key] == before + 2
+    assert torch.equal(got, again)
     if dtype == torch.int8:
         assert got.dtype == torch.int32
         assert torch.equal(got, se.edge_i8_plain(indptr, indices, w, b))
@@ -201,19 +207,37 @@ def test_edge_kernels_match_plain(hub_graph, dtype, d_pad):
         _assert_within_sum_bound(got, indptr, indices, w, b)
 
 
-@pytest.mark.parametrize("d_pad", [8, 48, 104, 256, 264])
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 104, 256, 264])
 @pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("weighted", [True, False])
 def test_gather_kernel_matches_plain(hub_graph, weighted, b_dtype, d_pad):
+    """As test_edge_kernels_match_plain, binary and weighted."""
     indptr, indices = _csr_on_card(hub_graph)
     w = torch.from_numpy(hub_graph.data).cuda() if weighted else None
     b = _operand(hub_graph.ncols, d_pad, b_dtype, seed=d_pad)
     key = (str(b_dtype).removeprefix("torch."), d_pad)
     before = sg.gather.launches[key]
     got = sg.gather(indptr, indices, w, b)
+    again = sg.gather(indptr, indices, w, b)
     torch.cuda.synchronize()
-    assert sg.gather.launches[key] == before + 1
+    assert sg.gather.launches[key] == before + 2
+    assert torch.equal(got, again)
     _assert_within_sum_bound(got, indptr, indices, w, b)
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 24, 48, 64, 128, 256])
+def test_csr_walk_geometry_on_card(d_pad):
+    """Each CSR kernel's launch geometry from the card: L and G by the
+    rule of spmm_edges.csr_walk_geometry, a warp a row in blocks of 8, at
+    least 24 warps resident an SM (3 blocks: the widest walks take 71
+    registers a thread)."""
+    n = 232_968
+    rule = se.csr_walk_geometry(d_pad)
+    for geo in (se.edge_geometry("edge", n, d_pad, torch.bfloat16), se.edge_geometry("edge", n, d_pad, torch.float32),
+                se.edge_geometry("edge_i8", n, d_pad, torch.int8), se.edge_geometry("edge_t", n, d_pad, torch.bfloat16),
+                sg.gather_geometry(n, d_pad, torch.float32, False), sg.gather_geometry(n, d_pad, torch.bfloat16, True)):
+        assert {k: geo[k] for k in rule} == rule, geo
+        assert geo["grid_x"] == -(-n // 8) and geo["threads"] == 256 and geo["blocks_per_sm"] >= 3, geo
 
 
 def test_csr_kernels_write_zeros_for_an_empty_matrix():
@@ -314,12 +338,13 @@ def test_sddmm_kernels_match_plain(hub_graph, dtype, d):
     _assert_within_sum_error(got, exact, mag, torch.tensor(float(d_pad), dtype=torch.float64))
 
 
-@pytest.mark.parametrize("d", [1, 2, 41, 64, 128, 256])
+@pytest.mark.parametrize("d", [1, 2, 16, 41, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_edge_t_kernel_matches_plain(hub_graph, dtype, d):
     """Mᵀ(w) A for M = the hub graph's transpose: its transpose walk has the
     degree-5,000 hub (column 7 of M) and the empty columns 100..199 of M,
-    whose output rows must be zero."""
+    whose output rows must be zero; at d_pad 8, 16, 48, 64 and >= 128 (every
+    group size of the walk); two launches give the same bits."""
     from mg_gcn_tpu_torch import sparse
 
     m = sparse.transpose(hub_graph)
@@ -331,8 +356,10 @@ def test_edge_t_kernel_matches_plain(hub_graph, dtype, d):
     key = (str(dtype).removeprefix("torch."), d_pad)
     before = se.edge_t.launches[key]
     got = se.edge_t(t.t_indptr, t.t_rows, t.perm, w, a)
+    again = se.edge_t(t.t_indptr, t.t_rows, t.perm, w, a)
     torch.cuda.synchronize()
-    assert se.edge_t.launches[key] == before + 1
+    assert se.edge_t.launches[key] == before + 2
+    assert torch.equal(got, again)
     assert got.dtype == torch.float32 and got.shape == (m.ncols, d_pad)
     wp = w[t.perm.long()]
     _assert_within_sum_bound(got, t.t_indptr, t.t_rows, wp, a)
@@ -559,6 +586,22 @@ def test_block_fwd_float32_keeps_every_significand_bit(planes_mat):
     mag = zero.index_add_(0, cols, b.double().abs().index_select(0, rows))
     _assert_within_sum_error(got, exact, mag, torch.bincount(cols, minlength=n).double()[:, None])
     _assert_matches_plain(got, sps.block_fwd_plain(planes_mat, b, torch.float64).float(), torch.float32)
+
+
+def test_block_fwd_float32_sums_do_not_lean(planes_mat):
+    """On a positive float32 operand every error of a sum that leans toward
+    zero has the same sign: sum(e sign(sum)) / sum|e| against the float64
+    sum would be -1 for sums kept on the tensor cores from the first tile to
+    the last (they truncate). Fresh sums a stage, added by float32 adds that
+    round to nearest, keep it within +-0.15 (columns 0..4095 sum 512 bits of
+    the fully set tile)."""
+    b = _operand(planes_mat.n_pad, 128, torch.float32, seed=9).abs()
+    got = sps.block_fwd(planes_mat, b).double()
+    want = sps.block_fwd_plain(planes_mat, b, torch.float64)
+    torch.cuda.synchronize()
+    e = (got - want)[want != 0]
+    lean = float((e * torch.sign(want[want != 0])).sum() / e.abs().sum().clamp_min(1e-300))
+    assert float(e.abs().sum()) > 0 and abs(lean) <= 0.15, lean
 
 
 def _long_group_graph():
