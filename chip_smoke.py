@@ -14,7 +14,10 @@ the result line:
    float32} and ``edge_i8`` x d in {41, 128, 256} on a weighted graph;
    ``gather`` {weighted, binary, binary + bfloat16 stream} x d in
    {48, 100, 256} at average degree 50; ``sddmm`` {bfloat16, float32,
-   int8} x d in {2, 41, 64, 128}, ``sddmm_qskip`` on the same graph with 90% of
+   int8} x d in {1, 2, 16, 24, 32, 41, 48, 64, 128, 256} (every lane-group
+   size of its rule but int8's L = 32) within the float32 sum bound of the
+   plain version summed in float64, twice bit for bit, its launch geometry
+   against ``sddmm_geometry``, ``sddmm_qskip`` on the same graph with 90% of
    its rows emptied (bitwise equal to ``sddmm``), ``edge_t`` {bfloat16,
    float32} x d in {2, 41, 64, 128}, ``block_fwd`` / ``block_bwd``
    {bfloat16, float32, int8} x d in {41, 128} on a banded graph with empty
@@ -113,11 +116,17 @@ the result line:
    float32}, x d in {2, 41, 64} (the path's d_pad 8, 48 and 64), as phase
    5, beside torch.sparse.sampled_addmm (SDDMM) and torch.sparse.mm on the
    transposed CSR (``edge_t``), float32 yardsticks the port never calls;
-   ``edge`` bfloat16 at the same widths; d = 128 is checked and logged, not
-   put in the kernels line (no launch of the path has it); ``edge`` and
-   ``edge_t`` launched twice must give the same bits, and the CSR walk's
-   geometry (lanes and groups a warp, grid, threads, resident blocks an
-   SM) goes in their rows, as in phases 15 and 17;
+   ``edge`` bfloat16 at the same widths; d = 128 (and for the SDDMMs
+   256) is checked and logged, not put in the kernels line (no launch of
+   the path has it); ``sddmm`` within the float32 sum bound as in phase
+   3; ``sddmm``, ``edge`` and ``edge_t`` launched twice must give the same
+   bits, and the launch geometry as the card reports it (grid, threads,
+   dynamic shared memory, resident blocks an SM) goes in their rows, as in
+   phases 15 and 17 (``edge`` and ``edge_t`` with the walk's lanes and
+   groups a warp); the SDDMM's lanes, groups, entries a group scores at
+   once, features a lane loads and the tree's shuffles a batch (held to
+   the rule) and its L2 gather bytes nnz x d_pad x element size (computed)
+   are logged beside its bound, not put in the line;
 14. path A, weighted Reddit on the edge engine — the same graph with
    bench.py's edge values (rng(5).random + 0.5): auto must pick ``edge``;
    one float32 step against the COO engine by the rule of phase 4; 5
@@ -203,8 +212,13 @@ DEG_GATHER_SMALL = 50
 # (64, 64, 41), heads=2) on the main path's graph with planted_features(
 # labels, 64, noise=2.0, seed=8); its kernels' widths: d = 1 and 2 (d_pad
 # 8), the output layer's 41 (d_pad 48) and the hidden layer's 64. d = 128
-# is checked and logged besides, outside the kernels line.
+# (and for the SDDMM 256, its rows walked in chunks in float32) is checked
+# and logged besides, outside the kernels line.
 GAT_SIZES, GAT_HEADS, GAT_WIDTHS, ATT_EXTRA_WIDTHS = (64, 64, CLASSES), 2, (2, 41, 64), (128,)
+SDDMM_EXTRA_WIDTHS = ATT_EXTRA_WIDTHS + (256,)
+# the SDDMM's checks at n = 20,000: every lane-group size of its rule
+# (ops/sddmm.sddmm_geometry) in each dtype but int8's L = 32 (d_pad > 256)
+SDDMM_SMALL_WIDTHS = (1, 2, 16, 24, 32, 41, 48, 64, 128, 256)
 DEG_GAT_CPU = 16  # the card-vs-CPU step's graph: random_graph(N_SMALL, 16, seed=3)
 # the banded path: bench.py's block-banded graph (bench.py:276-292), 493 draws
 # a row in row ± 4096, rng(7), on the main path's model; the small banded
@@ -631,9 +645,10 @@ def kernel_row(name, dtype, d, n, nnz, launches, check, ms, plain_ms, library_ms
     )
 
 
-def log_row(r: dict) -> None:
+def log_row(r: dict, note: str = "") -> None:
+    """A kernels-line row on the log; ``note`` is logged after its bound."""
     log(f"  {r['name']} {r['dtype']:8s} d={r['d']:3d}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms,"
-        f" {r['bound_by']}), plain {r['plain_ms']:.1f} ms, library {r['library_ms']},"
+        f" {r['bound_by']}{note}), plain {r['plain_ms']:.1f} ms, library {r['library_ms']},"
         f" launches {r['launches']}, max_err {r['max_abs_err']:.3e} (tolerance used {r['tolerance_used']:.3f})")
 
 
@@ -915,21 +930,31 @@ def hub_graph():
     return CSRData(indptr, np.concatenate(rows).astype(np.int32), data, g.shape)
 
 
+def sum_bound_use(label: str, got, exact, mag, terms) -> float:
+    """A float32 sum ``got`` of ``terms`` terms element by element within
+    4 sqrt(terms + 2) 2^-24 ``mag`` of ``exact`` (float64 sums of the same
+    rounded terms and of their magnitudes; a float32 sum of that many terms
+    in any order stays inside it; a dropped or doubled term does not);
+    returns the share of the bound used."""
+    if not torch.is_tensor(terms):
+        terms = torch.tensor(float(terms), dtype=torch.float64, device=got.device)
+    bound = 4.0 * (terms + 2).sqrt() * 2.0**-24 * mag
+    diff = (got.double() - exact).abs()
+    use = float((diff / bound.clamp_min(1e-300)).max()) if diff.numel() else 0.0
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"{label}: outside the float32 sum bound ({use:.3f} of it)")
+    return use
+
+
 def within_sum_bound(label: str, got, indptr, indices, w, b) -> float:
     """A float CSR kernel against its plain version summed in float64 on the
-    same rounded inputs, element by element within 4 sqrt(deg + 2) 2^-24
-    sum|terms| (a float32 sum of deg terms in any order stays inside it; a
-    dropped or doubled term does not); returns the share of the bound used."""
+    same rounded inputs, within :func:`sum_bound_use`'s bound at each row's
+    degree; returns the share of the bound used."""
     from mg_gcn_tpu_torch.ops.spmm_edges import csr_plain
 
     exact = csr_plain(indptr, indices, w, b, torch.float64)
     mag = csr_plain(indptr, indices, None if w is None else w.abs(), b.abs(), torch.float64)
-    bound = 4.0 * (indptr.diff().double()[:, None] + 2).sqrt() * 2.0**-24 * mag
-    diff = (got.double() - exact).abs()
-    use = float((diff / bound.clamp_min(1e-300)).max())
-    if not bool((diff <= bound).all()):
-        raise AssertionError(f"{label}: outside the float32 sum bound ({use:.3f} of it)")
-    return use
+    return sum_bound_use(label, got, exact, mag, indptr.diff().double()[:, None])
 
 
 def phase_csr_walk_small() -> None:
@@ -1521,16 +1546,47 @@ def sddmm_operands(mat, d: int, dtype: str, seed: int):
 
 
 def check_sddmm(label, mat, d, dtype, reps, plain_reps):
-    """sddmm on ``mat`` against its plain version; (operands, check, ms,
-    plain ms)."""
+    """sddmm on ``mat`` against its plain version summed in float64: within
+    check_close's tolerance and element by element within the float32 sum
+    bound 4 sqrt(d_pad + 2) 2^-24 sum|terms|; a second launch must give the
+    same bits. Returns (operands, check, ms, plain ms, share of the sum
+    bound used)."""
     from mg_gcn_tpu_torch.ops import sddmm as sd
 
     a, b, g = sddmm_operands(mat, d, dtype, seed=d)
     args = (mat.indptr, mat.indices, a, b, g)
-    check, ms, plain_ms = check_and_time(
-        label, lambda: sd.sddmm(*args), lambda: sd.sddmm_plain(mat.indptr, mat.indices, a.double(), b.double(), g),
-        "float32", reps, lambda: sd.sddmm_plain(*args), plain_reps)
-    return args, check, ms, plain_ms
+    got, again = sd.sddmm(*args), sd.sddmm(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    del again
+    exact = sd.sddmm_plain(mat.indptr, mat.indices, a.double(), b.double(), g)
+    check = check_close(label, got, exact, "float32")
+    mag = sd.sddmm_plain(mat.indptr, mat.indices, a.double().abs(), b.double().abs(), g)
+    use = sum_bound_use(label, got, exact, mag, a.shape[1])
+    del got, exact, mag
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: sd.sddmm_plain(*args), plain_reps)
+    return args, check, cuda_ms(lambda: sd.sddmm(*args), reps), plain_ms, use
+
+
+def sddmm_geometry_row(label: str, n: int, a: torch.Tensor) -> dict:
+    """The SDDMM's launch geometry at (n rows, A's width and dtype) from the
+    card, whose split of a warp must follow ops/sddmm.sddmm_geometry's rule;
+    logged whole. Returns a row's extra keys: the repeat check (made by
+    check_sddmm) and what the card reports of the launch (grid, threads,
+    dynamic shared memory, resident blocks from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor); the rule's counts stay
+    in the log."""
+    from mg_gcn_tpu_torch.ops import sddmm as sd
+
+    geo = sd.sddmm_launch_geometry(n, a.shape[1], a.dtype)
+    rule = sd.sddmm_geometry(a.shape[1], a.dtype)
+    if {k: geo[k] for k in rule} != rule:
+        raise AssertionError(f"{label}: launch geometry {geo} is not the rule's {rule}")
+    log(f"  {label}: geometry {geo}")
+    keep = {k: geo[k] for k in ("grid_x", "threads", "smem", "blocks_per_sm", "resident_blocks")}
+    return {"repeat_equal": True, "geometry": keep}
 
 
 def check_qskip(label, mat, args, reps) -> float:
@@ -1566,15 +1622,20 @@ def phase_attention_kernels_small() -> None:
     the same graph with 90% of its rows emptied, bitwise equal to sddmm."""
     from mg_gcn_tpu_torch import sparse
     from mg_gcn_tpu_torch.formats import CSRData
+    from mg_gcn_tpu_torch.ops import sddmm as sd
     from mg_gcn_tpu_torch.ops import spmm_edges as se
 
     g = sparse.random_graph(N_SMALL, DEG_SMALL, seed=3)
     mat = se.edge_tile_mat_from_csr(g, dtype="float32", device="cuda", merge=False)
     widths = GAT_WIDTHS + ATT_EXTRA_WIDTHS
     for dtype in DTYPES:
-        for d in widths:
-            _, (err, use), ms, plain_ms = check_sddmm(f"sddmm {dtype} d={d}", mat, d, dtype, 10, 3)
-            log(f"  sddmm   {dtype:8s} d={d:3d}: max_err {err:.3e} (tolerance used {use:.3f})"
+        for d in SDDMM_SMALL_WIDTHS:
+            label = f"sddmm {dtype} d={d}"
+            args, (err, use), ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 10, 3)
+            sddmm_geometry_row(label, mat.n_out, args[2])  # the card's split, held to the rule
+            geo = sd.sddmm_geometry(args[2].shape[1], args[2].dtype)
+            log(f"  sddmm   {dtype:8s} d={d:3d}: max_err {err:.3e} (tolerance used {use:.3f}, sum bound used"
+                f" {bound_use:.3f}), two launches equal bit for bit, L={geo['lanes']} G={geo['groups']}"
                 f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
     rows = np.repeat(np.arange(N_SMALL), np.diff(g.indptr))
     keep = rows % 10 == 0
@@ -1583,8 +1644,8 @@ def phase_attention_kernels_small() -> None:
     thin = se.edge_tile_mat_from_csr(CSRData(indptr, g.indices[keep], g.data[keep], g.shape), dtype="float32",
                                      device="cuda", merge=False)
     for dtype in DTYPES:
-        for d in widths:
-            args, (err, use), ms, _ = check_sddmm(f"sddmm {dtype} d={d}, 90% rows empty", thin, d, dtype, 10, 1)
+        for d in SDDMM_SMALL_WIDTHS:
+            args, (err, use), ms, _, _ = check_sddmm(f"sddmm {dtype} d={d}, 90% rows empty", thin, d, dtype, 10, 1)
             q_ms = check_qskip(f"{dtype} d={d}", thin, args, 10)
             log(f"  sddmm_qskip {dtype:8s} d={d:3d}, {thin.live_rows.numel()} live rows of {N_SMALL}: bitwise equal"
                 f" to sddmm; {q_ms:.4f} ms vs sddmm {ms:.4f} ms (max_err {err:.3e}, tolerance used {use:.3f})")
@@ -1760,7 +1821,8 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
     version and (float32) torch.sparse.sampled_addmm for the SDDMMs and
     torch.sparse.mm on the transposed CSR for edge_t; and the path's own
     ``edge`` launches (bfloat16, d_pad 8, 48 and 64) on the same matrix.
-    The kernels line takes the path's widths; ATT_EXTRA_WIDTHS are logged."""
+    The kernels line takes the path's widths; ATT_EXTRA_WIDTHS (and for the
+    SDDMMs SDDMM_EXTRA_WIDTHS) are logged."""
     from mg_gcn_tpu_torch.ops import spmm_edges as se
 
     mat, t = graph
@@ -1768,15 +1830,19 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
     pattern = csr_library(mat.indptr, mat.indices, torch.zeros(nnz, device="cuda"), (n, n_in))
     rows = []
 
-    def keep(row: dict) -> None:
-        log_row(row)
+    def keep(row: dict, note: str = "") -> None:
+        log_row(row, note)
         if row["d"] in GAT_WIDTHS:
             rows.append(row)
 
     for dtype in DTYPES:
-        for d in GAT_WIDTHS + ATT_EXTRA_WIDTHS:
-            args, check, ms, plain_ms = check_sddmm(f"sddmm {dtype} d={d} (GAT shape)", mat, d, dtype, 5, 2)
+        for d in GAT_WIDTHS + SDDMM_EXTRA_WIDTHS:
+            label = f"sddmm {dtype} d={d} (GAT shape)"
+            args, check, ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 5, 2)
             a, b = args[2], args[3]
+            extra = sddmm_geometry_row(label, n, a) | {"sum_bound_used": bound_use}
+            # each entry reads a B row from the L2: computed, logged beside the bound
+            gather = f"; L2 gather {nnz * a.shape[1] * elt_size(a) / 1e9:.3f} GB, computed"
             library_ms = None
             if dtype == "float32":
                 al, bt = a[:, :d].contiguous(), b[:, :d].t()
@@ -1785,10 +1851,11 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
                 del al, bt
             moved = 8 * (n + 1) + 4 * nnz + (n + n_in) * d * elt_size(a) + 4 * nnz
             keep(kernel_row("sddmm", dtype, d, n, nnz, launches["sddmm"].get((dtype, a.shape[1]), 0),
-                            check, ms, plain_ms, library_ms, moved))
+                            check, ms, plain_ms, library_ms, moved) | extra, gather)
             q_ms = check_qskip(f"{dtype} d={d} (GAT shape)", mat, args, 5)
             keep(kernel_row("sddmm_qskip", dtype, d, n, nnz, launches["sddmm_qskip"].get((dtype, a.shape[1]), 0),
-                            check, q_ms, plain_ms, library_ms, moved + 4 * mat.live_rows.numel()))
+                            check, q_ms, plain_ms, library_ms, moved + 4 * mat.live_rows.numel()) | extra,
+                 gather)
             del args, a, b
             torch.cuda.empty_cache()
     del pattern

@@ -32,6 +32,12 @@ The kernels are hand-written CUDA (``csrc/sddmm.cu``): :func:`sddmm`
 Each wrapper launches its kernel for a CUDA tensor and uses its plain
 PyTorch version for a CPU tensor — only because the tensor lies on the
 CPU — and counts its launches in ``.launches`` by (dtype, d_pad).
+
+A warp scores a row's entries in G groups of L lanes, each lane summing F
+features of an entry, the L partial sums met by a fixed xor tree:
+:func:`sddmm_geometry` states the rule, :func:`sddmm_launch_geometry`
+reports a launch's geometry from the card, and :func:`sddmm_groups_plain`
+computes the scores in the kernel's order (for the tests).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import functools
 import torch
 
 from .spmm_edges import DTYPES, EdgeTileMat, load_csr_lib, pad_features
+from .spmm_pattern import query_geometry
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 SELECTS = ("one", "two")
@@ -69,11 +76,95 @@ def sddmm_plain(indptr, indices, a, b, g=None) -> torch.Tensor:
     return out
 
 
+def sddmm_geometry(d_pad: int, dtype: torch.dtype) -> dict:
+    """The kernels' split of a warp at width ``d_pad`` in ``dtype``
+    (``csrc/sddmm.cu`` ``features_for``, ``lanes_for``): ``features`` F a
+    lane loads at once (16 bytes, or 8 for an int8 row of d_pad % 16 == 8,
+    only 8-byte aligned), ``lanes`` L, the smallest power of two >= d_pad /
+    F capped at 32 (wider rows loop in chunks of 32 F), ``groups`` G = 32 /
+    L, ``entries`` U = 8 a group scores a batch, and ``shuffles``, the warp
+    shuffles of the tree a batch of G U entries: a reduce-scatter over R =
+    min(L, 8) lanes, (U / R)(R - 1), then log2(L / R) more a score.
+    bfloat16 d_pad 8 gives L = 1 (no shuffle), 64 gives L = 8 (7 shuffles
+    for 32 entries)."""
+    if d_pad <= 0 or d_pad % 8:
+        raise ValueError(f"d_pad must be a positive multiple of 8, got {d_pad}")
+    size = torch.empty((), dtype=dtype).element_size()
+    features = (16 if d_pad * size % 16 == 0 else 8) // size
+    lanes = 1
+    while lanes < 32 and lanes * features < d_pad:
+        lanes *= 2
+    entries = 8
+    scatter = min(lanes, entries)
+    shuffles = entries // scatter * (scatter - 1 + (lanes // scatter).bit_length() - 1)
+    return {"lanes": lanes, "groups": 32 // lanes, "entries": entries, "features": features, "shuffles": shuffles}
+
+
+def sddmm_groups_plain(indptr, indices, a, b, g=None) -> torch.Tensor:
+    """:func:`sddmm` in the kernel's order (:func:`sddmm_geometry`): in
+    each chunk c of L·F features, lane l of an entry's group sums its
+    features c·L·F + l·F .. + F - 1 in order, one float32 term at a time,
+    and the L partial sums meet by the xor tree (lanes l and l ^ 1 first,
+    then pairs of pairs); the chunks' scores are then added in chunk order
+    (a row wider than one chunk is walked once a chunk). A term is
+    float32's fused multiply-add (computed in float64 and rounded once;
+    bfloat16 products are exact in float32), or int8's ``f32(aq·bq)·g``
+    rounded, then added. For the tests."""
+    n_out, d_pad = indptr.numel() - 1, a.shape[1]
+    geo = sddmm_geometry(d_pad, a.dtype)
+    lanes, feats = geo["lanes"], geo["features"]
+    chunks = -(-d_pad // (lanes * feats))
+    width = chunks * lanes * feats
+    rows = torch.repeat_interleave(torch.arange(n_out, device=a.device), indptr.diff())
+
+    def lane_major(x: torch.Tensor) -> torch.Tensor:
+        x = torch.nn.functional.pad(x.to(torch.float32), (0, width - d_pad))
+        return x.view(-1, chunks, lanes, feats)
+
+    ar = lane_major(a.index_select(0, rows))
+    br = lane_major(b.index_select(0, indices.long()))
+    gs = lane_major(g[None, :])[0] if g is not None else None
+    score = None
+    for c in range(chunks):
+        part = torch.zeros((indices.numel(), lanes), dtype=torch.float32, device=a.device)
+        for f in range(feats):
+            x, y = ar[:, c, :, f], br[:, c, :, f]
+            if gs is not None:
+                part = part + (x * y) * gs[c, :, f]
+            elif a.dtype == torch.float32:
+                part = (part.double() + x.double() * y.double()).to(torch.float32)
+            else:
+                part = part + x * y
+        off = 1
+        while off < lanes:  # the lane adds the sums ``off`` lanes away: p_l + p_(l xor off)
+            part = part + part[:, torch.arange(lanes, device=a.device) ^ off]
+            off *= 2
+        score = part[:, 0] if score is None else score + part[:, 0]
+    return score.contiguous()
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     # (operand pointers, mode ints): the scores' row count is that of the
     # rows launched over (all rows, or the live ones), d_pad, the dtype code
-    return load_csr_lib("sddmm", mggcn_sddmm=(5, 1), mggcn_sddmm_qskip=(6, 1))
+    lib = load_csr_lib("sddmm", mggcn_sddmm=(5, 1), mggcn_sddmm_qskip=(6, 1))
+    lib.mggcn_sddmm_geometry.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.mggcn_sddmm_geometry.restype = ctypes.c_int
+    return lib
+
+
+# the kernels' launch geometry (csrc/sddmm.cu geometry): the stages slot of
+# async_copy::write_geometry holds the B loads a lane keeps in flight
+GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "in_flight", "blocks_per_sm", "resident_blocks",
+                 "lanes", "groups", "entries", "features", "shuffles")
+
+
+def sddmm_launch_geometry(n_out: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`sddmm` over ``n_out`` rows of width
+    ``d_pad`` in ``dtype``, from the card: grid, threads, B loads in flight
+    a lane, resident blocks, and :func:`sddmm_geometry`'s keys.
+    :func:`sddmm_qskip` launches the same kernel over its live rows."""
+    return query_geometry(_lib(), "mggcn_sddmm_geometry", n_out, d_pad, _CODE[dtype], keys=GEOMETRY_KEYS)
 
 
 def _check(name, indptr, indices, a, b, g) -> None:

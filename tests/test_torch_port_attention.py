@@ -20,7 +20,8 @@ from mg_gcn_tpu_torch import convert
 from mg_gcn_tpu_torch.formats import CSRData
 from mg_gcn_tpu_torch.models import gat
 from mg_gcn_tpu_torch.ops import edge_attention as ea
-from tests.test_torch_port_sddmm import csr_to_slots, jax_csr, random_csr, slots_to_csr_order
+from tests.test_torch_port_sddmm import jax_csr, random_csr
+from tests.torch_port_slots import csr_to_slots, slots_to_csr_order
 
 # tolerance of each output's scale: float32 1e-5; bfloat16 1e-4 (the same
 # bf16-rounded operands and cotangents, float32 sums in another order)

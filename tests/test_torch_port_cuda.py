@@ -310,32 +310,101 @@ def _dense_operand(n, d, d_pad, dtype, seed):
     return out
 
 
-@pytest.mark.parametrize("d", [1, 2, 41, 64, 128, 256])
+# every lane-group size of the SDDMM's rule in each dtype (sd.sddmm_geometry):
+# bf16 L = 1 (d_pad 8) .. 32 (256, and 264 in two chunks), float32 2 .. 32
+# (264: three chunks), int8 8- and 16-byte loads, L = 1 .. 32 (264)
+SDDMM_WIDTHS = [1, 2, 16, 24, 32, 41, 48, 64, 128, 256, 264]
+
+
+def _sddmm_operands(g, d, dtype):
+    d_pad = max(8, -(-d // 8) * 8)
+    a = _dense_operand(g.nrows, d, d_pad, dtype, seed=d)
+    b = _dense_operand(g.ncols, d, d_pad, dtype, seed=d + 1)
+    gs = None
+    if dtype == torch.int8:
+        gs = torch.zeros(d_pad, device="cuda")
+        gs[:d] = torch.rand(d, device="cuda", generator=torch.Generator(device="cuda").manual_seed(d)) * 1e-3
+    return a, b, gs
+
+
+@pytest.mark.parametrize("d", SDDMM_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_sddmm_kernels_match_plain(hub_graph, dtype, d):
     """Every score within the float32 sum bound of the plain version in
     float64 on the same rounded inputs (a degree-5,000 hub row, empty rows
-    100..199), and the q-range kernel bitwise equal to the default."""
+    100..199), at every group size of the rule; two launches give the same
+    bits, and the q-range kernel is bitwise equal to the default."""
     indptr, indices = _csr_on_card(hub_graph)
-    d_pad = max(8, -(-d // 8) * 8)
-    a = _dense_operand(hub_graph.nrows, d, d_pad, dtype, seed=d)
-    b = _dense_operand(hub_graph.ncols, d, d_pad, dtype, seed=d + 1)
-    g = None
-    if dtype == torch.int8:
-        g = torch.zeros(d_pad, device="cuda")
-        g[:d] = torch.rand(d, device="cuda", generator=torch.Generator(device="cuda").manual_seed(d)) * 1e-3
-    key = (str(dtype).removeprefix("torch."), d_pad)
+    a, b, g = _sddmm_operands(hub_graph, d, dtype)
+    key = (str(dtype).removeprefix("torch."), a.shape[1])
     before = sd.sddmm.launches[key], sd.sddmm_qskip.launches[key]
     got = sd.sddmm(indptr, indices, a, b, g)
+    again = sd.sddmm(indptr, indices, a, b, g)
     live = torch.nonzero(indptr.diff() > 0).flatten().int()
     skip = sd.sddmm_qskip(indptr, indices, live, a, b, g)
     torch.cuda.synchronize()
-    assert (sd.sddmm.launches[key], sd.sddmm_qskip.launches[key]) == (before[0] + 1, before[1] + 1)
+    assert (sd.sddmm.launches[key], sd.sddmm_qskip.launches[key]) == (before[0] + 2, before[1] + 1)
     assert got.dtype == torch.float32 and got.shape == (hub_graph.nnz,)
+    assert torch.equal(again, got)
     assert torch.equal(skip, got)
     exact = sd.sddmm_plain(indptr, indices, a.double(), b.double(), g)
     mag = sd.sddmm_plain(indptr, indices, a.double().abs(), b.double().abs(), g)
-    _assert_within_sum_error(got, exact, mag, torch.tensor(float(d_pad), dtype=torch.float64))
+    _assert_within_sum_error(got, exact, mag, torch.tensor(float(a.shape[1]), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("d", SDDMM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_sddmm_kernel_follows_the_group_order(hub_graph, dtype, d):
+    """The kernel sums in the order of sd.sddmm_groups_plain (in each chunk
+    each lane's features in order, then the xor tree over the group's lanes;
+    the chunks' scores added in order), run on the CPU: bfloat16 and int8 bit for bit (their terms are exact in float32 or
+    rounded as the kernel rounds them); float32 within 4 units in the last
+    place of sum|terms| (the twin's fused multiply-add is a float64 sum
+    rounded once more)."""
+    indptr, indices = _csr_on_card(hub_graph)
+    a, b, g = _sddmm_operands(hub_graph, d, dtype)
+    got = sd.sddmm(indptr, indices, a, b, g).cpu()
+    twin = sd.sddmm_groups_plain(indptr.cpu(), indices.cpu(), a.cpu(), b.cpu(), None if g is None else g.cpu())
+    if dtype == torch.float32:
+        mag = sd.sddmm_plain(indptr.cpu(), indices.cpu(), a.cpu().double().abs(), b.cpu().double().abs())
+        assert bool(((got.double() - twin.double()).abs() <= 2.0**-22 * mag).all())
+    else:
+        assert torch.equal(got, twin)
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 24, 32, 40, 48, 64, 128, 256, 264])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_sddmm_geometry_on_card(dtype, d_pad):
+    """The SDDMM's launch geometry from the card: L, G, U, F and the
+    shuffles of a batch by the rule of sd.sddmm_geometry (fewer than one
+    shuffle an entry but at L = 32, 9 for 8 entries), a warp a row in
+    blocks of 8, at least 32 warps resident an SM (4 blocks), and 32 KiB of
+    dynamic shared memory (1,024 running scores a warp) exactly where a row
+    is walked in chunks (L F < d_pad)."""
+    n = 232_968
+    rule = sd.sddmm_geometry(d_pad, dtype)
+    geo = sd.sddmm_launch_geometry(n, d_pad, dtype)
+    assert {k: geo[k] for k in rule} == rule, geo
+    assert geo["shuffles"] < geo["groups"] * geo["entries"] or (geo["lanes"], geo["shuffles"]) == (32, 9), geo
+    assert geo["grid_x"] == -(-n // 8) and geo["threads"] == 256 and geo["blocks_per_sm"] >= 4, geo
+    assert geo["smem"] == (8 * 1024 * 4 if rule["lanes"] * rule["features"] < d_pad else 0), geo
+
+
+@pytest.mark.parametrize("dtype,d_whole,d_chunked", [(torch.float32, 128, 256), (torch.bfloat16, 256, 264),
+                                                    (torch.int8, 512, 1024)])
+def test_sddmm_launches_after_geometry_query(hub_graph, dtype, d_whole, d_chunked):
+    """One kernel (L = 32) serves a width walked whole and a wider one walked
+    in chunks with running scores in shared memory: after a geometry query
+    at the first, a launch at the second still runs and gives the bits of a
+    launch made before the query."""
+    indptr, indices = _csr_on_card(hub_graph)
+    a, b, g = _sddmm_operands(hub_graph, d_chunked, dtype)
+    assert sd.sddmm_geometry(d_whole, dtype)["lanes"] == sd.sddmm_geometry(d_chunked, dtype)["lanes"] == 32
+    before = sd.sddmm(indptr, indices, a, b, g)
+    sd.sddmm_launch_geometry(hub_graph.nrows, d_whole, dtype)
+    after = sd.sddmm(indptr, indices, a, b, g)
+    torch.cuda.synchronize()
+    assert torch.equal(after, before)
 
 
 @pytest.mark.parametrize("d", [1, 2, 16, 41, 64, 128, 256])

@@ -3,7 +3,8 @@ edge product (``ops/spmm_edges.py``'s transposed half). The JAX kernels run
 in Pallas interpret mode (their default off the TPU) under ``jax.jit``; the
 port's kernels on their plain versions (the tensors lie on the CPU). Same
 numpy inputs into both. The JAX results come in its slot layout and are
-mapped to CSR entry order by :func:`slots_to_csr_order`."""
+mapped to CSR entry order by ``tests/torch_port_slots.py``'s
+:func:`slots_to_csr_order`."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from mg_gcn_tpu.ops import spmm_edges as jse
 from mg_gcn_tpu_torch.formats import CSRData
 from mg_gcn_tpu_torch.ops import sddmm as sd
 from mg_gcn_tpu_torch.ops import spmm_edges as se
+from tests.torch_port_slots import csr_to_slots, slots_to_csr_order
 
 DTYPES = ["float32", "bfloat16", "int8"]
 # tolerance of the output's scale: float32 and int8 (float32 sums of the
@@ -29,56 +31,6 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-4, "int8": 1e-5}
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
-
-
-# ---------------------------------------------------------------------------
-# the JAX slot layout in CSR entry order
-
-
-def slot_coords(jmat):
-    """(valid, row, col) of every slot of a JAX EdgeTileMat, vectorized
-    (the decode of ``tests/test_edge_attention.py:50-72``; int8-mode words
-    carry the weight above bit 17, masked by RL_MASK)."""
-    idx = np.asarray(jmat.idx)
-    meta = np.asarray(jmat.meta).astype(np.int64)
-    chi = np.asarray(jmat.chi).reshape(-1).astype(np.int64)
-    step = np.repeat(np.arange(meta.size), jse.CPS)
-    tr = (meta >> (jmat.tcw_bits + 1))[step][:, None]
-    tcw = ((meta >> 1) & ((1 << jmat.tcw_bits) - 1))[step][:, None]
-    v = (idx & jse.IDX_MASK).astype(np.int64)
-    row = tr * jmat.br + ((v >> 7) & jse.RL_MASK)
-    col = tcw * jse.BCW + chi[:, None] * jse.BC + (v & (jse.BC - 1))
-    return ((idx >> 30) & 1) == 1, row, col
-
-
-def _csr_keys(csr):
-    rows = np.repeat(np.arange(csr.nrows, dtype=np.int64), np.diff(csr.indptr))
-    return rows * csr.ncols + csr.indices
-
-
-def slots_to_csr_order(jmat, csr, slots) -> np.ndarray:
-    """The value of each CSR entry's slot. Duplicate (row, col) entries
-    each have a slot; their values are equal in every function compared
-    here (they depend on (row, col) only), so any of them serves."""
-    valid, row, col = slot_coords(jmat)
-    key = (row * csr.ncols + col)[valid]
-    vals = np.asarray(slots, np.float32)[valid]
-    order = np.argsort(key, kind="stable")
-    pos = np.searchsorted(key[order], _csr_keys(csr))
-    assert np.array_equal(key[order][pos], _csr_keys(csr)), "a CSR entry has no slot"
-    return vals[order][pos]
-
-
-def csr_to_slots(jmat, csr, values) -> np.ndarray:
-    """Slot-layout array (zeros on padding) holding each CSR entry's value,
-    for a CSR without duplicate entries."""
-    valid, row, col = slot_coords(jmat)
-    keys = _csr_keys(csr)
-    order = np.argsort(keys)
-    out = np.zeros(valid.shape, np.float32)
-    pos = np.searchsorted(keys[order], (row * csr.ncols + col)[valid])
-    out[valid] = np.asarray(values, np.float32)[order][pos]
-    return out
 
 
 def jax_csr(csr):
