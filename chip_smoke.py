@@ -47,16 +47,21 @@ the result line:
    its sums, and the comparison, repeat from run to run) within rtol 1e-4: the loss, and every gradient leaf
    in norm, ||pattern - COO|| <= 1e-4 ||COO|| (element-wise, the two sum
    orders can put a near-zero pre-activation on either side of the
-   LeakyReLU, which moves single elements by a step); then 5
+   LeakyReLU, which moves single elements by a step); both float32 steps
+   are then held against the float64 oracle tests/torch_oracle.py run on
+   the card (logged, ROADMAP queue 3 item 2); then 5
    bfloat16 epochs and 1 int8 epoch with finite losses. The kernels' launch
    counters are zeroed before this phase and read after it: exactly 3 fwd +
    2 bwd launches an epoch in each dtype;
 5. pattern kernels at the main-path shape — each kernel x dtype x width
    against its plain version again, timed with CUDA events beside its bound
    and beside torch.sparse.mm (float32; a yardstick the port never calls);
-   ``pattern_fwd`` launched twice must give the same bits, and its launch
-   geometry (grid, threads, dynamic shared memory, row slices, resident
-   blocks an SM) is logged and put in its kernels-line rows;
+   each kernel launched twice must give the same bits, and its launch
+   geometry (grid, threads, dynamic shared memory, row slices or stages,
+   resident blocks an SM; ``pattern_bwd``'s lanes and groups besides, held
+   to ``pattern_bwd_split``) is put in its kernels-line rows; the rest of
+   ``pattern_bwd``'s geometry (features, loads, span words, column
+   windows: the rule's and the kernel's constants) is only logged;
 6. the dist path — BASELINE's canonical ``-P 4 -R 1`` run (BASELINE.md:13)
    on the main path's dataset, sizes (608, 128, 128, 44) (41 classes round
    up to a multiple of P), its 4 partitions all on cuda:0, through
@@ -72,8 +77,8 @@ the result line:
    the fused epoch 0;
 7. ring kernels at the dist path's shape — partition 0's launch, each
    kernel x dtype x width as phase 5, beside torch.sparse.mm on the
-   partition's slab of Pᵀ / P against the gathered operand; ``ring_fwd``'s
-   repeat check and geometry as ``pattern_fwd``'s in phase 5;
+   partition's slab of Pᵀ / P against the gathered operand; each kernel's
+   repeat check and geometry as in phase 5;
 8. the banded path — bench.py's block-banded graph (bench.py:276-292, n =
    232,968, 493 draws a row in row ± 4096, ~111M edges) with the main path's
    features, labels and model: impl="auto" must pick the block pair (its
@@ -577,6 +582,12 @@ def phase_main_path(ds) -> dict:
     del coo
     torch.cuda.empty_cache()
     compare_with_coo("pattern", (loss_p, acc_p, grads_p), (loss_c, acc_c, grads_c))
+    oracle = (None, None, oracle_grads_on_card(ds, params, x, y))
+    log(f"  the float32 steps against the float64 oracle (tests/torch_oracle.py on the card), max over leaves of"
+        f" ||step - oracle|| / ||oracle||: pattern {gap((loss_p, acc_p, grads_p), oracle)};"
+        f" COO {gap((loss_c, acc_c, grads_c), oracle)}")
+    del oracle
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     res = train(ds, HIDDEN, epochs=EPOCHS, impl="auto", pattern_dtype="bfloat16", device=dev)
@@ -664,15 +675,16 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
         for dtype in DTYPES:
             for d in WIDTHS:
                 b = operand(n_pad, d, dtype, seed=d)
+                label = f"{name} {dtype} d={d} (main shape)"
                 got = kernel(fwd.pack, b)
                 torch.cuda.synchronize()
-                check = check_close(f"{name} {dtype} d={d} (main shape)", got, plain(fwd.pack, b, torch.float64),
-                                    dtype)
-                extra = {}
+                check = check_close(label, got, plain(fwd.pack, b, torch.float64), dtype)
                 if name == "pattern_fwd":
-                    extra = forward_repeat_and_geometry(f"{name} {dtype} d={d} (main shape)", got,
-                                                        lambda: kernel(fwd.pack, b),
-                                                        sp.pattern_fwd_geometry(n_pad, b.shape[1], b.dtype))
+                    geometry, keep = sp.pattern_fwd_geometry(n_pad, b.shape[1], b.dtype), None
+                else:
+                    geometry = bwd_geometry(label, sp.pattern_bwd_geometry(n_pad, b.shape[1], b.dtype), b)
+                    keep = BWD_ROW_KEYS
+                extra = repeat_and_geometry(label, got, lambda: kernel(fwd.pack, b), geometry, keep)
                 del got
                 ms = cuda_ms(lambda: kernel(fwd.pack, b), 5)
                 plain_ms = cuda_ms(lambda: plain(fwd.pack, b), 2)
@@ -688,20 +700,40 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
     return rows
 
 
-def forward_repeat_and_geometry(label: str, got: torch.Tensor, run, geometry: dict) -> dict:
-    """A redesigned kernel's contract at the path's shape (the forward walk,
-    block_fwd, tiled): a second launch gives the same bits as ``got`` (fixed
-    sum order, no atomics); logs the launch geometry (grid, threads, dynamic
-    shared memory, row slices or stages, resident blocks an SM from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns the row's extra
-    keys."""
+def repeat_and_geometry(label: str, got: torch.Tensor, run, geometry: dict, keep: tuple | None = None) -> dict:
+    """A redesigned kernel's contract at the path's shape (the forward and
+    backward pattern walks, block_fwd, tiled): a second launch gives the
+    same bits as ``got`` (fixed sum order, no atomics); logs the launch
+    geometry (grid, threads, dynamic shared memory, row slices or stages,
+    resident blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Returns the row's extra keys, with the geometry's ``keep`` keys only
+    where given."""
     again = run()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: two launches differ")
     del again
     log(f"  {label}: two launches equal bit for bit; geometry {geometry}")
-    return {"repeat_equal": True, "geometry": geometry}
+    return {"repeat_equal": True, "geometry": geometry if keep is None else {k: geometry[k] for k in keep}}
+
+
+# What the kernels line keeps of the backward walk's geometry: the launch and
+# the card's occupancy, and the split of a warp (held to pattern_bwd_split by
+# bwd_geometry). Features, loads, span words and column windows (the rule's
+# and the kernel's constants, windows by the L2 rule) stay in the log.
+BWD_ROW_KEYS = ("grid_x", "grid_y", "threads", "smem", "stages", "blocks_per_sm", "resident_blocks", "lanes", "groups")
+
+
+def bwd_geometry(label: str, geometry: dict, b: torch.Tensor) -> dict:
+    """The backward walk's launch geometry for operand ``b`` (its width and
+    dtype), whose lanes, groups and features must be
+    ``spmm_pattern.pattern_bwd_split``'s; returned whole."""
+    from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+
+    split = sp.pattern_bwd_split(b.shape[-1], b.dtype)
+    if any(geometry[k] != split[k] for k in ("lanes", "groups", "features")):
+        raise AssertionError(f"{label}: launch geometry {geometry} is not the split {split}")
+    return geometry
 
 
 # ---------------------------------------------------------------------------
@@ -847,13 +879,16 @@ def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
         for dtype in DTYPES:
             for d in DIST_WIDTHS:
                 slots = operand(P * m, d, dtype, seed=d).reshape(P, m, -1)
-                extra = {}
+                label = f"{name} {dtype} d={d} (dist shape)"
                 if name == "ring_fwd":
-                    extra = forward_repeat_and_geometry(
-                        f"{name} {dtype} d={d} (dist shape)", kernel(pack, slots), lambda: kernel(pack, slots),
-                        ring.ring_pattern_fwd_geometry(P, m, slots.shape[2], slots.dtype))
+                    geometry, keep = ring.ring_pattern_fwd_geometry(P, m, slots.shape[2], slots.dtype), None
+                else:
+                    geometry = bwd_geometry(label, ring.ring_pattern_bwd_geometry(P, m, slots.shape[2], slots.dtype),
+                                            slots)
+                    keep = BWD_ROW_KEYS
+                extra = repeat_and_geometry(label, kernel(pack, slots), lambda: kernel(pack, slots), geometry, keep)
                 check, ms, plain_ms = check_and_time(
-                    f"{name} {dtype} d={d} (dist shape)", lambda: kernel(pack, slots),
+                    label, lambda: kernel(pack, slots),
                     lambda: plain(pack, slots, None if dtype == "int8" else torch.float64), dtype, 5,
                     lambda: plain(pack, slots), 2)
                 library_ms = None
@@ -1332,12 +1367,6 @@ def phase_banded_f32_witness(ds) -> None:
         coo_step_ = loss_and_grad(params, coo_pair_on_card(ds.graph), x, y, config)
     torch.cuda.synchronize()
 
-    def gap(a, b):
-        worst = max((float(torch.linalg.vector_norm((ga[k] - gb[k].reshape(ga[k].shape)).double())
-                           / torch.linalg.vector_norm(gb[k].double())), f"layer {i} {k}")
-                    for i, (ga, gb) in enumerate(zip(a[2], b[2])) for k in gb)
-        return f"{worst[0]:.3e} ({worst[1]})"
-
     log(f"  float32 step, max over leaves of ||a - b|| / ||b||: block kernel vs COO {gap(kernel_step, coo_step_)};"
         f" block with block_fwd_plain (float32, round to nearest) vs COO {gap(plain_step, coo_step_)};"
         f" block kernel vs block_fwd_plain {gap(kernel_step, plain_step)}")
@@ -1347,6 +1376,15 @@ def phase_banded_f32_witness(ds) -> None:
         f" {gap(plain_step, oracle)}; COO {gap(coo_step_, oracle)}")
     del kernel_step, plain_step, coo_step_, oracle
     torch.cuda.empty_cache()
+
+
+def gap(a, b) -> str:
+    """max over gradient leaves of ||a - b|| / ||b|| for two steps (loss,
+    acc, grads), and the leaf."""
+    worst = max((float(torch.linalg.vector_norm((ga[k] - gb[k].reshape(ga[k].shape)).double())
+                       / torch.linalg.vector_norm(gb[k].double())), f"layer {i} {k}")
+                for i, (ga, gb) in enumerate(zip(a[2], b[2])) for k in gb)
+    return f"{worst[0]:.3e} ({worst[1]})"
 
 
 def oracle_grads_on_card(ds, params, x, y) -> list[dict]:
@@ -1404,8 +1442,8 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                     torch.cuda.synchronize()
                     want = reference()
                     check = check_close(label, got, want, dtype)
-                    extra = forward_repeat_and_geometry(label, got, lambda: kernel(fwd, b),
-                                                        sps.block_fwd_geometry(n_pad, fwd.tile_r, b.shape[1], b.dtype))
+                    extra = repeat_and_geometry(label, got, lambda: kernel(fwd, b),
+                                                sps.block_fwd_geometry(n_pad, fwd.tile_r, b.shape[1], b.dtype))
                     if dtype != "int8":
                         rounding_bias(label, got, want, lambda: plain(fwd, b), b,
                                       lambda bb: (kernel(fwd, bb), plain(fwd, bb), plain(fwd, bb, torch.float64)))
@@ -1501,7 +1539,7 @@ def phase_ell_path(ds_main) -> list[dict]:
         got = tpl.tiled(fwd, b)
         torch.cuda.synchronize()
         check = check_close(label, got, tpl.tiled_plain(fwd, b, torch.float64), "float32")
-        extra = forward_repeat_and_geometry(label, got, lambda: tpl.tiled(fwd, b), tpl.tiled_geometry(fwd, d))
+        extra = repeat_and_geometry(label, got, lambda: tpl.tiled(fwd, b), tpl.tiled_geometry(fwd, d))
         del got
         ms, plain_ms = cuda_ms(lambda: tpl.tiled(fwd, b), 5), cuda_ms(lambda: tpl.tiled_plain(fwd, b), 2)
         bl = b[: fwd.n_cols].contiguous()

@@ -27,27 +27,20 @@
 // walks are shared with the ring kernels of spmm_pattern_ring.cu: the
 // forward (sums in registers, bit tiles staged by cp.async into an
 // mbarrier ring, row slices as clusters; its sum order) in
-// pattern_fwd.cuh, the backward in pattern_dense.cuh. This file runs them
-// over one square pack.
+// pattern_fwd.cuh, the backward (the pack streamed by cp.async into a
+// warp's ring of spans, a span's bits listed at once, lane groups sized to
+// the row; its sum order) in pattern_bwd.cuh. This file runs them over one
+// square pack.
 
-#include "pattern_dense.cuh"
+#include "pattern_bwd.cuh"
 #include "pattern_fwd.cuh"
 
 namespace {
 
-using pattern::kBwdRows;
-using pattern::kChunkF;
 using pattern::Mode;
 
-// The backward walk is pattern_dense.cuh's and the forward pattern_fwd.cuh's,
-// over one square pack (one round).
-template <typename T>
-__global__ void __launch_bounds__(kBwdRows * 32)
-pattern_bwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
-                   typename Mode<T>::Acc* __restrict__ c, long long words, int d_pad) {
-  pattern::bwd_rows<T>(pack, b, c, words, d_pad, 1, 0, 0);
-}
-
+// The forward walk is pattern_fwd.cuh's, over one square pack; the
+// backward walk's kernels are pattern_bwd.cuh's, launched with one round.
 template <typename T, int G>
 __global__ void __launch_bounds__(pattern::FwdCfg<G>::kThreads, pattern::FwdCfg<G>::kMinBlocks)
 pattern_fwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ b,
@@ -80,12 +73,7 @@ int geometry_fwd(long long n_pad, int d_pad, int* out) {
 template <typename T>
 int launch_bwd(const void* pack, const void* b, void* c, long long n_pad, int d_pad,
                cudaStream_t stream) {
-  using Acc = typename Mode<T>::Acc;
-  const dim3 grid((unsigned)(n_pad / kBwdRows), (unsigned)((d_pad + kChunkF - 1) / kChunkF));
-  pattern_bwd_kernel<T><<<grid, kBwdRows * 32, 0, stream>>>(
-      static_cast<const uint32_t*>(pack), static_cast<const T*>(b),
-      static_cast<Acc*>(c), n_pad / 32, d_pad);
-  return (int)cudaGetLastError();
+  return (int)pattern_bwd::launch<T>(pack, b, c, n_pad, (int)(n_pad / 32), d_pad, 1, 0, stream);
 }
 
 }  // namespace
@@ -128,6 +116,22 @@ int mggcn_pattern_bwd(const void* pack, const void* b, void* c, long long n_pad,
     case 0: return launch_bwd<float>(pack, b, c, n_pad, d_pad, s);
     case 1: return launch_bwd<__nv_bfloat16>(pack, b, c, n_pad, d_pad, s);
     case 2: return launch_bwd<int8_t>(pack, b, c, n_pad, d_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward's launch geometry, written to out[0..12]: grid x, grid y,
+// threads, dynamic shared memory, stages, resident blocks an SM, resident
+// blocks on the card, lanes, groups, features a lane loads, B rows a lane
+// loads at once, pack words a span and column windows, walked in turn by
+// the one launch (pattern_bwd.cuh).
+// Returns a cudaError_t.
+int mggcn_pattern_bwd_geometry(long long n_pad, int d_pad, int dtype, int* out) {
+  if (bad_shape(n_pad, d_pad)) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return (int)pattern_bwd::geometry<float>(n_pad, (int)(n_pad / 32), d_pad, 1, out);
+    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(n_pad, (int)(n_pad / 32), d_pad, 1, out);
+    case 2: return (int)pattern_bwd::geometry<int8_t>(n_pad, (int)(n_pad / 32), d_pad, 1, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

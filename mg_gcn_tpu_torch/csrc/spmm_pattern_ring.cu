@@ -19,7 +19,7 @@
 // same whether partitions share a card or not. The TPU kernel's RDMA ring,
 // semaphores, VMEM staging, D_MAX chunking and bit-plane matmuls have no
 // counterpart: the walks are the single-pack kernels' (pattern_fwd.cuh and
-// pattern_dense.cuh, shared with spmm_pattern.cu) with the rounds added,
+// pattern_bwd.cuh, shared with spmm_pattern.cu) with the rounds added,
 // and the sums stay in registers across all rounds, with one store:
 //   float32 / bfloat16 operands -> float32 sums;  int8 -> int32 sums.
 // A round whose block has no set bit adds nothing; a column no round
@@ -37,13 +37,11 @@
 //
 // Offsets are 64-bit throughout.
 
-#include "pattern_dense.cuh"
+#include "pattern_bwd.cuh"
 #include "pattern_fwd.cuh"
 
 namespace {
 
-using pattern::kBwdRows;
-using pattern::kChunkF;
 using pattern::Mode;
 
 // The rounds are consecutive row blocks of the stacked pack (P*m, m/32) and
@@ -54,16 +52,6 @@ ring_fwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ slots,
                 typename Mode<T>::Acc* __restrict__ c, long long rows, long long words, int d_pad,
                 int slices) {
   pattern::fwd_cols<T, G>(pack, slots, c, rows, words, d_pad, slices);
-}
-
-// Each output row walks its row of every round: round s at pack + s*m*words
-// and slots + s*m*d_pad.
-template <typename T>
-__global__ void __launch_bounds__(kBwdRows * 32)
-ring_bwd_kernel(const uint32_t* __restrict__ pack, const T* __restrict__ slots,
-                typename Mode<T>::Acc* __restrict__ c, long long words, int d_pad, int parts,
-                long long m) {
-  pattern::bwd_rows<T>(pack, slots, c, words, d_pad, parts, m * words, m * d_pad);
 }
 
 bool bad_shape(int parts, long long m, int d_pad) {
@@ -87,15 +75,13 @@ int geometry_fwd(int parts, long long m, int d_pad, int* out) {
   return (int)pattern::fwd_geometry<T, 1>(ring_fwd_kernel<T, 1>, rows, words, d_pad, out);
 }
 
+// Each output row walks its row of every round as one stream
+// (pattern_bwd.cuh): round s at pack + s*m*words and slots + s*m*d_pad.
 template <typename T>
 int launch_bwd(const void* pack, const void* slots, void* c, int parts, long long m, int d_pad,
                cudaStream_t stream) {
-  using Acc = typename Mode<T>::Acc;
-  const dim3 grid((unsigned)(m / kBwdRows), (unsigned)((d_pad + kChunkF - 1) / kChunkF));
-  ring_bwd_kernel<T><<<grid, kBwdRows * 32, 0, stream>>>(
-      static_cast<const uint32_t*>(pack), static_cast<const T*>(slots), static_cast<Acc*>(c),
-      m / 32, d_pad, parts, m);
-  return (int)cudaGetLastError();
+  const int words = (int)(m / 32);
+  return (int)pattern_bwd::launch<T>(pack, slots, c, m, words, d_pad, parts, m * words, stream);
 }
 
 }  // namespace
@@ -135,6 +121,17 @@ int mggcn_ring_bwd(const void* pack, const void* slots, void* c, int parts, long
     case 0: return launch_bwd<float>(pack, slots, c, parts, m, d_pad, s);
     case 1: return launch_bwd<__nv_bfloat16>(pack, slots, c, parts, m, d_pad, s);
     case 2: return launch_bwd<int8_t>(pack, slots, c, parts, m, d_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward's launch geometry, as mggcn_pattern_bwd_geometry (spmm_pattern.cu).
+int mggcn_ring_bwd_geometry(int parts, long long m, int d_pad, int dtype, int* out) {
+  if (bad_shape(parts, m, d_pad)) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return (int)pattern_bwd::geometry<float>(m, (int)(m / 32), d_pad, parts, out);
+    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(m, (int)(m / 32), d_pad, parts, out);
+    case 2: return (int)pattern_bwd::geometry<int8_t>(m, (int)(m / 32), d_pad, parts, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,6 +18,8 @@ The two products run as hand-written CUDA kernels
 tensor and uses its plain PyTorch version for a CPU tensor — only because
 the tensor lies on the CPU; there is no fallback from one to the other.
 Each wrapper counts its launches in ``.launches`` by (dtype, d_pad).
+:func:`pattern_bwd_groups_plain` sums in the backward kernel's own order,
+for the tests.
 """
 
 from __future__ import annotations
@@ -207,6 +209,70 @@ def pattern_bwd_plain(pack: torch.Tensor, b: torch.Tensor, acc_dtype: torch.dtyp
     return _plain(pack, b, False, acc_dtype)
 
 
+def pattern_bwd_split(d_pad: int, dtype: torch.dtype) -> dict:
+    """The backward walk's split of a warp at width ``d_pad`` in ``dtype``
+    (``csrc/pattern_bwd.cuh`` ``features_for``, ``lanes_for``): ``features``
+    F a lane loads at once (16 bytes, or 8 for an int8 row of d_pad % 16 ==
+    8), ``lanes`` L, the smallest power of two >= d_pad / F capped at 32,
+    ``groups`` G = 32 / L, the groups that take a row's entries in strides,
+    and ``chunks`` of 32 F features a row is walked in (grid y). bfloat16
+    d_pad 8 gives L = 1, G = 32; 48 and 64 give L = 8, G = 4; 128 gives L =
+    16, G = 2."""
+    if d_pad <= 0 or d_pad % 8:
+        raise ValueError(f"d_pad must be a positive multiple of 8, got {d_pad}")
+    size = torch.empty((), dtype=dtype).element_size()
+    features = (16 if d_pad * size % 16 == 0 else 8) // size
+    lanes = 1
+    while lanes < 32 and lanes * features < d_pad:
+        lanes *= 2
+    return {"features": features, "lanes": lanes, "groups": 32 // lanes, "chunks": -(-d_pad // (32 * features))}
+
+
+def bwd_groups_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = sum_s P_s B_s in the backward kernel's order, for a stack of
+    rounds ``pack`` (rounds, m, m/32) and ``b`` (rounds·m, d_pad), round s's
+    rows from row s·m: each output row's set bits are listed in (round,
+    word, bit) order, entry e goes to group e mod G (:func:`pattern_bwd_split`),
+    each group adds its entries' B rows in order into float32 sums (int64
+    for int8, stored as int32), and the G partial sums meet by the kernel's
+    xor tree (groups 2i and 2i + 1 first, then pairs of pairs). For the
+    tests, which hold the kernel to its bits in bfloat16 and int8."""
+    rounds, m, words = pack.shape
+    d_pad, dev = b.shape[1], b.device
+    groups = pattern_bwd_split(d_pad, b.dtype)["groups"]
+    exact = b.dtype == torch.int8
+    acc_dtype = torch.int64 if exact else torch.float32
+    rows, rnd, wi = torch.nonzero(pack.permute(1, 0, 2), as_tuple=True)  # (row, round, word) order
+    wv = pack[rnd, rows, wi].to(torch.int64)
+    e, bit = torch.nonzero((wv[:, None] >> torch.arange(32, device=dev)) & 1, as_tuple=True)
+    rows, rnd, wi = rows[e], rnd[e], wi[e]
+    cols = rnd * m + (wi // 128) * GROUP + bit * 128 + wi % 128
+    counts = torch.bincount(rows, minlength=m)
+    k = torch.arange(rows.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[rows]  # entry e of its row
+    slot, step = rows * groups + k % groups, k // groups
+    terms = b.to(acc_dtype).index_select(0, cols)
+    part = torch.zeros((m * groups, d_pad), dtype=acc_dtype, device=dev)
+    order = torch.argsort(step, stable=True)
+    n_steps = int(step.max()) + 1 if step.numel() else 0
+    bounds = torch.searchsorted(step[order], torch.arange(n_steps + 1, device=dev)).tolist()
+    for t in range(n_steps):  # each group's t-th entry: one add a (row, group), in entry order
+        sel = order[bounds[t] : bounds[t + 1]]
+        part.index_add_(0, slot[sel], terms[sel])
+    part = part.view(m, groups, d_pad)
+    off = 1
+    while off < groups:  # the lane adds the sums ``off`` groups away: p_k + p_(k xor off)
+        part = part + part[:, torch.arange(groups, device=dev) ^ off]
+        off *= 2
+    out = part[:, 0].contiguous()
+    return out.to(torch.int32) if exact else out
+
+
+def pattern_bwd_groups_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`pattern_bwd` in its kernel's order (:func:`bwd_groups_plain`
+    over one round). For the tests."""
+    return bwd_groups_plain(pack[None], b)
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers
 
@@ -220,14 +286,17 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    lib.mggcn_pattern_fwd_geometry.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.mggcn_pattern_fwd_geometry.restype = ctypes.c_int
+    for fn in (lib.mggcn_pattern_fwd_geometry, lib.mggcn_pattern_bwd_geometry):
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
 
 
 GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "slices", "blocks_per_sm", "resident_blocks")
+BWD_GEOMETRY_KEYS = ("grid_x", "grid_y", "threads", "smem", "stages", "blocks_per_sm", "resident_blocks", "lanes",
+                     "groups", "features", "loads", "span_words", "windows")
 
 
 def query_geometry(lib: ctypes.CDLL, name: str, *args, keys: tuple[str, ...] = GEOMETRY_KEYS) -> dict:
@@ -246,6 +315,20 @@ def pattern_fwd_geometry(n_pad: int, d_pad: int, dtype: torch.dtype) -> dict:
     operand of ``dtype``: grid, threads, dynamic shared memory, row slices
     and resident blocks."""
     return query_geometry(_lib(), "mggcn_pattern_fwd_geometry", n_pad, d_pad, _DTYPE_CODE[dtype])
+
+
+def pattern_bwd_geometry(n_pad: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`pattern_bwd` for an (n_pad, d_pad)
+    operand of ``dtype``, from the card: grid, threads, dynamic shared
+    memory, stages of a warp's pack ring, resident blocks, then the split
+    (:func:`pattern_bwd_split`'s lanes, groups and features), B rows a lane
+    loads at once, pack words a staged span and the column windows its one
+    launch walks in turn, a grid-wide barrier between two (with one group, where B outgrows half the L2; the
+    sum order is the same). Of these, the card's occupancy query gives
+    ``blocks_per_sm`` and ``resident_blocks`` (and the one-group grid); the
+    rest follow the rule and the kernel's constants."""
+    return query_geometry(_lib(), "mggcn_pattern_bwd_geometry", n_pad, d_pad, _DTYPE_CODE[dtype],
+                          keys=BWD_GEOMETRY_KEYS)
 
 
 def _launch(name: str, pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,9 @@ import functools
 import torch
 
 from .. import _build
-from .spmm_pattern import _DTYPE_CODE, GROUP, pattern_bwd_plain, pattern_fwd_plain, query_geometry
+from .spmm_pattern import (
+    _DTYPE_CODE, BWD_GEOMETRY_KEYS, GROUP, bwd_groups_plain, pattern_bwd_plain, pattern_fwd_plain, query_geometry,
+)
 
 
 def _plain(plain, pack: torch.Tensor, slots: torch.Tensor, acc_dtype: torch.dtype | None) -> torch.Tensor:
@@ -51,6 +53,12 @@ def ring_pattern_bwd_plain(pack: torch.Tensor, slots: torch.Tensor, acc_dtype: t
     return _plain(pattern_bwd_plain, pack, slots, acc_dtype)
 
 
+def ring_pattern_bwd_groups_plain(pack: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """:func:`ring_pattern_bwd` in its kernel's order: the rounds of a row
+    walked as one stream (``spmm_pattern.bwd_groups_plain``). For the tests."""
+    return bwd_groups_plain(pack, slots.reshape(-1, slots.shape[2]))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("spmm_pattern_ring")
@@ -60,9 +68,9 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    lib.mggcn_ring_fwd_geometry.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]
-    lib.mggcn_ring_fwd_geometry.restype = ctypes.c_int
+    for fn in (lib.mggcn_ring_fwd_geometry, lib.mggcn_ring_bwd_geometry):
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
@@ -73,6 +81,14 @@ def ring_pattern_fwd_geometry(parts: int, m: int, d_pad: int, dtype: torch.dtype
     pack and (P, m, d_pad) slots of ``dtype`` (see
     ``spmm_pattern.query_geometry``)."""
     return query_geometry(_lib(), "mggcn_ring_fwd_geometry", parts, m, d_pad, _DTYPE_CODE[dtype])
+
+
+def ring_pattern_bwd_geometry(parts: int, m: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`ring_pattern_bwd` for a (P, m, m/32)
+    pack and (P, m, d_pad) slots of ``dtype`` (see
+    ``spmm_pattern.pattern_bwd_geometry``)."""
+    return query_geometry(_lib(), "mggcn_ring_bwd_geometry", parts, m, d_pad, _DTYPE_CODE[dtype],
+                          keys=BWD_GEOMETRY_KEYS)
 
 
 def _launch(name: str, pack: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:

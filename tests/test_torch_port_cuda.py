@@ -961,3 +961,142 @@ def test_forward_geometry_fills_the_card():
         assert torch.equal(sp.pattern_fwd(pack, b), sp.pattern_fwd_plain(pack, b))
     geo = ring.ring_pattern_fwd_geometry(4, 61_440, 48, torch.bfloat16)
     assert geo["slices"] > 1 and geo["blocks_per_sm"] * geo["threads"] // 32 >= 16
+
+
+# ---------------------------------------------------------------------------
+# the backward walk (pattern_bwd, ring_bwd): the pack streamed by cp.async,
+# a span's bits listed at once, lane groups sized to the row
+
+
+def _bwd_stress_graph(n, full_row=7):
+    """n nodes: 8 random columns a row, rows 256..319 empty, bit 31 (columns
+    g*4096 + 31*128 + w) in every tenth row, and row ``full_row`` with every
+    column set: n set bits, many times what a warp's list holds."""
+    rng = np.random.default_rng(11)
+    cols = [np.unique(rng.integers(0, n, 8)) for _ in range(n)]
+    for r in range(0, n, 10):
+        cols[r] = np.union1d(cols[r], [(r // 10) % (n // 4096) * 4096 + 31 * 128 + r % 128])
+    for r in range(256, 320):
+        cols[r] = cols[r][:0]
+    cols[full_row] = np.arange(n)
+    indptr = np.r_[0, np.cumsum([c.size for c in cols])].astype(np.int64)
+    return CSRData(indptr, np.concatenate(cols).astype(np.int32), np.ones(indptr[-1], np.float32), (n, n))
+
+
+def _assert_bwd_follows_twin(got, pack, b, deg, twin, plain):
+    """int8 and bf16 equal to the kernel's twin bit for bit; float32 within
+    the float32 sum bound of the float64 sum (``plain`` summed in float64)."""
+    if b.dtype == torch.float32:
+        _assert_within_sum_error(got, plain(pack, b, torch.float64), plain(pack, b.abs(), torch.float64), deg)
+    else:
+        assert torch.equal(got, twin(pack, b))
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 64, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_pattern_bwd_follows_the_twin(dtype, d_pad):
+    """pattern_bwd on a 12,288-node pack (three 128-word blocks a row, so its
+    last span is half zeros) with a full row, empty rows and bit 31, at
+    every lane-group size: int8 and bf16 equal to pattern_bwd_groups_plain,
+    float32 within the float32 sum bound; two launches equal bit for bit;
+    empty rows 0."""
+    g = _bwd_stress_graph(12_288)
+    pack = sp.pack_bits_on_device(g, g.nrows, torch.device("cuda"))
+    assert bool((pack < 0).any()) and bool((pack[7] == -1).all())
+    b = _operand(g.nrows, d_pad, dtype, seed=d_pad)
+    got, again = sp.pattern_bwd(pack, b), sp.pattern_bwd(pack, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not bool(got[256:320].any())
+    deg = torch.from_numpy(np.diff(g.indptr)).cuda().double()[:, None]
+    _assert_bwd_follows_twin(got, pack, b, deg, sp.pattern_bwd_groups_plain, sp.pattern_bwd_plain)
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 64, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_ring_bwd_follows_the_twin(parts, dtype, d_pad):
+    """ring_bwd for every partition of P slabs of 4,096 rows (one 128-word
+    block a round, so a span holds two rounds' words) with a full row (P
+    rounds of set bits), bit 31, empty rows and 100 padded rows (0): int8
+    and bf16 equal to ring_pattern_bwd_groups_plain, float32 within the
+    float32 sum bound; two launches equal bit for bit."""
+    n = parts * 4096 - 100
+    full = _bwd_stress_graph(parts * 4096)
+    rows = np.repeat(np.arange(full.nrows), np.diff(full.indptr))
+    keep = (rows < n) & (full.indices < n)
+    indptr = np.r_[0, np.cumsum(np.bincount(rows[keep], minlength=n))].astype(np.int64)
+    g = CSRData(indptr, full.indices[keep], full.data[keep], (n, n))
+    pair = dist.DistPatternPair.from_binary_csr(g, dist.make_mesh(parts, ["cuda:0"] * parts))
+    m = pair.m_loc
+    deg = torch.zeros(parts * m, dtype=torch.float64, device="cuda")
+    deg[:n] = torch.from_numpy(np.diff(g.indptr)).cuda().double()
+    for j in range(parts):
+        pack = pair.pack_bwd[j]
+        slots = _operand(parts * m, d_pad, dtype, seed=j).reshape(parts, m, d_pad)
+        got, again = ring.ring_pattern_bwd(pack, slots), ring.ring_pattern_bwd(pack, slots)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_bwd_follows_twin(got, pack, slots, deg[j * m:(j + 1) * m, None], ring.ring_pattern_bwd_groups_plain,
+                                 ring.ring_pattern_bwd_plain)
+        if j == 0:
+            assert not bool(got[256:320].any())
+        if j == parts - 1:
+            assert not bool(got[m - 100:].any())
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 64, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_backward_geometry_follows_the_rule(dtype, d_pad):
+    """The launch geometry of both backward kernels: lanes, groups and
+    features by spmm_pattern.pattern_bwd_split, grid y = the split's chunks,
+    blocks of 256 threads (a warp a row), rows / 8 of them in x, or with one
+    group (32 lanes) one wave of them (the resident blocks over the SMs and
+    the chunks) and, for the one-round pack, column windows by the L2's
+    size; at least 16 resident warps an SM; a launch after the query still
+    runs."""
+    rule = sp.pattern_bwd_split(d_pad, dtype)
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    # one group and one round: column windows of whole 4096-column groups whose
+    # B rows (a chunk's features) fill at most half the L2
+    group_bytes = 4096 * min(d_pad, 32 * rule["features"]) * torch.empty((), dtype=dtype).element_size()
+    window_words = props.L2_cache_size // 2 // group_bytes * 128
+    windows = -(-233_472 // 32 // window_words) if rule["lanes"] == 32 and window_words < 233_472 // 32 else 1
+    assert sp.pattern_bwd_geometry(233_472, d_pad, dtype)["windows"] == windows
+    assert ring.ring_pattern_bwd_geometry(4, 61_440, d_pad, dtype)["windows"] == 1
+    for geo, rows in ((sp.pattern_bwd_geometry(233_472, d_pad, dtype), 233_472),
+                      (ring.ring_pattern_bwd_geometry(4, 61_440, d_pad, dtype), 61_440)):
+        assert {k: geo[k] for k in ("lanes", "groups", "features")} == {k: rule[k] for k in ("lanes", "groups",
+                                                                                         "features")}, geo
+        blocks = rows // 8
+        if rule["lanes"] == 32:
+            blocks = min(blocks, geo["blocks_per_sm"] * sms // rule["chunks"])
+        assert (geo["grid_x"], geo["grid_y"], geo["threads"]) == (blocks, rule["chunks"], 256), geo
+        assert geo["resident_blocks"] == min(blocks * rule["chunks"], geo["blocks_per_sm"] * sms), geo
+        assert geo["blocks_per_sm"] * geo["threads"] // 32 >= 16, geo
+        assert geo["stages"] >= 3 and geo["loads"] >= 4 and geo["smem"] > 0, geo
+    g = sparse.random_graph(4096, 8, seed=2)
+    pack = sp.pack_bits_on_device(g, 4096, torch.device("cuda"))
+    b = _operand(4096, d_pad, dtype, seed=1)
+    _assert_matches_plain(sp.pattern_bwd(pack, b), sp.pattern_bwd_plain(pack, b), dtype)
+
+
+@pytest.mark.parametrize("dtype,d_pad", [(torch.bfloat16, 264), (torch.float32, 256)])
+def test_pattern_bwd_column_windows_keep_the_order(dtype, d_pad):
+    """With one group and B rows past half the L2 (65,536 nodes, chunks of
+    256 bf16 or 128 float32 features: 32 MB a chunk), pattern_bwd's one
+    cooperative launch walks column windows in turn, a grid-wide barrier
+    between two, each going on from the sums the one before stored: bf16 still equal to pattern_bwd_groups_plain bit for
+    bit, float32 within the float32 sum bound; two launches equal."""
+    n = 65_536
+    g = sparse.random_graph(n, 8, seed=6)
+    pack = sp.pack_bits_on_device(g, n, torch.device("cuda"))
+    geo = sp.pattern_bwd_geometry(n, d_pad, dtype)
+    assert geo["lanes"] == 32 and geo["windows"] >= 2, geo
+    b = _operand(n, d_pad, dtype, seed=3)
+    got, again = sp.pattern_bwd(pack, b), sp.pattern_bwd(pack, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    deg = torch.from_numpy(np.diff(g.indptr)).cuda().double()[:, None]
+    _assert_bwd_follows_twin(got, pack, b, deg, sp.pattern_bwd_groups_plain, sp.pattern_bwd_plain)
