@@ -96,7 +96,11 @@ the result line:
    live planes (2 · live planes · 128 · tile_r · d_pad operations, three
    bf16 passes in float32) are put in its rows, and the lean of its float
    sums against the float64 sum is logged beside the plain version's; its
-   float32 bound prices the operations as three bf16 passes;
+   float32 bound prices the operations as three bf16 passes; ``block_bwd``
+   (the backward pattern walk over the store) launched twice must give the
+   same bits, and its geometry goes in its rows as ``pattern_bwd``'s in
+   phase 5 (lanes and groups held to ``block_bwd_split``), its L2 gather
+   bytes nnz x d_pad x element size (computed) logged beside its bound;
 10. the ELL path — ``train(impl="pallas")`` at the main path's widths on
    random_graph(20,000, 64, seed=3): one float32 step against COO, 5
    float32 epochs with exactly 5 ``tiled`` launches an epoch, K and the
@@ -1415,8 +1419,10 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
     width against its plain version, timed beside the bound (the store, B
     and C at the memory rate, or 2·nnz·d operations on the kernel's
     datapath), the plain version and torch.sparse.mm on the float32 Pᵀ / P
-    (a yardstick the port never calls). block_fwd besides: two launches
-    equal bit for bit, its launch geometry, the bias of its float sums
+    (a yardstick the port never calls). Each kernel besides: two launches
+    equal bit for bit and its launch geometry (block_bwd's lanes and groups
+    held to block_bwd_split by :func:`bwd_geometry`, its L2 gather bytes
+    logged beside its bound); block_fwd the bias of its float sums
     (:func:`rounding_bias`) and the count of the dense products it runs on
     the tensor cores over the live planes (2 · live planes · 128 · tile_r ·
     d_pad operations, three times over in float32), logged beside their
@@ -1436,7 +1442,7 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                 b = operand(n_pad, d, dtype, seed=d)
                 label = f"{name} {dtype} d={d} (banded shape)"
                 reference = lambda: plain(fwd, b, None if dtype == "int8" else torch.float64)  # noqa: E731
-                extra, datapath = {}, None
+                datapath, note = None, ""
                 if name == "block_fwd":
                     got = kernel(fwd, b)
                     torch.cuda.synchronize()
@@ -1457,8 +1463,15 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                         f" G{'OP' if dtype == 'int8' else 'FLOP'}, {dense_ops / PEAK_OPS[datapath[1]] * 1e3:.3f} ms"
                         f" at the {datapath[1]} peak (computed, not measured)")
                 else:
-                    check, ms, plain_ms = check_and_time(label, lambda: kernel(fwd, b), reference, dtype, 5,
-                                                         lambda: plain(fwd, b), 2)
+                    got = kernel(fwd, b)
+                    torch.cuda.synchronize()
+                    check = check_close(label, got, reference(), dtype)
+                    geometry = bwd_geometry(label, sps.block_bwd_geometry(n_pad, fwd.tile_r, b.shape[1], b.dtype), b)
+                    extra = repeat_and_geometry(label, got, lambda: kernel(fwd, b), geometry, BWD_ROW_KEYS)
+                    del got
+                    torch.cuda.empty_cache()
+                    ms, plain_ms = cuda_ms(lambda: kernel(fwd, b), 5), cuda_ms(lambda: plain(fwd, b), 2)
+                    note = f"; L2 gather {nnz * b.shape[1] * elt_size(b) / 1e9:.3f} GB, computed"
                 library_ms = None
                 if dtype == "float32":
                     bl = b[:n, :d].contiguous()
@@ -1467,7 +1480,7 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                 moved = fwd.store_bytes + index_bytes + n * d * elt_size(b) + n * d * 4
                 rows.append(kernel_row(name, dtype, d, n, nnz, launches[name].get((dtype, b.shape[1]), 0),
                                        check, ms, plain_ms, library_ms, moved, datapath) | extra)
-                log_row(rows[-1])
+                log_row(rows[-1], note)
                 del b
                 torch.cuda.empty_cache()
         del lib

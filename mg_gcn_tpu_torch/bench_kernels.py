@@ -14,21 +14,27 @@ The kernels and their shapes (the graph is ``chip_smoke.py``'s main graph,
   233,472 pack; widths 128 and 41, the main path's;
 - ``ring_bwd`` (``ops.spmm_pattern_ring.ring_pattern_bwd``): partition 0's
   four 61,440-row blocks of the graph's ``-P 4`` ring pack; widths 128 and
-  44 (d_pad 48), the dist path's.
+  44 (d_pad 48), the dist path's;
+- ``block_fwd`` and ``block_bwd`` (``ops.spmm_pattern_sparse``): the tile
+  store (tile_r 512) of ``chip_smoke.py``'s banded graph instead,
+  ``sparse.banded_graph(232,968, 493, 4096, seed=7)`` (bench.py:276-292),
+  nnz 110,503,948; widths 128 and 41, the banded path's.
 
-The pattern kernels' operands are random normal from seed d (int8 uniform
-in ±127), padded to d_pad, as ``chip_smoke.operand`` makes them. A case is
-``kernel``, ``kernel:dtype`` or ``kernel:dtype:d``; a part left out means
-every dtype (float32, bfloat16, int8) or the kernel's widths. Each case is
-launched once and held against the plain version summed in float64 (the
-largest difference over the largest magnitude; an int32 result must be
-equal), then timed twice by CUDA events over 5 launches.
+The pattern and block kernels' operands are random normal from seed d
+(int8 uniform in ±127), padded to d_pad, as ``chip_smoke.operand`` makes
+them. A case is ``kernel``, ``kernel:dtype`` or ``kernel:dtype:d``; a part
+left out means every dtype (float32, bfloat16, int8) or the kernel's
+widths. Each case is launched once and held against the plain version
+summed in float64 (the largest difference over the largest magnitude; an
+int32 result must be equal), then timed twice by CUDA events over 5
+launches.
 
 ``--root DIR`` imports ``mg_gcn_tpu_torch`` from the checkout DIR instead
 of this file's, so one call can time two commits' kernels on one card
 (``parent, change, change, parent``)::
 
     python3 mg_gcn_tpu_torch/bench_kernels.py pattern_bwd ring_bwd
+    python3 mg_gcn_tpu_torch/bench_kernels.py block_fwd block_bwd
     python3 mg_gcn_tpu_torch/bench_kernels.py --root /path/to/parent sddmm:float32:256
 
 Prints the card's name and power limit, then one line a case.
@@ -43,8 +49,11 @@ import sys
 import time
 
 N_MAIN, DEG_MAIN, SEED_MAIN = 232_968, 493, 1  # chip_smoke.py's N_MAIN, DEG_MAIN, the graph's seed
+BAND_HALF, BAND_SEED = 4096, 7  # chip_smoke.py's banded graph
 PARTS = 4  # chip_smoke.py's DIST_PARTS
-WIDTHS = {"sddmm": (64, 128, 256), "pattern_bwd": (128, 41), "ring_bwd": (128, 44)}
+WIDTHS = {"sddmm": (64, 128, 256), "pattern_bwd": (128, 41), "ring_bwd": (128, 44), "block_fwd": (128, 41),
+          "block_bwd": (128, 41)}
+BLOCK = ("block_fwd", "block_bwd")
 DTYPES = ("float32", "bfloat16", "int8")
 REPS = 5  # launches a timing
 
@@ -90,18 +99,34 @@ def main() -> int:
     from mg_gcn_tpu_torch.ops import sddmm as sd
     from mg_gcn_tpu_torch.ops import spmm_pattern as sp
     from mg_gcn_tpu_torch.ops import spmm_pattern_ring as ring
+    from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
     from mg_gcn_tpu_torch.ops.spmm_edges import pad_features
     from mg_gcn_tpu_torch.parallel import dist
 
     print(f"card: {card_name()}")
     print(f"root: {os.path.abspath(args.root)} ({sp.__file__})")
-    t0 = time.perf_counter()
-    graph = sparse.random_graph(N_MAIN, DEG_MAIN, seed=SEED_MAIN)
-    print(f"graph: n = {graph.nrows}, nnz = {graph.nnz}, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    graphs = {}
+
+    def graph_for(kernel: str):
+        """The main graph, or the banded graph for the block kernels, each
+        built once on the host."""
+        which = "banded" if kernel in BLOCK else "main"
+        if which not in graphs:
+            t0 = time.perf_counter()
+            graphs[which] = (sparse.banded_graph(N_MAIN, DEG_MAIN, BAND_HALF, seed=BAND_SEED) if which == "banded"
+                             else sparse.random_graph(N_MAIN, DEG_MAIN, seed=SEED_MAIN))
+            g = graphs[which]
+            print(f"{which} graph: n = {g.nrows}, nnz = {g.nnz}, built in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        return graphs[which]
 
     def build(kernel: str):
         """The kernel's fixed operand on the card: the GAT graph, the main
-        pack, or partition 0's ring pack and m."""
+        pack, partition 0's ring pack and m, or the banded graph's tile
+        store."""
+        graph = graph_for(kernel)
+        if kernel in BLOCK:
+            return sps.block_pattern_pair_from_binary_csr(graph, device="cuda")[0]
         if kernel == "sddmm":
             return gat.build_gat_graph(graph, dtype="float32", device="cuda")[0]
         if kernel == "pattern_bwd":
@@ -139,6 +164,12 @@ def main() -> int:
             return (lambda: sd.sddmm(fixed.indptr, fixed.indices, a, b, g),
                     lambda: sd.sddmm_plain(fixed.indptr, fixed.indices, a.double(), b.double(), g), a.shape[1], None)
         acc = None if dtype == "int8" else torch.float64
+        if kernel in BLOCK:
+            b = operand(fixed.n_pad, d, dtype, seed=d)
+            run, plain = getattr(sps, kernel), getattr(sps, f"{kernel}_plain")
+            geometry = getattr(sps, f"{kernel}_geometry", None)
+            return (lambda: run(fixed, b), lambda: plain(fixed, b, acc), b.shape[1],
+                    geometry and (lambda: geometry(fixed.n_pad, fixed.tile_r, b.shape[1], b.dtype)))
         if kernel == "pattern_bwd":
             b = operand(fixed.shape[0], d, dtype, seed=d)
             geometry = getattr(sp, "pattern_bwd_geometry", None)

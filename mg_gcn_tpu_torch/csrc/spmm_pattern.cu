@@ -73,7 +73,8 @@ int geometry_fwd(long long n_pad, int d_pad, int* out) {
 template <typename T>
 int launch_bwd(const void* pack, const void* b, void* c, long long n_pad, int d_pad,
                cudaStream_t stream) {
-  return (int)pattern_bwd::launch<T>(pack, b, c, n_pad, (int)(n_pad / 32), d_pad, 1, 0, stream);
+  return (int)pattern_bwd::launch<T>(pattern_bwd::pack_args(pack, (int)(n_pad / 32), 1, 0), b, c, n_pad, d_pad,
+                                     stream);
 }
 
 }  // namespace
@@ -128,10 +129,11 @@ int mggcn_pattern_bwd(const void* pack, const void* b, void* c, long long n_pad,
 // Returns a cudaError_t.
 int mggcn_pattern_bwd_geometry(long long n_pad, int d_pad, int dtype, int* out) {
   if (bad_shape(n_pad, d_pad)) return (int)cudaErrorInvalidValue;
+  const pattern_bwd::PackArgs src = pattern_bwd::pack_args(nullptr, (int)(n_pad / 32), 1, 0);
   switch (dtype) {
-    case 0: return (int)pattern_bwd::geometry<float>(n_pad, (int)(n_pad / 32), d_pad, 1, out);
-    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(n_pad, (int)(n_pad / 32), d_pad, 1, out);
-    case 2: return (int)pattern_bwd::geometry<int8_t>(n_pad, (int)(n_pad / 32), d_pad, 1, out);
+    case 0: return (int)pattern_bwd::geometry<float>(src, n_pad, d_pad, out);
+    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(src, n_pad, d_pad, out);
+    case 2: return (int)pattern_bwd::geometry<int8_t>(src, n_pad, d_pad, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

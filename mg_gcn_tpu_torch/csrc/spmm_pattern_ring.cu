@@ -81,7 +81,8 @@ template <typename T>
 int launch_bwd(const void* pack, const void* slots, void* c, int parts, long long m, int d_pad,
                cudaStream_t stream) {
   const int words = (int)(m / 32);
-  return (int)pattern_bwd::launch<T>(pack, slots, c, m, words, d_pad, parts, m * words, stream);
+  return (int)pattern_bwd::launch<T>(pattern_bwd::pack_args(pack, words, parts, m * words), slots, c, m, d_pad,
+                                     stream);
 }
 
 }  // namespace
@@ -128,10 +129,11 @@ int mggcn_ring_bwd(const void* pack, const void* slots, void* c, int parts, long
 // The backward's launch geometry, as mggcn_pattern_bwd_geometry (spmm_pattern.cu).
 int mggcn_ring_bwd_geometry(int parts, long long m, int d_pad, int dtype, int* out) {
   if (bad_shape(parts, m, d_pad)) return (int)cudaErrorInvalidValue;
+  const pattern_bwd::PackArgs src = pattern_bwd::pack_args(nullptr, (int)(m / 32), parts, 0);
   switch (dtype) {
-    case 0: return (int)pattern_bwd::geometry<float>(m, (int)(m / 32), d_pad, parts, out);
-    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(m, (int)(m / 32), d_pad, parts, out);
-    case 2: return (int)pattern_bwd::geometry<int8_t>(m, (int)(m / 32), d_pad, parts, out);
+    case 0: return (int)pattern_bwd::geometry<float>(src, m, d_pad, out);
+    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(src, m, d_pad, out);
+    case 2: return (int)pattern_bwd::geometry<int8_t>(src, m, d_pad, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

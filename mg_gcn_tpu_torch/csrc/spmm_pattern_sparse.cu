@@ -1,8 +1,8 @@
 // Block-sparse bit-packed pattern SpMM pair for NVIDIA Hopper (sm_90a).
 //
 // Replaces the two TPU kernels of mg_gcn_tpu/ops/spmm_pattern_sparse.py:
-//   block_fwd_kernel  <-  _fwd_kernel_sparse (spmm_pattern_sparse.py:366):  C = P^T B
-//   block_bwd_kernel  <-  _bwd_kernel_sparse (spmm_pattern_sparse.py:392):  C = P   B
+//   block_fwd_kernel              <-  _fwd_kernel_sparse (spmm_pattern_sparse.py:366):  C = P^T B
+//   pattern_bwd.cuh's store walk  <-  _bwd_kernel_sparse (spmm_pattern_sparse.py:392):  C = P   B
 // over the compact tile store the JAX package builds: only the occupied
 // (tile_r x 4096) regions of P are kept, as tiles[T][tile_r][128] int32,
 // and bit b of word tiles[t][r][w] holds P[rb*tile_r + r, g*4096 + b*128 + w]
@@ -18,16 +18,21 @@
 // (ops/spmm_pattern_sparse.py) pads and scales. Operand modes as in
 // pattern_modes.cuh. Every output row that no tile reaches comes out 0.
 //
-// The backward walks set bits (a warp per output row, below); the forward
-// multiplies the live bit planes, decoded to 0/1 fragments, on the tensor
-// cores (further below). No atomics: every sum has one owner and a fixed
-// order, so results repeat bit for bit.
+// The backward is the backward pattern walk of pattern_bwd.cuh, shared with
+// spmm_pattern.cu and spmm_pattern_ring.cu, over the store as its word
+// source: a warp an output row, row r of its row block's tiles streamed by
+// cp.async, their set bits listed a span at once, lane groups sized to the
+// row (its design, bound and sum order are there). The forward multiplies
+// the live bit planes, decoded to 0/1 fragments, on the tensor cores
+// (below). No atomics: every sum has one owner and a fixed order, so
+// results repeat bit for bit.
 //
 // Offsets into the store and into B/C are 64-bit.
 
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "pattern_bwd.cuh"
 #include "pattern_modes.cuh"
 
 namespace {
@@ -38,58 +43,8 @@ using async_copy::cp_async_commit;
 using async_copy::cp_async_wait;
 using async_copy::smem_u32;
 
-using pattern::kChunkF;
-using pattern::kFull;
 using pattern::kGroup;
-using pattern::kLaneF;
 using pattern::Mode;
-using pattern::zero;
-
-constexpr int kBwdRows = 8;  // backward: output rows (= warps) per block
-
-// What bounds the backward on an H100 SXM (3.35 TB/s): on bench.py's banded
-// Reddit graph (n_pad = 233,472, ~1,400 tiles, 0.36 GB of tiles, ~111M
-// edges) the store is read in ~0.11 ms, so it is bound by the per-edge work:
-// one 4-feature B slice a lane per set bit (the band's B rows stay in L2).
-// It decodes each tile row once.
-//
-// Backward, C = P B. One warp per output row i = rb*tile_r + r; each lane
-// owns 4 features of the block's 128-feature chunk. The warp walks the
-// tiles of row block rb (tiles [rb_ptr[rb], rb_ptr[rb+1])), reads the
-// 128-word row r of each (16 B a lane, coalesced), skips an all-zero row
-// with one vote and gathers B[j, chunk] for its set bits in (tile, word,
-// bit) order (pattern::gather_bits). A row block with no tile writes 0.
-template <typename T>
-__global__ void __launch_bounds__(kBwdRows * 32)
-block_bwd_kernel(const uint32_t* __restrict__ tiles, const int* __restrict__ tile_g,
-                 const int* __restrict__ rb_ptr, const T* __restrict__ b,
-                 typename Mode<T>::Acc* __restrict__ c, int tile_r, int d_pad) {
-  using Acc4 = typename Mode<T>::Acc4;
-  __shared__ int cols[kBwdRows][32 * 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long i = (long long)blockIdx.x * kBwdRows + warp;
-  const int rb = (int)(i / tile_r);
-  const int r = (int)(i % tile_r);
-  const int f0 = blockIdx.y * kChunkF + lane * kLaneF;
-  const bool active = f0 < d_pad;
-  int* list = cols[warp];
-  const T* bcol = b + f0;
-
-  Acc4 acc;
-  zero(acc);
-  const int t1 = __ldg(rb_ptr + rb + 1);
-  for (int t = __ldg(rb_ptr + rb); t < t1; ++t) {
-    const uint4 cur =
-        __ldg(reinterpret_cast<const uint4*>(tiles + ((long long)t * tile_r + r) * 128) + lane);
-    if (!__any_sync(kFull, (cur.x | cur.y | cur.z | cur.w) != 0u)) continue;
-    const int jbase = __ldg(tile_g + t) * kGroup + 4 * lane;
-    const uint32_t span[4] = {cur.x, cur.y, cur.z, cur.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) pattern::gather_bits<T>(span[q], jbase + q, list, bcol, d_pad, active, acc);
-  }
-  if (active) *reinterpret_cast<Acc4*>(c + i * d_pad + f0) = acc;
-}
 
 // ---------------------------------------------------------------------------
 // Forward, C = P^T B, on the tensor cores. For output row
@@ -532,15 +487,10 @@ int geometry_fwd(long long n_pad, int d_pad, int* out) {
                                          fwd_grid<T>(n_pad, d_pad), kFwdStages, out);
 }
 
-template <typename T>
-int launch_bwd(const void* tiles, const void* tile_g, const void* rb_ptr, const void* b, void* c,
-               long long n_pad, int tile_r, int d_pad, cudaStream_t stream) {
-  using Acc = typename Mode<T>::Acc;
-  const dim3 grid((unsigned)(n_pad / kBwdRows), (unsigned)((d_pad + kChunkF - 1) / kChunkF));
-  block_bwd_kernel<T><<<grid, kBwdRows * 32, 0, stream>>>(
-      static_cast<const uint32_t*>(tiles), static_cast<const int*>(tile_g),
-      static_cast<const int*>(rb_ptr), static_cast<const T*>(b), static_cast<Acc*>(c), tile_r, d_pad);
-  return (int)cudaGetLastError();
+// The store walk of pattern_bwd.cuh over n_pad output rows.
+pattern_bwd::TileArgs tile_args(const void* tiles, const void* tile_g, const void* rb_ptr, int tile_r) {
+  return pattern_bwd::TileArgs{static_cast<const uint32_t*>(tiles), static_cast<const int*>(tile_g),
+                               static_cast<const int*>(rb_ptr), tile_r};
 }
 
 }  // namespace
@@ -578,11 +528,26 @@ int mggcn_block_fwd_geometry(long long n_pad, int tile_r, int d_pad, int dtype, 
 int mggcn_block_bwd(const void* tiles, const void* tile_g, const void* rb_ptr, const void* b, void* c,
                     long long n_pad, int tile_r, int d_pad, int dtype, void* stream) {
   if (bad_shape(n_pad, tile_r, d_pad)) return (int)cudaErrorInvalidValue;
+  const pattern_bwd::TileArgs src = tile_args(tiles, tile_g, rb_ptr, tile_r);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_bwd<float>(tiles, tile_g, rb_ptr, b, c, n_pad, tile_r, d_pad, s);
-    case 1: return launch_bwd<__nv_bfloat16>(tiles, tile_g, rb_ptr, b, c, n_pad, tile_r, d_pad, s);
-    case 2: return launch_bwd<int8_t>(tiles, tile_g, rb_ptr, b, c, n_pad, tile_r, d_pad, s);
+    case 0: return (int)pattern_bwd::launch<float>(src, b, c, n_pad, d_pad, s);
+    case 1: return (int)pattern_bwd::launch<__nv_bfloat16>(src, b, c, n_pad, d_pad, s);
+    case 2: return (int)pattern_bwd::launch<int8_t>(src, b, c, n_pad, d_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward's launch geometry for these operands, written to out[0..12]
+// as mggcn_pattern_bwd_geometry's (spmm_pattern.cu): one column window.
+// Returns a cudaError_t.
+int mggcn_block_bwd_geometry(long long n_pad, int tile_r, int d_pad, int dtype, int* out) {
+  if (bad_shape(n_pad, tile_r, d_pad)) return (int)cudaErrorInvalidValue;
+  const pattern_bwd::TileArgs src = tile_args(nullptr, nullptr, nullptr, tile_r);
+  switch (dtype) {
+    case 0: return (int)pattern_bwd::geometry<float>(src, n_pad, d_pad, out);
+    case 1: return (int)pattern_bwd::geometry<__nv_bfloat16>(src, n_pad, d_pad, out);
+    case 2: return (int)pattern_bwd::geometry<int8_t>(src, n_pad, d_pad, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

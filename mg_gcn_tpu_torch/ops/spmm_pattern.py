@@ -18,7 +18,8 @@ The two products run as hand-written CUDA kernels
 tensor and uses its plain PyTorch version for a CPU tensor — only because
 the tensor lies on the CPU; there is no fallback from one to the other.
 Each wrapper counts its launches in ``.launches`` by (dtype, d_pad).
-:func:`pattern_bwd_groups_plain` sums in the backward kernel's own order,
+:func:`pattern_bwd_groups_plain` sums in the backward kernel's own order
+(:func:`groups_plain`, shared with the ring's and the block store's twins),
 for the tests.
 """
 
@@ -228,43 +229,51 @@ def pattern_bwd_split(d_pad: int, dtype: torch.dtype) -> dict:
     return {"features": features, "lanes": lanes, "groups": 32 // lanes, "chunks": -(-d_pad // (32 * features))}
 
 
-def bwd_groups_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = sum_s P_s B_s in the backward kernel's order, for a stack of
-    rounds ``pack`` (rounds, m, m/32) and ``b`` (rounds·m, d_pad), round s's
-    rows from row s·m: each output row's set bits are listed in (round,
-    word, bit) order, entry e goes to group e mod G (:func:`pattern_bwd_split`),
+def groups_plain(rows: torch.Tensor, cols: torch.Tensor, b: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """C = P B in the backward walk's order (``csrc/pattern_bwd.cuh``) for
+    the set bits of P listed as int64 (row, B row) entries ``rows`` /
+    ``cols``, sorted by row and, within a row, in the order the walk streams
+    them: entry e of a row goes to group e mod G (:func:`pattern_bwd_split`),
     each group adds its entries' B rows in order into float32 sums (int64
     for int8, stored as int32), and the G partial sums meet by the kernel's
-    xor tree (groups 2i and 2i + 1 first, then pairs of pairs). For the
-    tests, which hold the kernel to its bits in bfloat16 and int8."""
-    rounds, m, words = pack.shape
+    xor tree (groups 2i and 2i + 1 first, then pairs of pairs). C has
+    ``n_rows`` rows, zeros where no entry lies."""
     d_pad, dev = b.shape[1], b.device
     groups = pattern_bwd_split(d_pad, b.dtype)["groups"]
     exact = b.dtype == torch.int8
     acc_dtype = torch.int64 if exact else torch.float32
-    rows, rnd, wi = torch.nonzero(pack.permute(1, 0, 2), as_tuple=True)  # (row, round, word) order
-    wv = pack[rnd, rows, wi].to(torch.int64)
-    e, bit = torch.nonzero((wv[:, None] >> torch.arange(32, device=dev)) & 1, as_tuple=True)
-    rows, rnd, wi = rows[e], rnd[e], wi[e]
-    cols = rnd * m + (wi // 128) * GROUP + bit * 128 + wi % 128
-    counts = torch.bincount(rows, minlength=m)
+    counts = torch.bincount(rows, minlength=n_rows)
     k = torch.arange(rows.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[rows]  # entry e of its row
     slot, step = rows * groups + k % groups, k // groups
     terms = b.to(acc_dtype).index_select(0, cols)
-    part = torch.zeros((m * groups, d_pad), dtype=acc_dtype, device=dev)
+    part = torch.zeros((n_rows * groups, d_pad), dtype=acc_dtype, device=dev)
     order = torch.argsort(step, stable=True)
     n_steps = int(step.max()) + 1 if step.numel() else 0
     bounds = torch.searchsorted(step[order], torch.arange(n_steps + 1, device=dev)).tolist()
     for t in range(n_steps):  # each group's t-th entry: one add a (row, group), in entry order
         sel = order[bounds[t] : bounds[t + 1]]
         part.index_add_(0, slot[sel], terms[sel])
-    part = part.view(m, groups, d_pad)
+    part = part.view(n_rows, groups, d_pad)
     off = 1
     while off < groups:  # the lane adds the sums ``off`` groups away: p_k + p_(k xor off)
         part = part + part[:, torch.arange(groups, device=dev) ^ off]
         off *= 2
     out = part[:, 0].contiguous()
     return out.to(torch.int32) if exact else out
+
+
+def bwd_groups_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = sum_s P_s B_s in the backward kernel's order (:func:`groups_plain`),
+    for a stack of rounds ``pack`` (rounds, m, m/32) and ``b`` (rounds·m,
+    d_pad), round s's rows from row s·m: each output row's set bits listed
+    in (round, word, bit) order. For the tests, which hold the kernel to its
+    bits in bfloat16 and int8."""
+    m = pack.shape[1]
+    rows, rnd, wi = torch.nonzero(pack.permute(1, 0, 2), as_tuple=True)  # (row, round, word) order
+    wv = pack[rnd, rows, wi].to(torch.int64)
+    e, bit = torch.nonzero((wv[:, None] >> torch.arange(32, device=b.device)) & 1, as_tuple=True)
+    rows, rnd, wi = rows[e], rnd[e], wi[e]
+    return groups_plain(rows, rnd * m + (wi // 128) * GROUP + bit * 128 + wi % 128, b, m)
 
 
 def pattern_bwd_groups_plain(pack: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,12 @@ products run as hand-written CUDA kernels (``csrc/spmm_pattern_sparse.cu``):
 :func:`block_fwd` (Pᵀ B) on the tensor cores, each live (tile, plane)
 decoded to a 0/1 matrix and multiplied by the tile's B rows (float32
 operands as three exact bfloat16 parts, :func:`split_bf16x3_plain`), and
-:func:`block_bwd` (P B) by a walk over the set bits. Beside the store they
-read each tile's (rb, g), a by-group tile list (forward), the by-row-block
-tile ranges (backward) and each tile's live-plane mask. The TPU schedules
+:func:`block_bwd` (P B) by the backward pattern walk of
+``csrc/pattern_bwd.cuh`` with the store as its word source (row r of a row
+block's tiles streamed in turn; :func:`block_bwd_groups_plain` sums in its
+order, for the tests). Beside the store they read each tile's (rb, g), a
+by-group tile list (forward), the by-row-block tile ranges (backward) and
+each tile's live-plane mask. The TPU schedules
 (K_PLANES plane-compacted steps, padding slots, the dummy zero tile,
 first-visit flags) are not built. Each wrapper launches its kernel for a
 CUDA tensor and uses its plain PyTorch version for a CPU tensor — only
@@ -43,10 +46,13 @@ from .spmm_pattern import (
     _DTYPE_CODE,
     _PACK_ROW_CHUNKS,
     _PLAIN_WORDS_CAP,
+    BWD_GEOMETRY_KEYS,
     DTYPES,
     GROUP,
     apply_pattern_calls,
+    groups_plain,
     is_binary,
+    pattern_bwd_split,
     query_geometry,
     round_up,
     sum_decoded,
@@ -281,6 +287,24 @@ def block_bwd_plain(mat: BlockPatternMat, b: torch.Tensor, acc_dtype: torch.dtyp
     return sum_decoded(decode_tiles(mat), b, False, acc_dtype)
 
 
+def block_bwd_groups_plain(mat: BlockPatternMat, b: torch.Tensor) -> torch.Tensor:
+    """:func:`block_bwd` in its kernel's order (:func:`.spmm_pattern.groups_plain`):
+    each output row's set bits listed in (tile in ``rb_ptr`` order, word,
+    bit) order, entry e to group e mod G (:data:`block_bwd_split`), each
+    group's B rows added in order, then the xor tree. For the tests, which
+    hold the kernel to its bits in bfloat16 and int8."""
+    t, r, w = torch.nonzero(mat.tiles, as_tuple=True)  # (tile, row, word) order
+    wv = mat.tiles[t, r, w].to(torch.int64)  # int64 keeps bit 31 under the shift
+    e, bit = torch.nonzero((wv[:, None] >> torch.arange(32, device=b.device)) & 1, as_tuple=True)
+    t, r, w = t[e], r[e], w[e]
+    rows = mat.tile_rb[t].long() * mat.tile_r + r
+    # a row block's tiles are consecutive in rb_ptr order: a stable sort by
+    # row keeps (tile, word, bit) within each row
+    order = torch.argsort(rows, stable=True)
+    cols = mat.tile_g[t].long() * GROUP + bit * 128 + w
+    return groups_plain(rows[order], cols[order], b, mat.n_pad)
+
+
 def split_bf16x3_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the float32 mode's operand split in :func:`block_fwd`
     (``split3`` in ``csrc/spmm_pattern_sparse.cu``): x = hi + mid + lo, each
@@ -331,8 +355,9 @@ def _lib() -> ctypes.CDLL:
     lib.mggcn_block_fwd.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.mggcn_block_bwd.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.mggcn_block_fwd.restype = lib.mggcn_block_bwd.restype = ctypes.c_int
-    lib.mggcn_block_fwd_geometry.argtypes = [ctypes.c_longlong, i, i, i, p]
-    lib.mggcn_block_fwd_geometry.restype = ctypes.c_int
+    for fn in (lib.mggcn_block_fwd_geometry, lib.mggcn_block_bwd_geometry):
+        fn.argtypes = [ctypes.c_longlong, i, i, i, p]
+        fn.restype = ctypes.c_int
     lib.mggcn_error_string.argtypes = [ctypes.c_int]
     lib.mggcn_error_string.restype = ctypes.c_char_p
     return lib
@@ -348,6 +373,23 @@ def block_fwd_geometry(n_pad: int, tile_r: int, d_pad: int, dtype: torch.dtype) 
     dynamic shared memory, stages and resident blocks."""
     return query_geometry(_lib(), "mggcn_block_fwd_geometry", n_pad, tile_r, d_pad, _DTYPE_CODE[dtype],
                           keys=BLOCK_FWD_GEOMETRY_KEYS)
+
+
+# The backward's split of a warp by width and dtype: the backward pattern
+# walk's own rule, which block_bwd shares.
+block_bwd_split = pattern_bwd_split
+
+
+def block_bwd_geometry(n_pad: int, tile_r: int, d_pad: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of :func:`block_bwd` for a store of ``n_pad``
+    nodes in tiles of ``tile_r`` rows and an (n_pad, d_pad) operand of
+    ``dtype``, from the card, as :func:`.spmm_pattern.pattern_bwd_geometry`
+    gives it: grid (n_pad / 8 blocks of a warp a row at every split, feature
+    chunks), threads, dynamic shared memory, stages, resident blocks, then
+    the split (:data:`block_bwd_split`), B rows a lane loads at once, words a
+    span and ``windows`` = 1 (no column windows over a store)."""
+    return query_geometry(_lib(), "mggcn_block_bwd_geometry", n_pad, tile_r, d_pad, _DTYPE_CODE[dtype],
+                          keys=BWD_GEOMETRY_KEYS)
 
 
 def _launch(name: str, mat: BlockPatternMat, b: torch.Tensor, index: tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -394,7 +436,8 @@ def block_fwd(mat: BlockPatternMat, b: torch.Tensor) -> torch.Tensor:
 
 
 def block_bwd(mat: BlockPatternMat, b: torch.Tensor) -> torch.Tensor:
-    """C = P B, same operands as :func:`block_fwd`.
+    """C = P B, same operands as :func:`block_fwd`, by the backward pattern
+    walk over the store (one launch).
     Replaces ``mg_gcn_tpu/ops/spmm_pattern_sparse.py:_bwd_kernel_sparse``."""
     if b.device.type == "cpu":
         return block_bwd_plain(mat, b)

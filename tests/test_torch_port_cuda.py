@@ -1100,3 +1100,88 @@ def test_pattern_bwd_column_windows_keep_the_order(dtype, d_pad):
     assert torch.equal(got, again)
     deg = torch.from_numpy(np.diff(g.indptr)).cuda().double()[:, None]
     _assert_bwd_follows_twin(got, pack, b, deg, sp.pattern_bwd_groups_plain, sp.pattern_bwd_plain)
+
+
+# ---------------------------------------------------------------------------
+# block_bwd on the backward walk: the tile store as the walk's word source
+
+
+def _block_bwd_graph():
+    """12,288 nodes (three groups), clustered: about 6 columns a row within
+    ±600 of the diagonal, bit 31 (column g*4096 + 31*128 + w of the row's
+    own group) in every tenth row, row 7 with every column (12,288 set bits
+    over three tiles, many times what a warp's list holds), rows 200-249 and
+    the row block 4096-4607 empty, and rows 9500-9599 with columns in group
+    0 as well, so that their row blocks' tiles are groups 0 and 2."""
+    rng = np.random.default_rng(12)
+    n = 12_288
+    cols = []
+    for i in range(n):
+        c = np.unique(np.clip(i + rng.integers(-600, 601, 6), 0, n - 1))
+        if i % 10 == 0:
+            c = np.union1d(c, [(i // 4096) * 4096 + 31 * 128 + i % 128])
+        if 9500 <= i < 9600:
+            c = np.union1d(c, rng.integers(0, 4096, 3))
+        cols.append(c)
+    cols[7] = np.arange(n)
+    for r in [*range(200, 250), *range(4096, 4608)]:
+        cols[r] = cols[r][:0]
+    indptr = np.r_[0, np.cumsum([c.size for c in cols])].astype(np.int64)
+    return CSRData(indptr, np.concatenate(cols).astype(np.int32), np.ones(indptr[-1], np.float32), (n, n))
+
+
+@pytest.fixture(scope="module")
+def block_bwd_graph():
+    return _block_bwd_graph()
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 128, 264])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("tile_r", [128, 512])
+def test_block_bwd_follows_the_twin(block_bwd_graph, tile_r, dtype, d_pad):
+    """block_bwd over a store with a full row, bit 31, an empty row block
+    and a row block whose tiles are groups 0 and 2, at every lane-group size
+    and more than one feature chunk (d_pad 264: two in bf16 and int8, three
+    in float32): int8 and bf16 equal to block_bwd_groups_plain, float32 within the
+    float32 sum bound; two launches equal bit for bit, each one launch;
+    empty rows and the empty row block 0."""
+    g = block_bwd_graph
+    mat = sps.block_pattern_pair_from_binary_csr(g, device="cuda", tile_r=tile_r)[1]
+    rb_ptr, tile_g = mat.rb_ptr.tolist(), mat.tile_g.tolist()
+    assert rb_ptr[4096 // tile_r] == rb_ptr[4096 // tile_r + 1]
+    assert tile_g[rb_ptr[9500 // tile_r]:rb_ptr[9500 // tile_r + 1]] == [0, 2]
+    b = _operand(mat.n_pad, d_pad, dtype, seed=d_pad)
+    key = (str(dtype).removeprefix("torch."), d_pad)
+    before = sps.block_bwd.launches[key]
+    got, again = sps.block_bwd(mat, b), sps.block_bwd(mat, b)
+    torch.cuda.synchronize()
+    assert sps.block_bwd.launches[key] == before + 2
+    assert torch.equal(got, again)
+    assert not bool(got[200:250].any()) and not bool(got[4096:4608].any())
+    deg = torch.from_numpy(np.diff(g.indptr)).cuda().double()[:, None]
+    _assert_bwd_follows_twin(got, mat, b, deg, sps.block_bwd_groups_plain, sps.block_bwd_plain)
+
+
+@pytest.mark.parametrize("d_pad", [8, 16, 48, 64, 128, 200, 264])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_block_bwd_geometry_follows_the_rule(dtype, d_pad):
+    """block_bwd's launch geometry at the banded path's n_pad: lanes, groups
+    and features by block_bwd_split, grid y = the split's chunks, blocks of
+    256 threads (a warp a row), n_pad / 8 of them at every split (the
+    regular grid, one group too), one column window; at least 16 resident
+    warps an SM. A launch after the query still runs, and a width the
+    kernel refuses is refused by the query too."""
+    rule = sps.block_bwd_split(d_pad, dtype)
+    geo = sps.block_bwd_geometry(233_472, 512, d_pad, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert {k: geo[k] for k in ("lanes", "groups", "features")} == {k: rule[k] for k in ("lanes", "groups",
+                                                                                     "features")}, geo
+    assert (geo["grid_x"], geo["grid_y"], geo["threads"], geo["windows"]) == (233_472 // 8, rule["chunks"], 256,
+                                                                             1), geo
+    assert geo["resident_blocks"] == min(geo["grid_x"] * geo["grid_y"], geo["blocks_per_sm"] * sms), geo
+    assert geo["blocks_per_sm"] * geo["threads"] // 32 >= 16, geo
+    assert geo["stages"] >= 3 and geo["loads"] >= 4 and geo["smem"] > 0, geo
+    mat = sps.block_pattern_pair_from_binary_csr(sparse.banded_graph(9000, 40, 700, seed=2), device="cuda")[1]
+    _assert_block_matches_plain(mat, "bwd", _operand(mat.n_pad, d_pad, dtype, seed=1))
+    with pytest.raises(RuntimeError, match="mggcn_block_bwd_geometry"):
+        sps.block_bwd_geometry(233_472, 512, d_pad + 4, dtype)
