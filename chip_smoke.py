@@ -10,10 +10,10 @@ the result line:
 2. build  — nvcc builds the kernels from the sources in this checkout, one
    process per source, all at once;
 3. kernels vs plain, n = 20,000 — each pattern kernel (fwd, bwd) x
-   {bfloat16, float32, int8} x d in {41, 128}; ``edge`` in {bfloat16,
-   float32} and ``edge_i8`` x d in {41, 128, 256} on a weighted graph;
-   ``gather`` {weighted, binary, binary + bfloat16 stream} x d in
-   {48, 100, 256} at average degree 50; ``sddmm`` {bfloat16, float32,
+   {bfloat16, float32, int8} x d in {41, 128} and PageRank's and SAGE's
+   1, 512 and 608; ``edge`` in {bfloat16, float32} and ``edge_i8`` x d in
+   {41, 128, 256} on a weighted graph; ``gather`` {weighted, binary,
+   binary + bfloat16 stream} x d in {48, 100, 256, 1} at average degree 50; ``sddmm`` {bfloat16, float32,
    int8} x d in {1, 2, 16, 24, 32, 41, 48, 64, 128, 256} (every lane-group
    size of its rule but int8's L = 32) within the float32 sum bound of the
    plain version summed in float64, twice bit for bit, its launch geometry
@@ -62,6 +62,30 @@ the result line:
    to ``pattern_bwd_split``) is put in its kernels-line rows; the rest of
    ``pattern_bwd``'s geometry (features, loads, span words, column
    windows: the rule's and the kernel's constants) is only logged;
+5a. the SAGE path — BASELINE config 4 as bench.py runs it (bench.py:
+   239-263): SAGEConfig(sizes=(608, 512, 41)), l2-normalized, seed-99 init,
+   on the main path's dataset through ``models.sage.build_sage_pair`` and
+   ``train.make_train_step(model="sage")``: impl="auto" must pick the
+   pattern pair, on phase 5's pack; one float32 step against the SAGE COO
+   pair built on the card by the rule of phase 4; 5 bfloat16 epochs with
+   losses falling from epoch 0 to 4 and 1 int8 epoch, their median and peak
+   memory; counters zeroed before the float32 step and read after the int8
+   epoch: exactly 2 ``pattern_bwd`` (d_pad 608, 512) + 1 ``pattern_fwd``
+   (512) launches an epoch in each dtype; then the infer path's forward at
+   full size, its argmax equal to the step's logits';
+5b. pattern kernels at the SAGE path's shape — ``pattern_bwd`` at d = 608
+   and 512 and ``pattern_fwd`` at 512, each dtype, as phase 5 (rows of the
+   kernels line);
+5c. PageRank at Reddit scale (bench.py:333-373) — the main pack with the
+   row scale, PatternMat "PT", "pre", float32, damping 0.85, eps 1e-4:
+   iterations, cold and warm seconds, held against a COO PageRank on the
+   card within rtol 1e-4 / atol 1e-5 (tests/test_pagerank.py's tolerance);
+   exactly one ``pattern_fwd`` float32 d_pad 8 launch an iteration;
+   ``pattern_fwd`` float32 at d = 1 as phase 5 (a kernels-line row);
+5d. row-partitioned PageRank — ``pagerank_dist``'s two halves at -P 4,
+   its partitions on cuda:0, on the main graph: the COO ring blocks built
+   once (seconds logged), then ring and all_gather, each held against 5c's
+   result within rtol 1e-4 / atol 1e-5, iterations and seconds logged;
 6. the dist path — BASELINE's canonical ``-P 4 -R 1`` run (BASELINE.md:13)
    on the main path's dataset, sizes (608, 128, 128, 44) (41 classes round
    up to a multiple of P), its 4 partitions all on cuda:0, through
@@ -154,13 +178,21 @@ the result line:
 17. gather kernel at path B's shape — as phase 5, on path B's Aᵀ, with the
    repeat check and walk geometry of phase 13, then (logged only) ``edge``
    on the same matrix;
+17a. PageRank at products scale (bench.py:739-775) — path B's gather
+   matrix with its scale swapped to a pre-scale of 1/max(outdeg, 1):
+   iterations and seconds, held against a COO PageRank on the card as in
+   5c; exactly one ``gather`` float32 d_pad 8 launch an iteration;
+   ``gather`` float32 at d = 1 as phase 17 (a kernels-line row);
 18. CLI — ``python -m mg_gcn_tpu_torch.cli -E 3 train <dir> 2 128 128`` and
    ``... --model gat --heads 2 -E 3 train <dir> 1 16`` on a small binary
    dataset; ``python -m mg_gcn_tpu_torch.data.prep synthetic`` (n = 20,000)
    and ``prep cluster`` (RCM), then ``--impl block`` and ``--impl pallas``
    ``-E 3 train <dir>_clustered 1 16``, and ``-P 4 -R 1 --device
    cuda:0,cuda:0,cuda:0,cuda:0 -E 3 train <dir> 2 128 128``: stderr lines
-   and the timer CSVs.
+   and the timer CSVs; ``--model sage -E 3 train <dir> 1 16 --save CK``,
+   ``--model sage infer <dir> 1 16 --load CK`` and ``pagerank <dir>``, at
+   -P 1 and at -P 4 on one card: the files they write equal the library's
+   results on the same inputs.
 
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
@@ -239,6 +271,16 @@ BAND_HALF, BAND_SEED, BAND_SMALL_DRAWS, BAND_SMALL_HALF = 4096, 7, 64, 1024
 DIST_PARTS = 4
 DIST_CLASSES = -(-CLASSES // DIST_PARTS) * DIST_PARTS
 DIST_WIDTHS = (128, DIST_CLASSES)
+# the SAGE path: BASELINE config 4 as bench.py runs it (bench.py:239-263),
+# SAGEConfig(sizes=(608, 512, 41)), l2-normalized, on the main path's dataset
+# and pack. Its launches: pattern_bwd at d = 608 (layer 0's M·X) and 512
+# (layer 1's M·H), pattern_fwd at 512 (layer 1's Mᵀ·G); layer 0's M·X takes
+# no gradient. PageRank (bench.py:333-373, 739-775): damping 0.85, eps 1e-4,
+# float32, d = 1 (d_pad 8), on the main pack and on path B's gather matrix.
+SAGE_SIZES = (FEATURES, 512, CLASSES)
+SAGE_WIDTHS = (("pattern_bwd", 608), ("pattern_bwd", 512), ("pattern_fwd", 512))
+PR_SAGE_WIDTHS = (1, 512, 608)  # phase 3 checks both pattern kernels at PageRank's and SAGE's widths
+DAMPING, PR_EPS = 0.85, 1e-4
 
 
 def log(*args):
@@ -312,7 +354,7 @@ def phase_kernels_small() -> None:
     for name, kernel, plain in (("pattern_fwd", sp.pattern_fwd, sp.pattern_fwd_plain),
                                 ("pattern_bwd", sp.pattern_bwd, sp.pattern_bwd_plain)):
         for dtype in DTYPES:
-            for d in WIDTHS:
+            for d in WIDTHS + PR_SAGE_WIDTHS:
                 b = operand(fwd.n_pad, d, dtype, seed=d)
                 got = kernel(fwd.pack, b)
                 torch.cuda.synchronize()
@@ -621,11 +663,22 @@ def phase_main_path(ds) -> dict:
 
 
 def library_sparse(ds, transpose: bool):
-    from mg_gcn_tpu_torch import sparse
-
-    g = sparse.transpose(ds.graph) if transpose else ds.graph
-    return csr_library(torch.from_numpy(g.indptr).cuda(), torch.from_numpy(g.indices).cuda(),
-                       torch.ones(g.nnz, device="cuda"), g.shape)
+    """torch.sparse.mm's float32 CSR of ``ds``'s adjacency of ones, or of its
+    transpose, built on the card (one sort of (column, row) keys) rather than
+    by a host transpose of 115M entries."""
+    g = ds.graph
+    indptr, indices = torch.from_numpy(g.indptr).cuda(), torch.from_numpy(g.indices).cuda()
+    shape = g.shape
+    if transpose:
+        rows = torch.repeat_interleave(torch.arange(g.nrows, device="cuda"), torch.diff(indptr))
+        key, _ = torch.sort(indices.long() * g.nrows + rows)  # (column, row) order
+        del rows
+        indices = key % g.nrows
+        indptr = torch.zeros(g.ncols + 1, dtype=torch.int64, device="cuda")
+        indptr[1:] = torch.cumsum(torch.bincount(key // g.nrows, minlength=g.ncols), 0)
+        shape = (g.ncols, g.nrows)
+        del key
+    return csr_library(indptr, indices, torch.ones(g.nnz, device="cuda"), shape)
 
 
 def csr_library(indptr, indices, values, shape):
@@ -667,7 +720,9 @@ def log_row(r: dict, note: str = "") -> None:
         f" launches {r['launches']}, max_err {r['max_abs_err']:.3e} (tolerance used {r['tolerance_used']:.3f})")
 
 
-def phase_kernels_main(ds, launches: dict) -> list[dict]:
+def phase_kernels_main(ds, launches: dict) -> tuple[list[dict], torch.Tensor]:
+    """The pattern kernels at the main path's shape (phase 5); returns the
+    rows and the pack, which the SAGE and PageRank paths reuse."""
     from mg_gcn_tpu_torch.ops import spmm_pattern as sp
 
     fwd, _ = sp.pattern_pair_from_binary_csr(ds.graph, device="cuda")
@@ -701,7 +756,7 @@ def phase_kernels_main(ds, launches: dict) -> list[dict]:
                                        check, ms, plain_ms, library_ms, moved) | extra)
                 log_row(rows[-1])
         del lib
-    return rows
+    return rows, fwd.pack
 
 
 def repeat_and_geometry(label: str, got: torch.Tensor, run, geometry: dict, keep: tuple | None = None) -> dict:
@@ -739,6 +794,335 @@ def bwd_geometry(label: str, geometry: dict, b: torch.Tensor) -> dict:
         raise AssertionError(f"{label}: launch geometry {geometry} is not the split {split}")
     return geometry
 
+
+
+# ---------------------------------------------------------------------------
+# the SAGE path (BASELINE config 4) and PageRank (BASELINE config 5)
+
+
+def mean_coo_pair_on_card(graph):
+    """The COO pair (M, Mᵀ) of the row-normalized adjacency M (1/outdeg of
+    the row, as sparse.normalize(axis=False) takes it in float64), built on
+    the card under :func:`deterministic`: SAGE's reference pair, and Mᵀ
+    PageRank's reference iteration matrix."""
+    from mg_gcn_tpu_torch.ops.spmm import AggPair, COOMat
+
+    with deterministic():
+        cols = torch.from_numpy(graph.indices).cuda()
+        counts = torch.from_numpy(np.diff(graph.indptr)).cuda()
+        rows = torch.repeat_interleave(torch.arange(graph.nrows, dtype=torch.int32, device="cuda"), counts)
+        vals = (1.0 / counts.double().clamp(min=1))[rows.long()].float()
+    n, nnz = graph.nrows, graph.nnz
+    return AggPair(fwd=COOMat(rows=rows, cols=cols, vals=vals, n_rows=n, n_cols=n, nnz=nnz),
+                   bwd=COOMat(rows=cols, cols=rows, vals=vals, n_rows=n, n_cols=n, nnz=nnz))
+
+
+def run_pagerank(label: str, mat, n: int, warm: bool = True) -> dict:
+    """The power iteration on ``mat`` (``models.pagerank.power_iterate``),
+    the launch counters zeroed before it and read after it, rescaled to
+    mean 1 as ``pagerank`` does; with ``warm`` a second run, timed, must
+    give the same iterations and bits (the kernels' sums have a fixed
+    order). Logs iterations, cold and warm seconds and launches."""
+    from mg_gcn_tpu_torch.models.pagerank import power_iterate
+
+    reset_counts()  # the PageRank path starts here
+    t0 = time.perf_counter()
+    p, iters = power_iterate(mat, n, DAMPING, PR_EPS)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = counts()  # and ends here
+    warm_s = float("nan")
+    if warm:
+        t0 = time.perf_counter()
+        p2, iters2 = power_iterate(mat, n, DAMPING, PR_EPS)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if iters2 != iters or not torch.equal(p, p2):
+            raise AssertionError(f"{label}: a second run gave {iters2} iterations (first {iters}) or other bits")
+        del p2
+    p = p * (n / p.sum())
+    if not bool(torch.isfinite(p).all()):
+        raise AssertionError(f"{label}: PageRank not finite")
+    log(f"  {label}: {iters} iterations, cold {cold:.4f} s, warm {warm_s:.4f} s ({warm_s / iters * 1e3:.3f} ms an"
+        f" iteration); launches { {k: v for k, v in launches.items() if v} }")
+    return dict(p=p, iters=iters, cold_s=cold, warm_s=warm_s, launches=launches)
+
+
+def compare_pagerank(label: str, got: torch.Tensor, want: torch.Tensor, ref: str) -> None:
+    """PageRank vectors within the JAX tests' rtol 1e-4 / atol 1e-5
+    (tests/test_pagerank.py)."""
+    diff = (got.double() - want.double()).abs()
+    use = float((diff / (1e-4 * want.double().abs() + 1e-5)).max())
+    if not use <= 1.0:
+        raise AssertionError(f"{label}: {use:.3f} of rtol 1e-4 / atol 1e-5 against {ref} used")
+    log(f"  {label} vs {ref}: max |diff| {float(diff.max()):.3e} ({use:.3f} of rtol 1e-4 / atol 1e-5),"
+        f" sums {float(got.sum())!r} / {float(want.sum())!r}")
+
+
+def phase_sage_path(ds, pack) -> dict:
+    """BASELINE config 4 through ``models.sage`` and
+    ``train.make_train_step(model="sage")``: SAGEConfig(sizes=(608, 512,
+    41)), l2-normalized, seed-99 init, on the main path's dataset; impl="auto"
+    must pick the pattern pair (the pack fits, train.mean_engine) and the run
+    reuses the main path's ``pack`` (bench.py:250). One float32 step against
+    the SAGE COO pair built on the card by the rule of phase 4; EPOCHS
+    bfloat16 epochs with losses falling from the first to the last and one
+    int8 epoch, their median and peak memory. The counters are zeroed
+    before the float32 step and read after the int8 epoch: exactly 2
+    pattern_bwd (d_pad 608, 512) + 1 pattern_fwd (512) launches an epoch in
+    each dtype and no other kernel. Then the infer path's forward (no
+    gradient) at full size: its argmax equals the step's logits'."""
+    from mg_gcn_tpu_torch.models import sage
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+    from mg_gcn_tpu_torch.train import make_train_step, mean_engine
+
+    dev = torch.device("cuda")
+    if mean_engine(ds.graph, dev) != "pattern":
+        raise AssertionError("impl='auto' would not take the pattern pair for SAGE on the main graph")
+    config = sage.SAGEConfig(sizes=SAGE_SIZES)
+    x = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+    params = sage.init_params(config, device=dev)
+    out = {}
+
+    reset_counts()  # the SAGE path starts here
+    t0 = time.perf_counter()
+    pair = sage.build_sage_pair(ds.graph, impl="auto", pack=pack, dtype="float32", device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    if not isinstance(pair.fwd, sp.PatternMat) or pair.fwd.pack is not pack:
+        raise AssertionError(f"SAGE impl='auto' chose {type(pair.fwd).__name__} or another pack")
+    step = sage.loss_and_grad(params, pair, x, y, config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coo = mean_coo_pair_on_card(ds.graph)
+    torch.cuda.synchronize()
+    out["coo_build_s"] = time.perf_counter() - t0
+    with deterministic():
+        step_coo = sage.loss_and_grad(params, coo, x, y, config)
+    torch.cuda.synchronize()
+    del coo
+    torch.cuda.empty_cache()
+    compare_with_coo("SAGE pattern", step, step_coo)
+    del step_coo
+
+    def run(dtype, epochs):
+        p_dt = sage.build_sage_pair(ds.graph, impl="auto", pack=pack, dtype=dtype, device=dev)
+        train_step = make_train_step(config, model="sage")
+        p, st = params, adam.adam_init(params)
+        losses, accs, seconds = [], [], []
+        for e in range(epochs):
+            t0 = time.perf_counter()
+            p, st, loss, acc = train_step(p, st, p_dt, x, y, None)
+            losses.append(float(loss))  # waits for the card
+            accs.append(float(acc))
+            seconds.append(time.perf_counter() - t0)
+            log(f"  SAGE {dtype} epoch {e} {losses[-1]} {accs[-1]} {seconds[-1]}")
+        return dict(losses=losses, accs=accs, epoch_seconds=seconds)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["bf16"] = run("bfloat16", EPOCHS)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["int8"] = run("int8", 1)
+    torch.cuda.synchronize()
+    out["launches"] = counts()  # the SAGE path ends here
+    want = {}
+    for dtype, epochs in (("float32", 1), ("bfloat16", EPOCHS), ("int8", 1)):
+        want[("pattern_bwd", dtype)], want[("pattern_fwd", dtype)] = 2 * epochs, epochs
+        by_width = {(name, d_pad): v for name in ("pattern_bwd", "pattern_fwd")
+                    for (dt, d_pad), v in out["launches"][name].items() if dt == dtype}
+        if by_width != {("pattern_bwd", 608): epochs, ("pattern_bwd", 512): epochs, ("pattern_fwd", 512): epochs}:
+            raise AssertionError(f"SAGE {dtype} launches by width {by_width}, want 1 + 1 + 1 an epoch")
+    expect_launches(out["launches"], want)
+    losses = out["bf16"]["losses"]
+    if not all(math.isfinite(v) for v in losses + out["int8"]["losses"]) or not losses[-1] < losses[0]:
+        raise AssertionError(f"SAGE losses bf16 {losses}, int8 {out['int8']['losses']}: not finite, or not falling")
+    steady = sorted(out["bf16"]["epoch_seconds"][1:])
+    out["bf16_epoch_s_median"] = steady[len(steady) // 2]
+    log(f"  launches on the SAGE path: { {k: v for k, v in out['launches'].items() if v} }")
+    log(f"  SAGE pair build {out['build_s']:.3f} s (pack reused), COO pair build {out['coo_build_s']:.2f} s,"
+        f" bf16 epoch median (epochs 1-{EPOCHS - 1}) {out['bf16_epoch_s_median']:.4f} s,"
+        f" peak memory {out['peak_mem_gb']:.2f} GB")
+
+    leaves = [{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in params]
+    with torch.enable_grad():
+        step_logits = sage.forward(leaves, pair, x, config)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        infer_logits = sage.forward(params, pair, x, config)
+    pred = torch.argmax(infer_logits, dim=-1)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    if not torch.equal(pred, torch.argmax(step_logits.detach(), dim=-1)):
+        raise AssertionError("SAGE: the infer forward's argmax differs from the step's logits'")
+    log(f"  SAGE infer forward (float32, no gradient): {infer_s:.4f} s, argmax equal to the step's logits',"
+        f" accuracy {float((pred == y).float().mean())!r}")
+    return out
+
+
+def phase_sage_kernels(ds, pack, launches: dict) -> list[dict]:
+    """The SAGE path's pattern launches at its shape (the main pack):
+    pattern_bwd at d = 608 and 512 and pattern_fwd at 512, each dtype,
+    against the plain version, timed beside the bound and torch.sparse.mm,
+    with the repeat check and the launch geometry, as phase 5."""
+    from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+
+    n, n_pad, nnz = ds.num_nodes, pack.shape[0], ds.graph.nnz
+    rows = []
+    for name, d in SAGE_WIDTHS:
+        kernel, plain = (sp.pattern_fwd, sp.pattern_fwd_plain) if name == "pattern_fwd" else (sp.pattern_bwd,
+                                                                                              sp.pattern_bwd_plain)
+        lib = library_sparse(ds, transpose=name == "pattern_fwd")
+        for dtype in DTYPES:
+            b = operand(n_pad, d, dtype, seed=d)
+            label = f"{name} {dtype} d={d} (SAGE shape)"
+            got = kernel(pack, b)
+            torch.cuda.synchronize()
+            check = check_close(label, got, plain(pack, b, torch.float64), dtype)
+            if name == "pattern_fwd":
+                geometry, keep = sp.pattern_fwd_geometry(n_pad, b.shape[1], b.dtype), None
+            else:
+                geometry = bwd_geometry(label, sp.pattern_bwd_geometry(n_pad, b.shape[1], b.dtype), b)
+                keep = BWD_ROW_KEYS
+            extra = repeat_and_geometry(label, got, lambda: kernel(pack, b), geometry, keep)
+            del got
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kernel(pack, b), 5)
+            plain_ms = cuda_ms(lambda: plain(pack, b), 1)
+            library_ms = None
+            if dtype == "float32":
+                bl = b[:n, :d].contiguous()
+                library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+                del bl
+            moved = n_pad * n_pad / 8 + n * d * elt_size(b) + n * d * 4
+            rows.append(kernel_row(name, dtype, d, n, nnz, launches[name].get((dtype, b.shape[1]), 0),
+                                   check, ms, plain_ms, library_ms, moved) | extra)
+            log_row(rows[-1])
+            del b
+            torch.cuda.empty_cache()
+        del lib
+    return rows
+
+
+def phase_pagerank_reddit(ds, pack) -> tuple[list[dict], torch.Tensor]:
+    """BASELINE config 5 at Reddit scale as bench.py runs it (bench.py:
+    333-373): the main pack with the row scale, PatternMat "PT", "pre",
+    float32 (impl="auto" would take the pattern operator: train.mean_engine),
+    damping 0.85, eps 1e-4; iterations, cold and warm seconds; held against
+    a COO PageRank on the card within rtol 1e-4 / atol 1e-5 (both counts
+    logged: the engines sum in other orders, so where a change sits at eps
+    the counts may differ by one); exactly one pattern_fwd float32 d_pad 8
+    launch an iteration and no other kernel. Then pattern_fwd float32 at
+    d = 1 as phase 5, for the kernels line. Returns its row and the result."""
+    from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+    from mg_gcn_tpu_torch.train import mean_engine
+
+    g, n, n_pad = ds.graph, ds.num_nodes, pack.shape[0]
+    if mean_engine(g, torch.device("cuda")) != "pattern":
+        raise AssertionError("impl='auto' would not take the pattern operator for PageRank on the main graph")
+    scale = torch.from_numpy(sp.row_scale(g, n_pad)).cuda()
+    mat = sp.PatternMat(pack, scale, n, n_pad, g.nnz, "PT", "pre", "float32")
+    got = run_pagerank("PageRank on the pattern pack", mat, n)
+    expect_launches(got["launches"], {("pattern_fwd", "float32"): got["iters"]})
+    if got["launches"]["pattern_fwd"] != {("float32", 8): got["iters"]}:
+        raise AssertionError(f"PageRank launches {got['launches']['pattern_fwd']}, want d_pad 8 only")
+    coo = mean_coo_pair_on_card(g).bwd
+    ref = run_pagerank("PageRank on COO", coo, n, warm=False)
+    del coo
+    compare_pagerank("PageRank (pattern)", got["p"], ref["p"], "COO")
+
+    b = operand(n_pad, 1, "float32", seed=1)
+    label = "pattern_fwd float32 d=1 (PageRank shape)"
+    check, ms, plain_ms = check_and_time(label, lambda: sp.pattern_fwd(pack, b),
+                                         lambda: sp.pattern_fwd_plain(pack, b, torch.float64), "float32", 5,
+                                         lambda: sp.pattern_fwd_plain(pack, b), 1)
+    extra = repeat_and_geometry(label, sp.pattern_fwd(pack, b), lambda: sp.pattern_fwd(pack, b),
+                                sp.pattern_fwd_geometry(n_pad, 8, torch.float32))
+    lib = library_sparse(ds, transpose=True)
+    bl = b[:n, :1].contiguous()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+    del lib, bl, b
+    row = kernel_row("pattern_fwd", "float32", 1, n, g.nnz, got["launches"]["pattern_fwd"][("float32", 8)],
+                     check, ms, plain_ms, library_ms, n_pad * n_pad / 8 + n * 4 + n * 4) | extra
+    log_row(row, f"; {got['iters']} iterations, {got['warm_s'] / got['iters'] * 1e3:.3f} ms an iteration")
+    torch.cuda.empty_cache()
+    return [row], got["p"]
+
+
+def phase_pagerank_dist(ds, single: torch.Tensor) -> None:
+    """Row-partitioned PageRank (``models.pagerank``: ``dist_pagerank_mat``,
+    then ``power_iterate_dist``, the two halves of ``pagerank_dist``;
+    BASELINE config 5's layout) at DIST_PARTS partitions, all on cuda:0, on
+    the main graph (232,968 % 4 == 0): the COO ring blocks built once (host
+    seconds logged), then each strategy's iterations, held against the
+    single-card result within rtol 1e-4 / atol 1e-5. The ring blocks are
+    COO: no kernel of the port launches."""
+    from mg_gcn_tpu_torch.models.pagerank import dist_pagerank_mat, power_iterate_dist
+    from mg_gcn_tpu_torch.parallel import dist
+
+    mesh = dist.make_mesh(DIST_PARTS, ["cuda:0"] * DIST_PARTS)
+    t0 = time.perf_counter()
+    dmat = dist_pagerank_mat(ds.graph, mesh)
+    torch.cuda.synchronize()
+    log(f"  dist_pagerank_mat: {DIST_PARTS} x {DIST_PARTS} COO ring blocks of {dmat.rows[0].shape[1]} entries"
+        f" on cuda:0, built in {time.perf_counter() - t0:.2f} s (host normalize, transpose and block split)")
+    n = ds.num_nodes
+    for strategy in ("ring", "all_gather"):
+        reset_counts()
+        t0 = time.perf_counter()
+        p, iters = power_iterate_dist(dmat, DAMPING, PR_EPS, strategy=strategy)
+        p = torch.cat(p).reshape(-1)
+        p = p * (n / p.sum())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        expect_launches(counts(), {})
+        log(f"  power_iterate_dist -P {DIST_PARTS} {strategy} on cuda:0: {iters} iterations, {seconds:.4f} s")
+        compare_pagerank(f"pagerank_dist {strategy}", p, single, "the single card")
+        del p
+    del dmat
+    torch.cuda.empty_cache()
+
+
+def phase_pagerank_products(fwd, graph) -> list[dict]:
+    """BASELINE config 5 at products scale as bench.py runs it (bench.py:
+    739-775): path B's gather matrix (Aᵀ, binary) with its scale swapped to
+    a pre-scale of 1/max(outdeg, 1) of ``graph`` (path B's); iterations and
+    seconds; held against a COO PageRank on the card as at Reddit scale; exactly one gather float32
+    d_pad 8 launch an iteration. Then gather float32 at d = 1 as phase 17,
+    for the kernels line."""
+    import dataclasses
+
+    from mg_gcn_tpu_torch.ops import spmm_gather as sg
+
+    n = fwd.n_out
+    outdeg = np.diff(graph.indptr).astype(np.float32)
+    mat = dataclasses.replace(fwd, scale=torch.from_numpy(1.0 / np.maximum(outdeg, 1.0)).cuda(), scale_side="pre")
+    got = run_pagerank("PageRank on the gather matrix", mat, n)
+    expect_launches(got["launches"], {("gather", "float32"): got["iters"]})
+    if got["launches"]["gather"] != {("float32", 8): got["iters"]}:
+        raise AssertionError(f"PageRank launches {got['launches']['gather']}, want d_pad 8 only")
+    coo = mean_coo_pair_on_card(graph).bwd
+    ref = run_pagerank("PageRank on COO (products)", coo, n, warm=False)
+    del coo
+    compare_pagerank("PageRank (gather)", got["p"], ref["p"], "COO")
+    del got["p"], ref
+
+    b = operand(n, 1, "float32", seed=1)
+    label = "gather float32 d=1 (PageRank products shape)"
+    check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain, (fwd.indptr, fwd.indices, None, b),
+                                             "float32", 5, 1, repeat=True)
+    extra = walk_geometry(label, sg.gather_geometry(n, 8, torch.float32, False))
+    lib = csr_library(fwd.indptr, fwd.indices, torch.ones(fwd.nnz, device="cuda"), (n, fwd.n_in))
+    bl = b[:, :1].contiguous()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+    del lib, bl, b
+    moved = 8 * (n + 1) + 4 * fwd.nnz + fwd.n_in * 4 + n * 4
+    row = kernel_row("gather", "float32", 1, n, fwd.nnz, got["launches"]["gather"][("float32", 8)], check, ms,
+                     plain_ms, library_ms, moved) | extra
+    log_row(row, f"; {got['iters']} iterations, {got['warm_s'] / got['iters'] * 1e3:.3f} ms an iteration")
+    torch.cuda.empty_cache()
+    return [row]
 
 # ---------------------------------------------------------------------------
 # the dist path: -P 4 -R 1 on one card (ring_fwd, ring_bwd)
@@ -1066,7 +1450,7 @@ def phase_csr_kernels_small() -> None:
     wts = torch.from_numpy(np.random.default_rng(6).random(g.nnz, np.float32) + 0.5).cuda()
     for mode, w, dtype in (("weighted", wts, "float32"), ("binary", None, "float32"),
                            ("binary stream", None, "bfloat16")):
-        for d in GATHER_WIDTHS:
+        for d in GATHER_WIDTHS + (1,):
             b = operand(N_SMALL, d, dtype, seed=d)
             (err, use), ms, plain_ms = time_against_plain(
                 f"gather {mode} d={d}", sg.gather, sg.gather_plain, (ip, ix, w, b), dtype, 10, 3)
@@ -1980,13 +2364,76 @@ def run_cli(tmp: str, ds, args: list[str], csv_name: str) -> list[str]:
     return lines
 
 
+def run_command(args: list[str]) -> list[str]:
+    """``python -m mg_gcn_tpu_torch.cli <args>`` (infer, pagerank) from the
+    checkout: exit code 0; returns and logs its stderr lines."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-m", "mg_gcn_tpu_torch.cli", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"CLI {args} exited {r.returncode}:\n{r.stderr}")
+    lines = r.stderr.splitlines()
+    log("  " + "\n  ".join(lines))
+    return lines
+
+
+def phase_cli_sage_pagerank(tmp: str, toy: str) -> None:
+    """``--model sage -E 3 train <toy> 1 16 --save CK``, then ``--model sage
+    infer <toy> 1 16 --load CK``: predictions.bin equal to the library's
+    forward from that checkpoint (``build_sage_pair`` impl="auto" bfloat16,
+    as the CLI's defaults); ``pagerank <toy>`` equal to the library's
+    ``pagerank`` bit for bit, and at ``-P 4 --device cuda:0,cuda:0,cuda:0,
+    cuda:0`` within rtol 1e-4 / atol 1e-5 of its ``pagerank_dist`` (COO ring
+    blocks, summed by index_add_)."""
+    from mg_gcn_tpu_torch.checkpoint import load_checkpoint
+    from mg_gcn_tpu_torch.formats import Dataset, read_dense
+    from mg_gcn_tpu_torch.models import sage
+    from mg_gcn_tpu_torch.models.pagerank import pagerank, pagerank_dist
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.parallel import dist
+
+    ds = Dataset.load(toy)
+    ck, preds = os.path.join(tmp, "sage.npz"), os.path.join(tmp, "predictions.bin")
+    lines = run_cli(tmp, ds, ["--model", "sage", "--save", ck, "train", toy, "1", "16"], "toy_32_16_7_1.csv")
+    if not any(line.startswith("aggregation engine: pattern") for line in lines):
+        raise AssertionError("CLI --model sage: no pattern engine line")
+    lines = run_command(["--model", "sage", "--load", ck, "--save", preds, "infer", toy, "1", "16"])
+    if not lines[-2].startswith(f"inference: n={ds.num_nodes} acc="):
+        raise AssertionError(f"CLI infer: stderr {lines}")
+    config = sage.SAGEConfig(sizes=(ds.num_features, 16, ds.num_labels))
+    template = sage.init_params(config, device="cuda")
+    params, _ = load_checkpoint(ck, (template, adam.adam_init(template)))
+    pair = sage.build_sage_pair(ds.graph, device="cuda")
+    with torch.no_grad():
+        want = torch.argmax(sage.forward(params, pair, torch.from_numpy(ds.features).cuda(), config), dim=-1)
+    got = read_dense(preds, np.int32)
+    if got.shape != (ds.num_nodes, 1) or not np.array_equal(got[:, 0], want.cpu().numpy()):
+        raise AssertionError("CLI infer: predictions.bin differs from the library's forward")
+
+    out1, out4 = os.path.join(tmp, "pagerank.bin"), os.path.join(tmp, "pagerank4.bin")
+    lines = run_command(["--save", out1, "pagerank", toy])
+    if not lines[-2].startswith(f"pagerank n={ds.num_nodes} sum=") or lines[-1] != f"wrote {out1}":
+        raise AssertionError(f"CLI pagerank: stderr {lines}")
+    want = pagerank(ds.graph, device="cuda").cpu().numpy()
+    if not np.array_equal(read_dense(out1)[:, 0], want):
+        raise AssertionError("CLI pagerank: pagerank.bin differs from the library's pagerank")
+    ring = ",".join(["cuda:0"] * DIST_PARTS)
+    run_command(["-P", str(DIST_PARTS), "--device", ring, "--save", out4, "pagerank", toy])
+    want4 = pagerank_dist(ds.graph, dist.make_mesh(DIST_PARTS, ring.split(",")))
+    compare_pagerank(f"CLI pagerank -P {DIST_PARTS}", torch.from_numpy(read_dense(out4)[:, 0]), want4.cpu(),
+                     "the library's pagerank_dist")
+    log("  CLI infer and pagerank files equal the library's results")
+
+
 def phase_cli() -> None:
     """The CLI on a small binary dataset: GCN (``train <dir> 2 128 128``,
     where ``auto`` must pick the pattern pair), GAT (``--model gat
-    --heads 2 train <dir> 1 16``) and ``-P 4 -R 1`` GCN on one card (the
-    dist pattern pair, the fused exchange by ``auto``); then ``data.prep synthetic`` and ``prep
-    cluster`` (RCM) write a dataset and its clustered copy, and GCN trains on
-    the copy with ``--impl block`` and ``--impl pallas``."""
+    --heads 2 train <dir> 1 16``), ``-P 4 -R 1`` GCN on one card (the
+    dist pattern pair, the fused exchange by ``auto``), SAGE's train and
+    infer and PageRank at -P 1 and 4 (:func:`phase_cli_sage_pagerank`);
+    then ``data.prep synthetic`` and ``prep cluster`` (RCM) write a dataset
+    and its clustered copy, and GCN trains on the copy with ``--impl block``
+    and ``--impl pallas``."""
     from mg_gcn_tpu_torch import sparse
     from mg_gcn_tpu_torch.cli import _csv_name
     from mg_gcn_tpu_torch.formats import Dataset
@@ -2012,6 +2459,7 @@ def phase_cli() -> None:
         if "exchange: fused ring (auto)" not in lines or not any(
                 line.startswith("aggregation engine: pattern") for line in lines):
             raise AssertionError("CLI -P 4: no pattern pair or no fused exchange")
+        phase_cli_sage_pagerank(tmp, toy)
 
         log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["synthetic", "-n", "20000", "--deg", "16",
                                                                   "--feat", "32", "--labels", "7", "-o", tmp]).strip())
@@ -2072,8 +2520,26 @@ def main() -> int:
         log(f"  bf16 epoch {e} {loss} {acc} {s}")
 
     phase("[5] pattern kernels at the main-path shape")
-    kernels = phase_kernels_main(ds, main_path["launches"])
+    kernels, pack = phase_kernels_main(ds, main_path["launches"])
+    torch.cuda.empty_cache()
+
+    phase(f"[5a] SAGE path: BASELINE config 4, sizes {SAGE_SIZES}, on the main pack")
+    sage_path = phase_sage_path(ds, pack)
+    torch.cuda.empty_cache()
+
+    phase("[5b] pattern kernels at the SAGE path's shape")
+    kernels += phase_sage_kernels(ds, pack, sage_path["launches"])
+
+    phase(f"[5c] PageRank at Reddit scale on the main pack, n = {N_MAIN}")
+    rows, pr_single = phase_pagerank_reddit(ds, pack)
+    kernels += rows
+    del pack
     torch.cuda.empty_cache()  # the 6.8 GB pack goes before the O(nnz) paths
+
+    phase(f"[5d] row-partitioned PageRank: -P {DIST_PARTS} on one card, n = {N_MAIN}")
+    phase_pagerank_dist(ds, pr_single)
+    del pr_single
+    torch.cuda.empty_cache()
 
     phase(f"[6] dist path: -P {DIST_PARTS} -R 1 on one card, n = {N_MAIN}")
     dist_path = phase_dist_path(ds)
@@ -2131,10 +2597,17 @@ def main() -> int:
     if path_b["fwd"].has_w:
         raise AssertionError("impl='auto' built a weighted gather pair for a binary graph")
     expect_launches(path_b["launches"], {("gather", "float32"): 5 * (1 + EPOCHS)})
+    graph_b = ds_b.graph
     del ds_b
 
     phase("[17] gather kernel at path B's shape")
-    kernels += phase_gather_main(path_b.pop("fwd"), path_b["launches"])
+    fwd_b = path_b.pop("fwd")
+    kernels += phase_gather_main(fwd_b, path_b["launches"])
+    torch.cuda.empty_cache()
+
+    phase(f"[17a] PageRank at products scale on path B's gather matrix, n = {N_PROD}")
+    kernels += phase_pagerank_products(fwd_b, graph_b)
+    del fwd_b, graph_b
     torch.cuda.empty_cache()
 
     phase("[18] CLI")

@@ -1,8 +1,12 @@
 """mg_gcn_tpu_torch — the PyTorch/CUDA port of mg_gcn_tpu, for NVIDIA Hopper.
 
-Full-batch GCN and GAT training on one card, and row-partitioned GCN
-training over P partitions driven by one process (``parallel/dist.py``,
-the CLI's ``-P N -R 1``; partitions may share a card). The aggregation
+Full-batch GCN, GraphSAGE (``models/sage.py``) and GAT training on one
+card, row-partitioned GCN training over P partitions driven by one process
+(``parallel/dist.py``, the CLI's ``-P N -R 1``; partitions may share a
+card), PageRank on one card or row-partitioned (``models/pagerank.py``, the
+CLI's ``pagerank``) and inference from a checkpoint (the CLI's ``infer``).
+SAGE's mean aggregation and PageRank's iteration run on the same engines
+as GCN's, with the row-normalized operator. The aggregation
 engines — the bit-packed dense-pattern pair (``ops/spmm_pattern.py``), its
 ring form for the partitions (``ops/spmm_pattern_ring.py``), its
 block-sparse form for clustered graphs (``ops/spmm_pattern_sparse.py``),

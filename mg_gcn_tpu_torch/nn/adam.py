@@ -43,7 +43,7 @@ def _zeros_like(params: Params) -> Params:
 
 
 def adam_init(params: Params) -> AdamState:
-    device = params[0]["W"].device
+    device = next(iter(params[0].values())).device
     return AdamState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         m=_zeros_like(params),
@@ -62,7 +62,7 @@ def adam_update(
     eps: float = 1e-8,
 ) -> tuple[Params, AdamState]:
     step = state.step + 1
-    t = step.to(params[0]["W"].dtype)
+    t = step.to(next(iter(params[0].values())).dtype)
     bc1 = 1.0 - torch.pow(beta1, t)
     bc2 = 1.0 - torch.pow(beta2, t)
     new_p, new_m, new_v = [], [], []

@@ -57,6 +57,36 @@ def is_binary(csr: CSRData) -> bool:
     return bool(np.all(csr.data == 1.0))
 
 
+def pack_budget_gb(n: int, card_bytes: int) -> tuple[float, float]:
+    """(GB of the n_pad²/8 pack of an n-node graph, GB of the
+    PATTERN_MEM_FRACTION share of a card of ``card_bytes``)."""
+    n_pad = round_up(n, N_ALIGN)
+    return n_pad * n_pad / 8 / 1e9, PATTERN_MEM_FRACTION * card_bytes / 1e9
+
+
+def pattern_feasible(csr: CSRData, card_bytes: int | None) -> bool:
+    """True when impl="auto" may take the pattern pair: a card of
+    ``card_bytes`` (None on the CPU), a binary adjacency, and its n_pad²/8
+    pack within PATTERN_MEM_FRACTION of the card. The one predicate the GCN
+    rule (``train.auto_engine``), SAGE and PageRank share; the JAX package's
+    fixed 9 GB budget is a TPU v5e's and is not kept."""
+    if card_bytes is None or not is_binary(csr):
+        return False
+    pack_gb, budget_gb = pack_budget_gb(csr.nrows, card_bytes)
+    return pack_gb <= budget_gb
+
+
+def row_scale(csr: CSRData, n_pad: int) -> np.ndarray:
+    """Padded 1/out-degree vector, 0 for an empty row: the row-normalized M
+    factors as diag(r)·P (mean aggregation; matrix.hpp:341-349
+    normalize(false) semantics). ``mg_gcn_tpu/ops/spmm_pattern.py:139-146``."""
+    outdeg = np.diff(csr.indptr).astype(np.float64)
+    r = np.zeros(n_pad, np.float32)
+    with np.errstate(divide="ignore"):
+        r[: csr.nrows] = np.where(outdeg > 0, 1.0 / outdeg, 0.0)
+    return r
+
+
 def pack_csr_bits(csr: CSRData, n_pad: int) -> np.ndarray:
     """Pack the CSR pattern into the strided uint32 layout on the host:
     P[i, j] -> bit (j%4096)//128 of word pack[i, (j//4096)*128 + j%128]."""

@@ -143,7 +143,7 @@ def shard_dataset(ds, mesh: Ring, n_rows: int | None = None, mask_train: bool = 
     return shard(x, mesh), shard(y, mesh), masks
 
 
-def _reduce(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
+def reduce_parts(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
     """``op`` folded over the partitions' tensors in partition order, on the
     first partition's device (psum with torch.add, pmax with torch.maximum)."""
     out = xs[0]
@@ -154,7 +154,7 @@ def _reduce(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
 
 def _psum_trees(trees: Sequence) -> list[dict]:
     """The per-partition gradient trees summed leaf by leaf (psum)."""
-    return [{k: _reduce([t[i][k] for t in trees], torch.add) for k in layer} for i, layer in enumerate(trees[0])]
+    return [{k: reduce_parts([t[i][k] for t in trees], torch.add) for k in layer} for i, layer in enumerate(trees[0])]
 
 
 def _copy_to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -398,7 +398,7 @@ def dist_aggregate_pattern(
         hs = [h * sc[:, None] for h, sc in zip(hs, pair.scale)]
     qscale = [None] * parts
     if op_dt == torch.int8:
-        amax = torch.clamp(_reduce([torch.amax(torch.abs(h), dim=0) for h in hs], torch.maximum), min=1e-30)
+        amax = torch.clamp(reduce_parts([torch.amax(torch.abs(h), dim=0) for h in hs], torch.maximum), min=1e-30)
         # a tensor divisor: CUDA turns division by a Python scalar into a
         # multiply by its reciprocal (ROADMAP queue 3)
         qscale = [q / torch.full_like(q, 127.0) for q in (amax.to(h.device) for h in hs)]
@@ -492,7 +492,7 @@ def _dist_softmax_xent(logits, ys, n_total: int, masks):
         denom = torch.tensor(float(n_total), device=logits[0].device)
     else:
         ms = [mk.to(torch.float32) for mk in masks]
-        denom = torch.clamp(_reduce([torch.sum(mk) for mk in ms], torch.add), min=1)
+        denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add), min=1)
     for j, (o, y) in enumerate(zip(probs, ys)):
         y = y.long()
         logp = torch.log(torch.clamp(torch.gather(o, 1, y[:, None])[:, 0], min=torch.finfo(o.dtype).tiny))
@@ -505,8 +505,8 @@ def _dist_softmax_xent(logits, ys, n_total: int, masks):
         else:
             terms.append((torch.sum(logp * ms[j]), torch.sum(correct * ms[j])))
             grads.append(g * ms[j][:, None] / dn)
-    loss = -_reduce([t[0] for t in terms], torch.add) / denom
-    acc = _reduce([t[1] for t in terms], torch.add) / denom
+    loss = -reduce_parts([t[0] for t in terms], torch.add) / denom
+    acc = reduce_parts([t[1] for t in terms], torch.add) / denom
     return loss, acc, grads
 
 
@@ -572,7 +572,7 @@ def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig
         denom = torch.tensor(float(n_total), device=xs[0].device)
     else:
         ms = [mk.to(torch.float32) for mk in masks]
-        denom = torch.clamp(_reduce([torch.sum(mk) for mk in ms], torch.add), min=1.0)
+        denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add), min=1.0)
     agg = lambda hs: list(_ExactAgg.apply(agg_fwd, agg_bwd, *hs))  # noqa: E731
     with torch.enable_grad():
         hs = xs
@@ -582,8 +582,8 @@ def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig
         flat = [v for p in leaves for layer in p for v in layer.values()]
         flat_grads = iter(torch.autograd.grad([t[0] for t in terms], flat))
     local = [[{k: next(flat_grads) for k in layer} for layer in p] for p in leaves]
-    loss = _reduce([t[0].detach() for t in terms], torch.add)
-    acc = _reduce([t[1] for t in terms], torch.add)
+    loss = reduce_parts([t[0].detach() for t in terms], torch.add)
+    acc = reduce_parts([t[1] for t in terms], torch.add)
     return loss, acc, _psum_trees(local)
 
 

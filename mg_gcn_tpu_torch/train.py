@@ -1,5 +1,5 @@
-"""Single-card training: the aggregation pair, the train step (GCN and
-GAT) and the GCN epoch loop.
+"""Single-card training: the aggregation pair, the train step (GCN, SAGE
+and GAT) and the GCN epoch loop.
 
 Port of ``mg_gcn_tpu/train.py:121-432`` (the reference's single-GPU path,
 main.cpp:113-133): per epoch ``forward -> backward -> update -> sync``,
@@ -71,8 +71,7 @@ def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = F
     arrays; a graph known by its counts only skips the block rule."""
     if card_bytes is None:
         return "xla", "no card"
-    n_pad = spmm_pattern.round_up(graph.nrows, spmm_pattern.N_ALIGN)
-    pack_gb, budget_gb = n_pad * n_pad / 8 / 1e9, spmm_pattern.PATTERN_MEM_FRACTION * card_bytes / 1e9
+    pack_gb, budget_gb = spmm_pattern.pack_budget_gb(graph.nrows, card_bytes)
     binary = not pre_normalized and spmm_pattern.is_binary(graph)
     occ = ""
     if binary and hasattr(graph, "indptr"):
@@ -82,12 +81,35 @@ def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = F
         store_gb, addressable_gb = tile_occ * pack_gb, spmm_pattern_sparse.MAX_STORE_WORDS * 4 / 1e9
         if sparse_tiles and store_gb <= budget_gb and store_gb < addressable_gb:
             return "block", f"binary adjacency, {occ}block store {store_gb:.2f} GB within {budget_gb:.1f} GB"
-    if binary and pack_gb <= budget_gb:
+    if not pre_normalized and spmm_pattern.pattern_feasible(graph, card_bytes):
         return "pattern", f"binary adjacency, {occ}bit pack {pack_gb:.2f} GB within {budget_gb:.1f} GB"
     why = f"bit pack {pack_gb:.1f} GB over {budget_gb:.1f} GB" if binary else "weighted adjacency"
     fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
     impl = _edge_or_gather(graph)
     return impl, f"{why}, expected edge-tile fill {fill:.3f} {'>=' if impl == 'edge' else '<'} {EDGE_FILL_MIN}"
+
+
+def card_memory(dev: torch.device) -> int | None:
+    """The memory of card ``dev``, or None for the CPU: the card size the
+    rules of impl="auto" take."""
+    return torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
+
+
+def mean_engine(graph: CSRData, dev: torch.device, have_pack: bool = False) -> str:
+    """The engine impl="auto" picks for the row-normalized operators of SAGE
+    and PageRank (``mg_gcn_tpu/models/sage.py:71-83``,
+    ``pagerank.py:41-49``): the pattern pair when a pack is at hand or
+    :func:`~.ops.spmm_pattern.pattern_feasible` (GCN's pack rule), else on a
+    card :func:`_edge_or_gather` and on the CPU the COO engine. No block
+    rule, as in the JAX package. On a card one stderr line names the engine."""
+    card = card_memory(dev)
+    if have_pack or spmm_pattern.pattern_feasible(graph, card):
+        impl = "pattern"
+    else:
+        impl = "xla" if card is None else _edge_or_gather(graph)
+    if card is not None:
+        print(f"aggregation engine: {impl} (auto, row-normalized operator)", file=sys.stderr)
+    return impl
 
 
 def dist_pattern_engine(graph: CSRData, parts: int, per_card: int, card_bytes: int) -> tuple[bool, str]:
@@ -143,7 +165,7 @@ def build_agg_pair(
     if impl not in IMPLS:
         raise ValueError(f"unknown aggregation impl {impl!r} (expected {'/'.join(IMPLS)})")
     if impl == "auto":
-        card = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else None
+        card = card_memory(dev)
         impl, why = auto_engine(graph, card, pre_normalized)
         if card is not None:
             print(f"aggregation engine: {impl} (auto: {why})", file=sys.stderr)
@@ -177,9 +199,11 @@ def make_train_step(
     (params, opt_state, pair, x, y, mask) -> (params, opt_state, loss, acc).
 
     ``model`` selects the family: "gcn" (``pair`` an :class:`AggPair`,
-    parity or exact per ``config.parity``) or "gat" (``pair`` the
-    ``models.gat.build_gat_graph`` pair, exact autograd), as
-    ``mg_gcn_tpu/train.py:283-290`` dispatches."""
+    parity or exact per ``config.parity``), "sage" (``pair`` the
+    ``models.sage.build_sage_pair`` pair, exact autograd) or "gat"
+    (``pair`` the ``models.gat.build_gat_graph`` pair, exact autograd), as
+    ``mg_gcn_tpu/train.py:283-290`` dispatches. Adam decays every ``W*``
+    leaf (SAGE's ``Wself`` and ``Wneigh``)."""
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if model == "gcn":
@@ -187,7 +211,7 @@ def make_train_step(
     elif model == "gat":
         from .models.gat import loss_and_grad as lag
     elif model == "sage":
-        raise NotImplementedError("model 'sage' is not ported yet: ROADMAP queue 1 item 6")
+        from .models.sage import loss_and_grad as lag
     else:
         raise ValueError(f"unknown model {model!r}")
     hp = dict(adam.DEFAULT_HPARAMS)

@@ -1082,10 +1082,12 @@ def test_backward_geometry_follows_the_rule(dtype, d_pad):
     _assert_matches_plain(sp.pattern_bwd(pack, b), sp.pattern_bwd_plain(pack, b), dtype)
 
 
-@pytest.mark.parametrize("dtype,d_pad", [(torch.bfloat16, 264), (torch.float32, 256)])
+@pytest.mark.parametrize("dtype,d_pad", [(torch.bfloat16, 264), (torch.float32, 256), (torch.float32, 512),
+                                         (torch.float32, 608), (torch.bfloat16, 608), (torch.int8, 608)])
 def test_pattern_bwd_column_windows_keep_the_order(dtype, d_pad):
     """With one group and B rows past half the L2 (65,536 nodes, chunks of
-    256 bf16 or 128 float32 features: 32 MB a chunk), pattern_bwd's one
+    256 bf16 or 128 float32 features: 32 MB a chunk; SAGE's widths 512 and
+    608 walk 4-5 chunks in the one wave), pattern_bwd's one
     cooperative launch walks column windows in turn, a grid-wide barrier
     between two, each going on from the sums the one before stored: bf16 still equal to pattern_bwd_groups_plain bit for
     bit, float32 within the float32 sum bound; two launches equal."""
@@ -1185,3 +1187,130 @@ def test_block_bwd_geometry_follows_the_rule(dtype, d_pad):
     _assert_block_matches_plain(mat, "bwd", _operand(mat.n_pad, d_pad, dtype, seed=1))
     with pytest.raises(RuntimeError, match="mggcn_block_bwd_geometry"):
         sps.block_bwd_geometry(233_472, 512, d_pad + 4, dtype)
+
+
+# ---------------------------------------------------------------------------
+# SAGE and PageRank: the pattern walks at d = 1, 512 and 608, the binary
+# gather walk pre-scaled at d = 1, and the models on the card against the CPU
+
+
+@pytest.mark.parametrize("d", [1, 512, 608])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_pattern_kernels_at_sage_and_pagerank_widths(graph, which, dtype, d):
+    """pattern_fwd / pattern_bwd at PageRank's d = 1 (d_pad 8) and SAGE's
+    512 and 608: float within the float32 sum bound of the float64 sum, int8
+    equal; pattern_bwd's bf16 and int8 bit for bit its twin; two launches
+    equal; one count a launch."""
+    n_pad = sp.round_up(graph.nrows, sp.N_ALIGN)
+    pack = sp.pack_bits_on_device(graph, n_pad, torch.device("cuda"))
+    b = torch.zeros((n_pad, sp.round_up(d, 8)), device="cuda", dtype=dtype)
+    b[:, :d] = _operand(n_pad, d, dtype, seed=d)
+    kernel, plain = (sp.pattern_fwd, sp.pattern_fwd_plain) if which == "fwd" else (sp.pattern_bwd, sp.pattern_bwd_plain)
+    key = (str(dtype).removeprefix("torch."), b.shape[1])
+    before = kernel.launches[key]
+    got, again = kernel(pack, b), kernel(pack, b)
+    torch.cuda.synchronize()
+    assert kernel.launches[key] == before + 2 and torch.equal(got, again)
+    rows, cols = sp.decode_pattern(pack, 0, n_pad)
+    dst = cols if which == "fwd" else rows
+    deg = torch.bincount(dst, minlength=n_pad).double()[:, None]
+    if which == "bwd":
+        _assert_bwd_follows_twin(got, pack, b, deg, sp.pattern_bwd_groups_plain, sp.pattern_bwd_plain)
+    elif dtype == torch.int8:
+        assert torch.equal(got, plain(pack, b))
+    else:
+        _assert_within_sum_error(got, plain(pack, b, torch.float64), plain(pack, b.abs(), torch.float64), deg)
+
+
+def test_gather_binary_prescaled_at_d1(hub_graph):
+    """PageRank's products-scale operator: the binary walk over Aᵀ with a
+    pre-scale of 1/max(outdeg, 1), float32 at d = 1 (d_pad 8), on the hub
+    graph's pattern (a column in every row, empty rows) on the card against
+    the CPU; the raw launch within the float32 sum bound."""
+    from mg_gcn_tpu_torch.models import pagerank as pr
+    from mg_gcn_tpu_torch.ops.spmm import spmm
+
+    g = CSRData(hub_graph.indptr, hub_graph.indices, np.ones_like(hub_graph.data), hub_graph.shape)
+    mat_gpu = pr._pagerank_mat(g, "gather", device="cuda")
+    mat_cpu = pr._pagerank_mat(g, "gather", device="cpu")
+    assert not mat_gpu.has_w and mat_gpu.scale_side == "pre"
+    p = torch.from_numpy(np.random.default_rng(2).random((g.nrows, 1)).astype(np.float32))
+    torch.testing.assert_close(spmm(mat_gpu, p.cuda()).cpu(), spmm(mat_cpu, p), rtol=1e-5, atol=1e-6)
+    b = torch.zeros((g.nrows, 8), device="cuda")
+    b[:, 0] = p[:, 0].cuda() * mat_gpu.scale
+    before = sg.gather.launches[("float32", 8)]
+    got = sg.gather(mat_gpu.indptr, mat_gpu.indices, None, b)
+    torch.cuda.synchronize()
+    assert sg.gather.launches[("float32", 8)] == before + 1
+    deg = torch.diff(mat_gpu.indptr).double()[:, None]
+    exact = se.csr_plain(mat_gpu.indptr, mat_gpu.indices, None, b, torch.float64)
+    mag = se.csr_plain(mat_gpu.indptr, mat_gpu.indices, None, b.abs(), torch.float64)
+    _assert_within_sum_error(got, exact, mag, deg)
+
+
+@pytest.mark.parametrize("impl", ["pattern", "edge", "gather"])
+def test_sage_step_on_card_matches_cpu(impl):
+    """One float32 SAGE step (608-wide-style two layers on a small graph,
+    l2-normalized) on the card against the port's CPU step from the same
+    seed-99 parameters: loss within rtol 1e-5, every gradient leaf within
+    ||card - CPU|| <= 1e-4 ||CPU||; the Adam step's loss too."""
+    from mg_gcn_tpu_torch.models import sage
+    from mg_gcn_tpu_torch.nn import adam
+
+    ds = Dataset.load(GOLDEN)
+    config = sage.SAGEConfig(sizes=(ds.num_features, 512, ds.num_labels))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pair = sage.build_sage_pair(ds.graph, impl=impl, dtype="float32", device=dev)
+        params = sage.init_params(config, device=dev)
+        x = torch.from_numpy(ds.features).to(dev)
+        y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+        out[dev] = sage.loss_and_grad(params, pair, x, y, config)
+        step = make_train_step(config, model="sage")
+        _, _, loss2, _ = step(params, adam.adam_init(params), pair, x, y, None)
+        out[dev + " step"] = float(loss2)
+    (lc, _, gc), (lg, _, gg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    np.testing.assert_allclose(out["cuda step"], out["cpu step"], rtol=1e-5)
+    for layer_c, layer_g in zip(gc, gg):
+        for k in layer_c:
+            diff = torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k])
+            assert diff <= 1e-4 * torch.linalg.vector_norm(layer_c[k]), k
+
+
+def test_sage_auto_takes_the_pattern_pair_on_the_card():
+    from mg_gcn_tpu_torch.models import sage
+
+    assert isinstance(sage.build_sage_pair(sparse.random_graph(5000, 16, seed=4), device="cuda").fwd, sp.PatternMat)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pattern", "gather", "edge", "xla"])
+def test_pagerank_on_card_matches_cpu(impl):
+    """PageRank on the card against the CPU (the JAX tests' tolerance, rtol
+    1e-4 / atol 1e-5); the pattern operator's launches are one float32
+    d_pad 8 pattern_fwd an iteration."""
+    from mg_gcn_tpu_torch.models import pagerank as pr
+
+    g = sparse.random_graph(5000, 16, seed=4)
+    before = sp.pattern_fwd.launches[("float32", 8)]
+    mat = pr._pagerank_mat(g, impl, device="cuda")
+    p_gpu, iters = pr.power_iterate(mat, g.nrows)
+    p_cpu, _ = pr.power_iterate(pr._pagerank_mat(g, "xla", device="cpu"), g.nrows)
+    np.testing.assert_allclose(p_gpu.cpu().numpy(), p_cpu.numpy(), rtol=1e-4, atol=1e-5)
+    if impl in ("auto", "pattern"):
+        assert isinstance(mat, sp.PatternMat)
+        assert sp.pattern_fwd.launches[("float32", 8)] == before + iters
+    got = pr.pagerank(g, impl=impl, device="cuda")
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), pr.pagerank(g, device="cpu").numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "all_gather"])
+def test_pagerank_dist_on_card_matches_cpu(strategy):
+    from mg_gcn_tpu_torch.models import pagerank as pr
+
+    g = sparse.random_graph(5000, 16, seed=4)
+    got = pr.pagerank_dist(g, dist.make_mesh(4, ["cuda:0"] * 4), strategy=strategy)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), pr.pagerank(g, device="cpu").numpy(), rtol=1e-4, atol=1e-5)

@@ -207,8 +207,8 @@ def test_three_adam_steps_match_jax_train_step():
 def test_make_train_step_rejects_unknown_models():
     with pytest.raises(ValueError, match="unknown model"):
         ttrain.make_train_step(gat.GATConfig(sizes=(2, 2)), model="gin")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        ttrain.make_train_step(gat.GATConfig(sizes=(2, 2)), model="sage")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ttrain.make_train_step(gat.GATConfig(sizes=(2, 2)), optimizer="lamb", model="sage")
 
 
 def test_gat_entry_points_raise_without_cuda(monkeypatch):

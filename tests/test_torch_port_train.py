@@ -310,7 +310,7 @@ def test_cli_save_load_resumes(tmp_path, capsys):
     "args",
     [
         ["-P", "2", "-R", "0", "train"],
-        ["--model", "sage", "train"],
+        ["-P", "2", "-R", "1", "--model", "sage", "train"],
         ["-P", "2", "-R", "1", "--model", "gat", "train"],
         ["--f64", "train"],
         ["--mmap", "train"],
@@ -319,8 +319,8 @@ def test_cli_save_load_resumes(tmp_path, capsys):
         ["--time-phases", "train"],
         ["--profile", "prof", "train"],
         ["--impl", "halo", "train"],
-        ["infer"],
-        ["pagerank"],
+        ["--multihost", "infer"],
+        ["--multihost", "pagerank"],
     ],
     ids=lambda a: " ".join(a),
 )
