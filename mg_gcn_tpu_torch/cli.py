@@ -1,9 +1,10 @@
 """Command-line interface, the port of ``mg_gcn_tpu/cli.py`` (reference
 main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE) and
 ``--model gat [--heads H] [--edge-weighted]`` on one card, and with
-``-P N -R 1`` GCN row-partitioned over N partitions driven by this one
-process (``parallel/dist.py``); ``infer`` loads a checkpoint and writes the
-forward pass's predictions; ``pagerank`` runs the power iteration:
+``-P N -R 1`` GCN and SAGE row-partitioned over N partitions driven by this
+one process (``parallel/dist.py``, ``parallel/dist_halo.py``); ``infer``
+loads a checkpoint and writes the forward pass's predictions; ``pagerank``
+runs the power iteration:
 
     python -m mg_gcn_tpu_torch.cli [-E epochs] [options] train <data_dir> <L> <d1> ... <dL>
     python -m mg_gcn_tpu_torch.cli [options] --load CK infer <data_dir> <L> <d1> ... <dL>
@@ -49,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--impl",
         default="auto",
         choices=["auto", "pattern", "block", "edge", "gather", "xla", "pallas", "halo"],
-        help="aggregation engine (this port: auto, pattern, block, edge, gather, xla, pallas; halo is a later slice)",
+        help="aggregation engine (halo: -P > 1 only)",
     )
     p.add_argument("--model", default="gcn", choices=["gcn", "sage", "gat"])
     p.add_argument("--heads", type=int, default=1,
@@ -111,8 +112,6 @@ def _not_ported(opts) -> str | None:
     later = [
         (dist and not opts.R, "-R 0 (column parallel): ROADMAP queue 1 item 9b"),
         (dist and opts.model == "gat", "--model gat with -P > 1: ROADMAP queue 1 item 9e"),
-        (dist and opts.impl == "gather", "--impl gather with -P > 1: ROADMAP queue 1 item 9c"),
-        (dist and opts.model == "sage", "--model sage with -P > 1: ROADMAP queue 1 item 9f"),
         (opts.mmap, "--mmap: ROADMAP queue 1 item 9g"),
         (opts.f64, "--f64: ROADMAP queue 1 item 4b"),
         (opts.time_phases, "--time-phases: ROADMAP queue 1 item 8"),
@@ -121,16 +120,14 @@ def _not_ported(opts) -> str | None:
     for asked, what in later:
         if asked:
             return what
-    from .train import LATER_IMPLS
-
-    if opts.impl in LATER_IMPLS:
-        return f"--impl {opts.impl}: {LATER_IMPLS[opts.impl]}"
     return None
 
 
 def _invalid(opts) -> str | None:
     """The JAX CLI's refusals of option combinations (``cli.py:185-209,
     281-307, 340-347``), with its messages, or None."""
+    if opts.impl == "halo" and opts.P == 1:
+        return "--impl halo is a distributed mode; use -P <num> -R 1"
     if opts.model == "sage":
         if opts.impl in ("block", "pallas"):
             return (f"--model sage does not support --impl {opts.impl}; "
@@ -139,6 +136,8 @@ def _invalid(opts) -> str | None:
             return "--residual is a GCN option (--model gcn)"
         if opts.P > 1 and not opts.R:
             return "-R 0 (column parallel) supports --model gcn only; use -R 1 for SAGE"
+        if opts.optimizer == "sgd" and opts.P > 1:
+            return "--optimizer sgd is not wired for distributed SAGE; use adam or --model gcn"
     if opts.edge_weighted and opts.model != "gat":
         return "--edge-weighted is a GAT option (--model gat)"
     if opts.model == "gat":
@@ -220,7 +219,8 @@ def cmd_train(opts) -> int:
         params, opt_state = load_checkpoint(opts.load, (params, opt_state))
 
     if P > 1:
-        params, opt_state, code = _train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh)
+        train_dist = _train_dist_sage if opts.model == "sage" else _train_dist
+        params, opt_state, code = train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh)
     else:
         params, opt_state, code = _train_single(opts, ds, config, hparams, params, opt_state, timers, dev)
     if code:
@@ -302,65 +302,129 @@ def _train_single(opts, ds, config, hparams, params, opt_state, timers, dev):
     return params, opt_state, 0
 
 
+def _card_bytes(mesh) -> int | None:
+    """The smallest memory of the ring's cards, or None on the CPU."""
+    cards = [d for d in mesh.replica_devices if d.type == "cuda"]
+    return min(torch.cuda.get_device_properties(d).total_memory for d in cards) if cards else None
+
+
+def _halo_lines(pair, P: int, n: int) -> None:
+    """The JAX CLI's stderr lines for a halo pair (``cli.py:634-641``)."""
+    from .parallel.dist_halo import DistHaloGatherMat
+
+    if isinstance(pair.fwd, DistHaloGatherMat):
+        print("halo local engine: serial-gather", file=sys.stderr)
+    moved = P * sum(pair.fwd.round_widths)
+    print(f"halo exchange: {moved} rows/SpMM fwd moved ({pair.fwd.halo_total} useful; dense bcast would move"
+          f" {(P - 1) * n})", file=sys.stderr)
+
+
 def _train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh):
-    """``-P N -R 1`` GCN (``mg_gcn_tpu/cli.py:517-694``): the row-partitioned
-    pattern pair where the JAX CLI's gate takes it (on a card; on the CPU
-    when ``--impl pattern`` asks), with the fused ring exchange by default,
-    else the COO ring pair. Returns (params, opt_state, exit code)."""
+    """``-P N -R 1`` GCN (``mg_gcn_tpu/cli.py:517-694``): the pair
+    ``train.dist_engine`` picks. The row-partitioned pattern pair where the
+    JAX CLI's gate takes it (on a card; on the CPU where ``--impl pattern``
+    asks), with the fused ring exchange by default; ``--impl gather`` the
+    serial-gather ring blocks; ``--impl halo``, and ``auto`` otherwise, the
+    halo pair (its local engine by ``train.halo_engine``); any other impl
+    the COO ring pair. Returns (params, opt_state, exit code)."""
     from . import sparse
-    from .ops.spmm_pattern import is_binary
     from .parallel import dist
-    from .train import dist_pattern_engine
+    from .train import dist_engine
 
     P, n = mesh.parts, ds.num_nodes
     strategy = "all_gather" if opts.S else "ring"
     exchange_auto = opts.exchange == "auto"
     if not exchange_auto:
         strategy = opts.exchange
-    cards = [d for d in mesh.replica_devices if d.type == "cuda"]
-    card = min(torch.cuda.get_device_properties(d).total_memory for d in cards) if cards else None
+    card = _card_bytes(mesh)
     per_card = max(mesh.devices.count(d) for d in mesh.replica_devices)
-    use_pattern = False
-    if opts.impl in ("auto", "pattern"):
-        if card is None:  # the CPU runs the plain versions where --impl pattern asks
-            use_pattern = opts.impl == "pattern" and is_binary(ds.graph)
-        else:
-            use_pattern, why = dist_pattern_engine(ds.graph, P, per_card, card)
-            print(f"aggregation engine: {'pattern' if use_pattern else 'xla'} (auto: {why})", file=sys.stderr)
-    if opts.impl == "pattern" and not use_pattern:
-        print("pattern impl not applicable here", file=sys.stderr)
+    try:
+        pair_kind, why = dist_engine(ds.graph, opts.impl, P, per_card, card)
+    except ValueError as exc:
+        print(exc, file=sys.stderr)
         return params, opt_state, 2
-    if strategy == "fused" and not use_pattern:
+    if card is not None and opts.impl in ("auto", "pattern"):
+        print(f"aggregation engine: {pair_kind} (auto: {why})", file=sys.stderr)
+    if pair_kind != "pattern":
+        if n % P:
+            print(
+                f"node count {n} not divisible by P={P}; pad the dataset "
+                "(prep pads to multiples of 8 like the reference)",
+                file=sys.stderr,
+            )
+            return params, opt_state, 2
+        if pair_kind == "gather" and strategy != "ring":
+            print("--impl gather uses the ring exchange; drop -S / --exchange", file=sys.stderr)
+            return params, opt_state, 2
+    if strategy == "fused" and pair_kind != "pattern":
         print(
             "--exchange fused needs the bit-pattern pair (binary adjacency "
             "within the pattern memory budget)",
             file=sys.stderr,
         )
         return params, opt_state, 2
+    # the fused ring kernel for eligible pattern runs (cli.py:575-582); -N
+    # pins the per-round ring, -S all_gather
+    fused_auto = pair_kind == "pattern" and exchange_auto and not opts.S and not opts.N
+    try:  # a halo pair asked for another exchange: the JAX step's refusal
+        step = dist.make_dist_train_step(config, mesh, n, hparams, strategy="fused" if fused_auto else strategy,
+                                         pair_kind=pair_kind, pattern_dtype=opts.pattern_dtype,
+                                         optimizer=opts.optimizer)
+    except ValueError as exc:
+        print(exc, file=sys.stderr)
+        return params, opt_state, 2
     with timers.span("0_preprocess"):
-        if use_pattern:
+        if pair_kind == "pattern":
             pair = dist.DistPatternPair.from_binary_csr(ds.graph, mesh, dtype=opts.pattern_dtype)
             xs, ys, masks = dist.shard_dataset(ds, mesh, pair.n_pad, opts.mask_train)
-            pair_kind = "pattern"
-            if exchange_auto and not opts.S and not opts.N:
-                # the fused ring kernel for eligible pattern runs (cli.py:575-582);
-                # -N pins the per-round ring, -S all_gather
-                strategy = "fused"
+            if fused_auto:
                 print("exchange: fused ring (auto)", file=sys.stderr)
         else:
-            if n % P:
-                print(
-                    f"node count {n} not divisible by P={P}; pad the dataset "
-                    "(prep pads to multiples of 8 like the reference)",
-                    file=sys.stderr,
-                )
-                return params, opt_state, 2
             a = sparse.normalize(ds.graph, axis=True)  # main.cpp:143
-            pair = dist.DistAggPair.from_csr_pair(sparse.transpose(a), a, mesh)
+            pair = dist.build_pair(pair_kind, sparse.transpose(a), a, mesh)
+            if pair_kind in ("halo", "halo_gather"):
+                _halo_lines(pair, P, n)
+            del a
             xs, ys, masks = dist.shard_dataset(ds, mesh, mask_train=opts.mask_train)
-            pair_kind = "coo"
-    step = dist.make_dist_train_step(config, mesh, n, hparams, strategy=strategy, pair_kind=pair_kind,
-                                     pattern_dtype=opts.pattern_dtype, optimizer=opts.optimizer)
+    params, opt_state = _run_epochs(opts, step, (pair, xs, ys, masks), dist.replicate(params, mesh),
+                                    dist.replicate(opt_state, mesh), timers, save_view=lambda p, o: (p[0], o[0]))
+    return params[0], opt_state[0], 0
+
+
+def _train_dist_sage(opts, ds, config, hparams, params, opt_state, timers, mesh):
+    """``--model sage -P N -R 1`` (``mg_gcn_tpu/cli.py:697-795``, without its
+    per-process slab branch) over the mean pair (M, Mᵀ): ``--impl halo``
+    the halo pair (its local engine by ``train.halo_engine``, through
+    ``train.dist_engine``), ``--impl gather`` the serial-gather ring
+    blocks, every other impl
+    (``auto`` too) the COO ring pair; ``-S`` the all_gather exchange.
+    Returns (params, opt_state, exit code)."""
+    from . import sparse
+    from .parallel import dist
+    from .train import dist_engine
+
+    P, n = mesh.parts, ds.num_nodes
+    if n % P:
+        print(f"node count {n} not divisible by P={P}", file=sys.stderr)
+        return params, opt_state, 2
+    strategy = "all_gather" if opts.S else "ring"
+    if opts.impl == "gather" and strategy != "ring":
+        print("--impl gather uses the ring exchange; drop -S", file=sys.stderr)
+        return params, opt_state, 2
+    # SAGE's auto takes COO (cli.py:743-745); halo and gather as the GCN path
+    pair_kind = "coo"
+    if opts.impl in ("halo", "gather"):
+        pair_kind = dist_engine(ds.graph, opts.impl, P, P, _card_bytes(mesh))[0]
+    try:  # a halo pair asked for the all_gather exchange: the JAX step's refusal
+        step = dist.make_dist_sage_train_step(config, mesh, n, hparams, strategy=strategy, pair_kind=pair_kind)
+    except ValueError as exc:
+        print(exc, file=sys.stderr)
+        return params, opt_state, 2
+    with timers.span("0_preprocess"):
+        m = sparse.normalize(ds.graph, axis=False)
+        pair = dist.build_pair(pair_kind, m, sparse.transpose(m), mesh)
+        del m
+        xs, ys, masks = dist.shard_dataset(ds, mesh, mask_train=opts.mask_train)
     params, opt_state = _run_epochs(opts, step, (pair, xs, ys, masks), dist.replicate(params, mesh),
                                     dist.replicate(opt_state, mesh), timers, save_view=lambda p, o: (p[0], o[0]))
     return params[0], opt_state[0], 0
@@ -392,10 +456,8 @@ def cmd_infer(opts) -> int:
         # column-sharded semantics; this path does not reconstruct that
         print("-R 0 (column parallel) inference is not wired; train with -R 1 or infer with -P 1", file=sys.stderr)
         return 2
-    from .train import LATER_IMPLS
-
-    if opts.impl in LATER_IMPLS:
-        print(f"not ported yet: --impl {opts.impl}: {LATER_IMPLS[opts.impl]}", file=sys.stderr)
+    if opts.impl == "halo" and P == 1:
+        print("--impl halo is a distributed mode; use -P <num> -R 1", file=sys.stderr)
         return 2
     try:
         mesh = _partition_ring(opts.device, P) if P > 1 else None

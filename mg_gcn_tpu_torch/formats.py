@@ -11,7 +11,7 @@ Port of ``mg_gcn_tpu/formats.py`` (numpy only, no framework dependency):
 
 ``ensure_pigo_transpose`` writes the transposed ``graph_t.bin`` that prep
 leaves beside a dataset. The header-only ``GraphHeader``, slab reads and
-mmap loading belong to later distributed slices (ROADMAP queue 1 items 9d, 9g).
+mmap loading belong to a later distributed slice (ROADMAP queue 1 item 9g).
 """
 
 from __future__ import annotations

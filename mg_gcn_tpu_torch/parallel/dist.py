@@ -17,6 +17,12 @@ like the JAX package's virtual CPU devices). The mapping:
 * replicated parameters and optimizer state -> one copy per distinct device
   (:func:`replicate`), each updated from the same summed gradients.
 
+The pairs: COO ring blocks (:class:`DistAggPair`), the bit-packed pattern
+pair (:class:`DistPatternPair`), ring blocks on the serial-gather kernel
+(:class:`DistGatherPair`) and the halo exchange (``parallel/dist_halo.py``).
+GCN trains on each (:func:`make_dist_train_step`), GraphSAGE on all but the
+pattern pair (:func:`make_dist_sage_train_step`).
+
 The exchange runs on the partitions' current streams, before the products
 that read it; overlapping the two is later work (ROADMAP queue 1 item 9h).
 """
@@ -38,15 +44,11 @@ from ..ops import elementwise as ew
 from ..ops import spmm_pattern as sp
 from ..ops.softmax_xent import softmax
 from ..ops.spmm import COOMat, spmm
+from ..ops.spmm_gather import GatherMat, spmm_gather
 from ..ops.spmm_pattern_ring import ring_pattern_bwd, ring_pattern_fwd
 
-STRATEGIES = {"coo": ("ring", "all_gather"), "pattern": ("ring", "all_gather", "fused")}
-# pair kinds of the JAX package that later slices port, by ROADMAP item
-LATER_PAIRS = {
-    "gather": "ROADMAP queue 1 item 9c (DistGatherPair)",
-    "halo": "ROADMAP queue 1 item 9d (dist_halo.py)",
-    "halo_gather": "ROADMAP queue 1 item 9d (dist_halo.py)",
-}
+STRATEGIES = {"coo": ("ring", "all_gather"), "pattern": ("ring", "all_gather", "fused"), "gather": ("ring",),
+              "halo": ("ring",), "halo_gather": ("ring",)}
 
 
 @dataclass(frozen=True)
@@ -179,6 +181,41 @@ def _slots(blocks: Sequence[torch.Tensor], j: int, order) -> torch.Tensor:
     return out
 
 
+def row_slab(csr: CSRData, j: int, m: int) -> CSRData:
+    """Rows [j·m, (j+1)·m) of ``csr`` with global column ids, as views of
+    its arrays (the JAX package's ``slab_of``)."""
+    e0, e1 = int(csr.indptr[j * m]), int(csr.indptr[(j + 1) * m])
+    return CSRData(indptr=csr.indptr[j * m : (j + 1) * m + 1] - e0, indices=csr.indices[e0:e1],
+                   data=csr.data[e0:e1], shape=(m, csr.ncols))
+
+
+def column_blocks(slab: CSRData, parts: int, device: torch.device) -> list[tuple]:
+    """A row slab of m rows split on ``device`` into its P column blocks of
+    m columns: entry k holds block k's (rows, cols, vals), rows local to the
+    slab, columns local to the block, in the slab's CSR order (int64 rows
+    and columns, float32 values)."""
+    m = slab.nrows
+    counts = torch.from_numpy(np.diff(slab.indptr).astype(np.int64)).to(device)
+    rows = torch.repeat_interleave(torch.arange(m, device=device), counts)
+    cols = torch.from_numpy(slab.indices).to(device).long()
+    vals = torch.from_numpy(slab.data.astype(np.float32, copy=False)).to(device)
+    dest = cols // m
+    out = []
+    for k in range(parts):
+        sel = dest == k
+        out.append((rows[sel], cols[sel] - k * m, vals[sel]))
+    return out
+
+
+def gather_block(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, n_out: int, n_in: int) -> GatherMat:
+    """A block's row-sorted (rows, cols, vals) as a weighted
+    :class:`~..ops.spmm_gather.GatherMat` (n_out × n_in) on their device."""
+    indptr = torch.zeros(n_out + 1, dtype=torch.int64, device=rows.device)
+    torch.cumsum(torch.bincount(rows, minlength=n_out), 0, out=indptr[1:])
+    return GatherMat(indptr=indptr, indices=cols.to(torch.int32), w=vals, scale=None, n_out=n_out, n_in=n_in,
+                     nnz=rows.numel())
+
+
 # ---------------------------------------------------------------------------
 # the COO pair
 
@@ -280,6 +317,71 @@ def dist_aggregate(mat: DistRowMat, hs: Sequence[torch.Tensor], strategy: str = 
         if s + 1 < parts:
             blocks = _ppermute(blocks)
     return cs
+
+
+# ---------------------------------------------------------------------------
+# the serial-gather ring pair
+
+
+@dataclass(frozen=True)
+class DistGatherMat:
+    """Row-partitioned sparse matrix as ring-ordered blocks on the
+    serial-gather kernel (``mg_gcn_tpu/parallel/dist.py:330-380``):
+    ``blocks[j][s]`` is the weighted CSR block A[j, (j+s) % P] (m_loc ×
+    m_loc) on partition j's device, the TPU's padded schedules' counterpart."""
+
+    blocks: list[list[GatherMat]]
+    n: int
+    parts: int
+    nnz: int
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.n // self.parts
+
+    @staticmethod
+    def from_csr(csr: CSRData, mesh: Ring) -> "DistGatherMat":
+        """Build each partition's blocks on its device from its row slab."""
+        n, parts = csr.nrows, mesh.parts
+        if n % parts:
+            raise ValueError(f"n ({n}) must be divisible by the mesh size ({parts})")
+        m = n // parts
+        blocks = []
+        for j, dev in enumerate(mesh.devices):
+            split = column_blocks(row_slab(csr, j, m), parts, dev)
+            blocks.append([gather_block(*split[(j + s) % parts], m, m) for s in range(parts)])
+            del split
+        return DistGatherMat(blocks=blocks, n=n, parts=parts, nnz=csr.nnz)
+
+
+@dataclass
+class DistGatherPair:
+    """(Âᵀ, Â) ring blocks on the serial-gather kernel: the ultra-sparse
+    row partition (``mg_gcn_tpu/parallel/dist.py:383-405``)."""
+
+    fwd: DistGatherMat
+    bwd: DistGatherMat
+
+    @staticmethod
+    def from_csr_pair(csr_fwd: CSRData, csr_bwd: CSRData, mesh: Ring) -> "DistGatherPair":
+        return DistGatherPair(DistGatherMat.from_csr(csr_fwd, mesh), DistGatherMat.from_csr(csr_bwd, mesh))
+
+
+def dist_aggregate_gather(mat: DistGatherMat, hs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """C_j = Σ_s A[j, (j+s) % P] @ B_{(j+s) % P} on the serial-gather kernel
+    (``mg_gcn_tpu/parallel/dist.py:411-436``): P rounds of local products in
+    float32, the blocks moving one hop between rounds, as
+    :func:`dist_aggregate`'s ring."""
+    parts = mat.parts
+    cs: list = [None] * parts
+    blocks = list(hs)
+    for s in range(parts):
+        for j in range(parts):
+            prod = spmm_gather(mat.blocks[j][s], blocks[j])
+            cs[j] = prod if s == 0 else cs[j] + prod
+        if s + 1 < parts:
+            blocks = _ppermute(blocks)
+    return [c.to(h.dtype) for c, h in zip(cs, hs)]
 
 
 # ---------------------------------------------------------------------------
@@ -560,31 +662,127 @@ class _ExactAgg(torch.autograd.Function):
         return (None, None, *ctx.agg_bwd(list(gs)))
 
 
-def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None):
-    """Exact-autograd twin of :func:`dist_loss_and_grad` (config.parity
-    False, CLI ``--exact``; ``mg_gcn_tpu/parallel/dist.py:774-805``). Each
-    partition has its own parameter leaves; one backward pass through
-    :class:`_ExactAgg` gives each the gradient of the partitions' local loss
-    shares, and the leaves' gradients are summed afterwards."""
+def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks):
+    """(loss, acc, grads) of the partitions' summed local loss shares by one
+    backward pass: each partition has its own parameter leaves,
+    ``logits_of(leaves)`` gives the partitions' logits, and the leaves'
+    gradients are summed over the partitions afterwards."""
     leaves = [[{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in p] for p in params]
     if masks is None:
-        ms = [None] * len(xs)
-        denom = torch.tensor(float(n_total), device=xs[0].device)
+        ms = [None] * len(ys)
+        denom = torch.tensor(float(n_total), device=ys[0].device)
     else:
         ms = [mk.to(torch.float32) for mk in masks]
         denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add), min=1.0)
-    agg = lambda hs: list(_ExactAgg.apply(agg_fwd, agg_bwd, *hs))  # noqa: E731
     with torch.enable_grad():
-        hs = xs
-        for i in range(config.num_layers):
-            hs, _ = _dist_layer_forward([p[i] for p in leaves], config.layer_meta(i), agg, hs, config.leaky_slope)
-        terms = [_local_xent_terms(h, y, m, denom.to(h.device)) for h, y, m in zip(hs, ys, ms)]
+        terms = [_local_xent_terms(h, y, m, denom.to(h.device)) for h, y, m in zip(logits_of(leaves), ys, ms)]
         flat = [v for p in leaves for layer in p for v in layer.values()]
         flat_grads = iter(torch.autograd.grad([t[0] for t in terms], flat))
     local = [[{k: next(flat_grads) for k in layer} for layer in p] for p in leaves]
     loss = reduce_parts([t[0].detach() for t in terms], torch.add)
     acc = reduce_parts([t[1] for t in terms], torch.add)
     return loss, acc, _psum_trees(local)
+
+
+def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None):
+    """Exact-autograd twin of :func:`dist_loss_and_grad` (config.parity
+    False, CLI ``--exact``; ``mg_gcn_tpu/parallel/dist.py:774-805``): one
+    backward pass through :class:`_ExactAgg` gives each partition's leaves
+    the gradient of the partitions' local loss shares."""
+    agg = lambda hs: list(_ExactAgg.apply(agg_fwd, agg_bwd, *hs))  # noqa: E731
+
+    def logits_of(leaves):
+        hs = xs
+        for i in range(config.num_layers):
+            hs, _ = _dist_layer_forward([p[i] for p in leaves], config.layer_meta(i), agg, hs, config.leaky_slope)
+        return hs
+
+    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks)
+
+
+def dist_sage_loss_and_grad(params, agg, xs, ys, config, n_total: int, masks=None):
+    """GraphSAGE's loss and exact gradients over the partitions
+    (``mg_gcn_tpu/parallel/dist.py:1151-1174``): ``agg`` maps the
+    partitions' blocks to their M·H blocks, differentiably; each layer is
+    ``h·W_self + M h·W_neigh + b``, LeakyReLU and the per-node l2
+    normalization between layers (``models/sage.py``). Returns (loss, acc,
+    grads), summed over the partitions in partition order."""
+    from ..models.sage import l2_norm_rows
+
+    def logits_of(leaves):
+        hs = xs
+        for i in range(config.num_layers):
+            lps = [p[i] for p in leaves]
+            hs = [h @ lp["Wself"] + nb @ lp["Wneigh"] + lp["b"] for h, nb, lp in zip(hs, agg(hs), lps)]
+            if i + 1 < config.num_layers:
+                hs = [ew.leaky_relu(h, config.leaky_slope) for h in hs]
+                if config.l2_normalize:
+                    hs = [l2_norm_rows(h) for h in hs]
+        return hs
+
+    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks)
+
+
+def _check_pair_kind(pair_kind: str, strategy: str, kinds) -> None:
+    if pair_kind not in kinds:
+        raise ValueError(f"unknown pair_kind {pair_kind!r}")
+    if strategy not in STRATEGIES[pair_kind]:
+        if STRATEGIES[pair_kind] == ("ring",):  # the JAX package's message names halo_gather's pair "halo"
+            raise ValueError(f"the {pair_kind.split('_')[0]} pair has a single (ring) exchange schedule; "
+                             f"strategy {strategy!r} is not available with pair_kind={pair_kind!r}")
+        raise ValueError(f"strategy {strategy!r} is not available with pair_kind={pair_kind!r}")
+
+
+def _aggregations(pair_kind: str, pair, strategy: str, pattern_dtype: str):
+    """(agg_fwd, agg_bwd) of ``pair``: its forward and backward matrices'
+    products on the partitions' blocks (``mg_gcn_tpu/parallel/dist.py:
+    884-921``)."""
+    if pair_kind == "pattern":
+        return (lambda hs: dist_aggregate_pattern(pair, hs, "PT", pattern_dtype, strategy),
+                lambda gs: dist_aggregate_pattern(pair, gs, "P", pattern_dtype, strategy))
+    if pair_kind == "coo":
+        return (lambda hs: dist_aggregate(pair.fwd, hs, strategy), lambda gs: dist_aggregate(pair.bwd, gs, strategy))
+    if pair_kind == "gather":
+        return (lambda hs: dist_aggregate_gather(pair.fwd, hs), lambda gs: dist_aggregate_gather(pair.bwd, gs))
+    from .dist_halo import DistHaloGatherMat, dist_aggregate_halo
+
+    if isinstance(pair.fwd, DistHaloGatherMat) != (pair_kind == "halo_gather"):
+        raise ValueError(f"pair_kind {pair_kind!r} does not match a {type(pair.fwd).__name__} pair")
+    return (lambda hs: dist_aggregate_halo(pair.fwd, hs), lambda gs: dist_aggregate_halo(pair.bwd, gs))
+
+
+def build_pair(pair_kind: str, csr_fwd: CSRData, csr_bwd: CSRData, mesh: Ring):
+    """The (forward, backward) pair of ``pair_kind`` from the host CSR
+    matrices, on the partitions' devices: "coo" a :class:`DistAggPair`,
+    "gather" a :class:`DistGatherPair`, "halo" / "halo_gather" a
+    :class:`~.dist_halo.DistHaloPair` whose local products run on the COO
+    engine / the serial-gather kernel."""
+    if pair_kind == "coo":
+        return DistAggPair.from_csr_pair(csr_fwd, csr_bwd, mesh)
+    if pair_kind == "gather":
+        return DistGatherPair.from_csr_pair(csr_fwd, csr_bwd, mesh)
+    if pair_kind in ("halo", "halo_gather"):
+        from .dist_halo import DistHaloPair
+
+        engine = "gather" if pair_kind == "halo_gather" else "xla"
+        return DistHaloPair.from_csr_pair(csr_fwd, csr_bwd, mesh, engine=engine)
+    raise ValueError(f"unknown pair_kind {pair_kind!r} (expected coo, gather, halo or halo_gather)")
+
+
+def _update_replicas(params, opt_state, grads, mesh: Ring, hp: dict, optimizer: str):
+    """Every replica of the parameters updated from the same summed
+    gradients: (params, opt_state) lists."""
+    new_params, new_state = [], []
+    with torch.no_grad():
+        for p, st, dev in zip(params, opt_state, mesh.replica_devices):
+            g = _to(grads, dev)
+            if optimizer == "sgd":  # linear::update (gcn.hpp:141-144); the state rides unchanged
+                p = adam.sgd_update(p, g, hp["lr"], hp["weight_decay"])
+            else:
+                p, st = adam.adam_update(p, g, st, **hp)
+            new_params.append(p)
+            new_state.append(st)
+    return new_params, new_state
 
 
 def make_dist_train_step(
@@ -604,17 +802,15 @@ def make_dist_train_step(
 
     ``params`` and ``opt_state`` are :func:`replicate`'s lists, one copy per
     distinct device, returned updated alike; ``pair`` a :class:`DistAggPair`
-    (``pair_kind="coo"``) or a :class:`DistPatternPair` (``"pattern"``);
-    ``xs`` / ``ys`` / ``masks`` are :func:`shard`'s lists (for the pattern
-    pair of ``pair.n_pad`` rows, with a mask of the real rows).
-    ``config.parity`` picks the reference-parity backward or exact
+    (``pair_kind="coo"``), a :class:`DistPatternPair` (``"pattern"``), a
+    :class:`DistGatherPair` (``"gather"``) or a
+    :class:`~.dist_halo.DistHaloPair` (``"halo"``, or ``"halo_gather"`` on
+    the serial-gather engine); the gather and halo kinds take the ring
+    exchange only. ``xs`` / ``ys`` / ``masks`` are :func:`shard`'s lists
+    (for the pattern pair of ``pair.n_pad`` rows, with a mask of the real
+    rows). ``config.parity`` picks the reference-parity backward or exact
     autograd; loss and acc lie on the first partition's device."""
-    if pair_kind in LATER_PAIRS:
-        raise NotImplementedError(f"pair_kind {pair_kind!r} is not ported yet: {LATER_PAIRS[pair_kind]}")
-    if pair_kind not in STRATEGIES:
-        raise ValueError(f"unknown pair_kind {pair_kind!r}")
-    if strategy not in STRATEGIES[pair_kind]:
-        raise ValueError(f"strategy {strategy!r} is not available with pair_kind={pair_kind!r}")
+    _check_pair_kind(pair_kind, strategy, STRATEGIES)
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     hp = dict(adam.DEFAULT_HPARAMS)
@@ -623,25 +819,57 @@ def make_dist_train_step(
     lag = dist_loss_and_grad if config.parity else dist_loss_and_grad_exact
 
     def step(params, opt_state, pair, xs, ys, masks=None):
-        if pair_kind == "coo":
-            agg_fwd = lambda hs: dist_aggregate(pair.fwd, hs, strategy)  # noqa: E731
-            agg_bwd = lambda gs: dist_aggregate(pair.bwd, gs, strategy)  # noqa: E731
-        else:
-            agg_fwd = lambda hs: dist_aggregate_pattern(pair, hs, "PT", pattern_dtype, strategy)  # noqa: E731
-            agg_bwd = lambda gs: dist_aggregate_pattern(pair, gs, "P", pattern_dtype, strategy)  # noqa: E731
+        agg_fwd, agg_bwd = _aggregations(pair_kind, pair, strategy, pattern_dtype)
         per_part = [params[mesh.replica_of(j)] for j in range(mesh.parts)]
         loss, acc, grads = lag(per_part, agg_fwd, agg_bwd, xs, ys, config, n_total, masks)
-        new_params, new_state = [], []
-        with torch.no_grad():
-            for p, st, dev in zip(params, opt_state, mesh.replica_devices):
-                g = _to(grads, dev)
-                if optimizer == "sgd":  # linear::update (gcn.hpp:141-144); the state rides unchanged
-                    p = adam.sgd_update(p, g, hp["lr"], hp["weight_decay"])
-                else:
-                    p, st = adam.adam_update(p, g, st, **hp)
-                new_params.append(p)
-                new_state.append(st)
-        return new_params, new_state, loss, acc
+        return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
+
+    return step
+
+
+SAGE_PAIRS = ("coo", "halo", "gather", "halo_gather")
+
+
+def sage_aggregation(pair_kind: str, pair, strategy: str = "ring") -> Callable:
+    """SAGE's differentiable aggregation over the partitions, hs -> M·H's
+    blocks: the gradient multiplies by ``pair.bwd`` (Mᵀ) through
+    :class:`_ExactAgg`, as the one-card SAGE's ``aggregate`` does (the
+    JAX package's autodiff through ``ppermute`` on the halo pair computes
+    the same product)."""
+    _check_pair_kind(pair_kind, strategy, SAGE_PAIRS)
+    agg_fwd, agg_bwd = _aggregations(pair_kind, pair, strategy, "float32")
+    return lambda hs: list(_ExactAgg.apply(agg_fwd, agg_bwd, *hs))
+
+
+def make_dist_sage_train_step(
+    config,
+    mesh: Ring,
+    n_total: int,
+    hparams: dict | None = None,
+    strategy: str = "ring",
+    pair_kind: str = "coo",
+):
+    """The distributed GraphSAGE train step (``mg_gcn_tpu/parallel/dist.py:
+    1042-1213``), exact gradients, Adam (decaying ``Wself`` and ``Wneigh``):
+
+        step(params, opt_state, pair, xs, ys, masks=None)
+            -> (params, opt_state, loss, acc)
+
+    ``pair`` is built from the mean pair (M, Mᵀ), M the row-normalized
+    adjacency: a :class:`DistAggPair` (``"coo"``, ring or all_gather), a
+    :class:`DistGatherPair` (``"gather"``) or a
+    :class:`~.dist_halo.DistHaloPair` (``"halo"``, ``"halo_gather"``),
+    aggregated by :func:`sage_aggregation`."""
+    _check_pair_kind(pair_kind, strategy, SAGE_PAIRS)
+    hp = dict(adam.DEFAULT_HPARAMS)
+    if hparams:
+        hp.update(hparams)
+
+    def step(params, opt_state, pair, xs, ys, masks=None):
+        per_part = [params[mesh.replica_of(j)] for j in range(mesh.parts)]
+        loss, acc, grads = dist_sage_loss_and_grad(per_part, sage_aggregation(pair_kind, pair, strategy), xs, ys,
+                                                   config, n_total, masks)
+        return (*_update_replicas(params, opt_state, grads, mesh, hp, "adam"), loss, acc)
 
     return step
 

@@ -26,8 +26,6 @@ from .ops.spmm import AggPair, COOMat
 from .ops.spmm_pallas import TiledMat
 from .timers import TimerRegistry
 
-# engines of the JAX package that later slices port, by ROADMAP item
-LATER_IMPLS = {"halo": "ROADMAP queue 1 item 9d (dist_halo.py)"}
 IMPLS = ("auto", "pattern", "block", "edge", "gather", "xla", "pallas")
 # impl="auto" takes the block pair over the dense pack when tiles or planes
 # are this sparse (the JAX package's rule, train.py:165-179)
@@ -127,6 +125,50 @@ def dist_pattern_engine(graph: CSRData, parts: int, per_card: int, card_bytes: i
                   f" {'within' if fits else 'over'} {budget_gb:.1f} GB")
 
 
+def halo_engine(graph: CSRData, on_card: bool) -> str:
+    """The local engine of the halo pair (``mg_gcn_tpu/train.py:78-119``):
+    on a card "gather" when the expected edge-tile slot fill of the whole
+    graph is below EDGE_FILL_MIN, else "xla" (COO); on the CPU "xla", as
+    the JAX package takes off the TPU.
+
+    The JAX package also asks ``_gather_feasible`` of the largest row slab's
+    block (the TPU's SMEM step budget) and takes "xla" where it fails. The
+    card has no such budget (as in :func:`_edge_or_gather`), so for such a
+    graph the two packages pick different engines (ROADMAP queue 3)."""
+    if not on_card:
+        return "xla"
+    fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
+    return "gather" if fill < EDGE_FILL_MIN else "xla"
+
+
+def dist_engine(graph: CSRData, impl: str, parts: int, per_card: int, card_bytes: int | None) -> tuple[str, str]:
+    """(pair kind, reason) of the ``-P N -R 1`` GCN path for ``impl``, as
+    the JAX CLI picks it (``mg_gcn_tpu/cli.py:543-640``), with ``per_card``
+    of the ``parts`` partitions on each card of ``card_bytes`` memory (None:
+    the CPU): "pattern" where impl is auto or pattern and
+    :func:`dist_pattern_engine` takes the pack (on the CPU only where
+    ``--impl pattern`` asks, for a binary adjacency); "gather" for impl
+    gather; for impl halo, and for auto otherwise, "halo" or "halo_gather"
+    by :func:`halo_engine`'s local engine; else "coo". impl="pattern" where
+    the pack cannot run raises."""
+    why = "no card"
+    if impl in ("auto", "pattern"):
+        if card_bytes is None:
+            fits = impl == "pattern" and spmm_pattern.is_binary(graph)
+        else:
+            fits, why = dist_pattern_engine(graph, parts, per_card, card_bytes)
+        if fits:
+            return "pattern", why
+        if impl == "pattern":
+            raise ValueError("pattern impl not applicable here")
+    if impl == "gather":
+        return "gather", "--impl gather"
+    if impl in ("auto", "halo"):
+        local = halo_engine(graph, card_bytes is not None)
+        return ("halo_gather" if local == "gather" else "halo"), f"{why}; halo local engine {local}"
+    return "coo", f"--impl {impl}"
+
+
 def build_agg_pair(
     graph: CSRData,
     impl: str = "auto",
@@ -160,10 +202,9 @@ def build_agg_pair(
     A build that cannot run raises; nothing falls back to another engine.
     """
     dev = resolve_device(device)
-    if impl in LATER_IMPLS:
-        raise NotImplementedError(f"impl {impl!r} is not ported yet: {LATER_IMPLS[impl]}")
     if impl not in IMPLS:
-        raise ValueError(f"unknown aggregation impl {impl!r} (expected {'/'.join(IMPLS)})")
+        raise ValueError(f"unknown aggregation impl {impl!r} (expected {'/'.join(IMPLS)}; 'halo' is a "
+                         "distributed mode — see parallel.dist_halo)")
     if impl == "auto":
         card = card_memory(dev)
         impl, why = auto_engine(graph, card, pre_normalized)

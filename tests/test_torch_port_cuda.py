@@ -1314,3 +1314,117 @@ def test_pagerank_dist_on_card_matches_cpu(strategy):
     got = pr.pagerank_dist(g, dist.make_mesh(4, ["cuda:0"] * 4), strategy=strategy)
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), pr.pagerank(g, device="cpu").numpy(), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the halo exchange and the serial-gather ring (parallel/dist_halo.py,
+# dist.DistGatherPair): the gather kernel at rectangular halo-block shapes
+
+
+def _halo_graph(kind):
+    """A weighted graph over 4 slabs of 3,000 rows. "banded" (± 375 rows):
+    halo blocks far narrower than the slab, and rounds that are empty on
+    every partition; "random" (32 a row): halo blocks nearly as wide as the
+    slab."""
+    n = 4 * 3000
+    if kind == "banded":
+        g = sparse.banded_graph(n, 8, 375, seed=6)
+    else:
+        g = sparse.random_graph(n, 32, seed=6)
+    w = np.random.default_rng(7).random(g.nnz, np.float32) + 0.5
+    return sparse.normalize(CSRData(g.indptr, g.indices, w, g.shape), axis=True)
+
+
+@pytest.mark.parametrize("d_pad", [8, 48, 104, 256])
+@pytest.mark.parametrize("kind", ["banded", "random"])
+def test_gather_at_halo_shapes_matches_plain(kind, d_pad):
+    """Every block of a DistHaloGatherMat at P = 4 on one card (the diagonal
+    m_loc × m_loc, each round's m_loc × w_s; w_s ≪ m_loc on the banded graph,
+    ≈ m_loc on the random one, empty rounds launched too): the weighted
+    float32 walk against its plain version summed in float64 within rtol 1e-5 /
+    atol 1e-6 of the output's scale, two launches equal bit for bit, one
+    launch counted each."""
+    from mg_gcn_tpu_torch.parallel import dist_halo
+
+    a = _halo_graph(kind)
+    mat = dist_halo.DistHaloGatherMat.from_csr(a, dist.make_mesh(4, ["cuda:0"] * 4))
+    widths = set(mat.round_widths)
+    assert (max(widths) <= 1024) if kind == "banded" else (min(widths) > 2500)
+    key = ("float32", d_pad)
+    for j in range(4):
+        for blk in [mat.loc[j], *mat.rem[j]]:
+            assert blk.has_w and (blk.indices.numel() == 0 or int(blk.indices.max()) < blk.n_in)
+            b = _operand(blk.n_in, d_pad, torch.float32, seed=j + d_pad)
+            before = sg.gather.launches[key]
+            got = sg.gather(blk.indptr, blk.indices, blk.w, b)
+            again = sg.gather(blk.indptr, blk.indices, blk.w, b)
+            torch.cuda.synchronize()
+            assert sg.gather.launches[key] == before + 2 and got.shape == (blk.n_out, d_pad)
+            assert torch.equal(got, again)
+            want = se.csr_plain(blk.indptr, blk.indices, blk.w, b, torch.float64)
+            torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-6 * max(float(want.abs().max()), 1e-30))
+            if blk.nnz == 0:
+                assert not got.any()
+
+
+@pytest.mark.parametrize("kind", ["halo_gather", "gather", "halo"])
+def test_dist_gcn_step_on_card_matches_cpu(kind):
+    """Three float32 steps at P = 4 on one card against the CPU (plain
+    versions), parity mode, on the banded halo graph: losses within rtol
+    1e-5; exactly 5 SpMMs x 4 partitions x 4 blocks = 80 gather launches a
+    step on the kernel pairs (empty blocks launched), none on halo's COO."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
+    from mg_gcn_tpu_torch.nn import adam
+
+    a = _halo_graph("banded")
+    n = a.nrows
+    rng = np.random.default_rng(8)
+    x, y = rng.standard_normal((n, 12)).astype(np.float32), rng.integers(0, 5, n)
+    config = GCNConfig(sizes=(12, 16, 16, 5))
+    losses = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = dist.make_mesh(4, [dev] * 4)
+        pair = dist.build_pair(kind, sparse.transpose(a), a, mesh)
+        params = init_params(config, device=dev)
+        params, opt = dist.replicate(params, mesh), dist.replicate(adam.adam_init(params), mesh)
+        step = dist.make_dist_train_step(config, mesh, n, pair_kind=kind)
+        sg.gather.launches.clear()
+        losses[dev] = []
+        for _ in range(3):
+            params, opt, loss, _ = step(params, opt, pair, dist.shard(x, mesh), dist.shard(y, mesh))
+            losses[dev].append(float(loss))
+        if dev == "cuda:0":
+            assert sum(sg.gather.launches.values()) == (0 if kind == "halo" else 3 * 80)
+    np.testing.assert_allclose(losses["cuda:0"], losses["cpu"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["coo", "halo", "gather", "halo_gather"])
+def test_dist_sage_step_on_card_matches_cpu(kind):
+    """SAGE's loss and exact gradients at P = 4 on one card against the CPU
+    (d = 512 hidden, l2-normalized, the banded halo graph's mean pair):
+    loss within rtol 1e-5, every gradient leaf within 1e-4 of its norm;
+    gather launches 3 SpMMs x 4 x 4 = 48 on the kernel pairs."""
+    from mg_gcn_tpu_torch.models import sage
+
+    g = _halo_graph("banded")
+    m = sparse.normalize(CSRData(g.indptr, g.indices, np.ones_like(g.data), g.shape), axis=False)
+    n = g.nrows
+    rng = np.random.default_rng(9)
+    x, y = rng.standard_normal((n, 24)).astype(np.float32), rng.integers(0, 5, n)
+    config = sage.SAGEConfig(sizes=(24, 512, 5))
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = dist.make_mesh(4, [dev] * 4)
+        pair = dist.build_pair(kind, m, sparse.transpose(m), mesh)
+        params = sage.init_params(config, device=dev)
+        sg.gather.launches.clear()
+        out[dev] = dist.dist_sage_loss_and_grad([params] * 4, dist.sage_aggregation(kind, pair), dist.shard(x, mesh),
+                                                dist.shard(y, mesh), config, n)
+        if dev == "cuda:0":
+            assert sum(sg.gather.launches.values()) == (48 if kind in ("gather", "halo_gather") else 0)
+    (lg, _, gg), (lc, _, gc) = out["cuda:0"], out["cpu"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for layer_g, layer_c in zip(gg, gc):
+        for k in layer_c:
+            assert torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k]) <= 1e-4 * torch.linalg.vector_norm(
+                layer_c[k]), k

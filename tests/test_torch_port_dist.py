@@ -95,8 +95,8 @@ def test_refusals():
         dist.make_dist_train_step(GCNConfig(sizes=(4, 2)), _cpu_ring(2), 10, pair_kind="bogus")
     with pytest.raises(ValueError, match="not available"):
         dist.make_dist_train_step(GCNConfig(sizes=(4, 2)), _cpu_ring(2), 10, strategy="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.make_dist_train_step(GCNConfig(sizes=(4, 2)), _cpu_ring(2), 10, pair_kind="halo")
+    with pytest.raises(ValueError, match="the halo pair has a single \\(ring\\) exchange schedule"):
+        dist.make_dist_train_step(GCNConfig(sizes=(4, 2)), _cpu_ring(2), 10, strategy="all_gather", pair_kind="halo")
 
 
 def test_make_mesh(monkeypatch):
@@ -369,8 +369,8 @@ def _weighted_dir(tmp_path):
         (["-P", "4", "-R", "1", "--device", "cuda"], "requested -P 4 but only 0 devices visible"),
         (["-P", "3", "-R", "1", "--device", "cpu,cpu"], "--device lists 2 devices for -P 3"),
         (["-P", "2", "-R", "1", "--model", "gat"], "ROADMAP queue 1 item 9e"),
-        (["-P", "2", "-R", "1", "--impl", "gather"], "ROADMAP queue 1 item 9c"),
-        (["-P", "2", "-R", "1", "--impl", "halo"], "ROADMAP queue 1 item 9d"),
+        (["-P", "2", "-R", "1", "--impl", "gather", "-S"], "--impl gather uses the ring exchange; drop -S"),
+        (["-P", "3", "-R", "1", "--impl", "halo", "--device", "cpu,cpu,cpu"], "node count 256 not divisible by P=3"),
         (["-P", "2", "-R", "1", "--multihost"], "ROADMAP queue 1 item 9g"),
     ],
     ids=lambda a: " ".join(a) if isinstance(a, list) else None,

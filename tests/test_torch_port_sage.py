@@ -385,5 +385,16 @@ def test_cli_sage_refusals_match_jax(args, capsys):
 
 
 def test_cli_sage_at_p_above_1_names_its_item(capsys):
-    assert cli.main(["-P", "2", "-R", "1", "--device", "cpu", "--model", "sage", "train", GOLDEN, "1", "8"]) == 2
-    assert "ROADMAP queue 1 item 9f" in capsys.readouterr().err
+    """SAGE at -P 2 trains (``parallel.dist.make_dist_sage_train_step``);
+    the JAX CLI's refusal there exits 2 with its message, and what the port
+    does not carry yet, streaming SAGE's feature shards from a memmap
+    (``--mmap``), exits 2 naming its ROADMAP item."""
+    argv = ["--device", "cpu,cpu", "-P", "2", "-R", "1", "--model", "sage", "--optimizer", "sgd", "train", GOLDEN,
+            "1", "8"]
+    assert cli.main(argv) == 2
+    got = capsys.readouterr().err.splitlines()
+    assert jcli.cmd_train(jcli.build_parser().parse_args(argv[2:])) == 2
+    assert got == capsys.readouterr().err.splitlines()[-1:]
+    assert cli.main(["-P", "2", "-R", "1", "--device", "cpu,cpu", "--model", "sage", "--mmap", "train", GOLDEN, "1",
+                     "8"]) == 2
+    assert "ROADMAP queue 1 item 9g" in capsys.readouterr().err

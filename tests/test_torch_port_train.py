@@ -12,11 +12,13 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 
+from mg_gcn_tpu import cli as jcli
 from mg_gcn_tpu import train as jtrain
 from mg_gcn_tpu.cli import _csv_name as jax_csv_name
 from mg_gcn_tpu.formats import CSRData as JCSRData
 from mg_gcn_tpu.formats import Dataset as JDataset
 from mg_gcn_tpu.models import gcn as jgcn
+from mg_gcn_tpu.ops import spmm_gather as jsg
 from mg_gcn_tpu.ops import spmm_pattern as jsp
 from mg_gcn_tpu_torch import cli, convert, sparse
 from mg_gcn_tpu_torch import train as ttrain
@@ -145,6 +147,37 @@ def test_edge_or_gather_differs_where_the_tpu_gather_schedule_is_infeasible():
     assert (ttrain._edge_or_gather(g), jtrain._edge_or_gather(g)) == ("gather", "edge")
 
 
+@pytest.mark.parametrize(
+    "n,nnz,parts",
+    [
+        (232_968, 114_964_049, 4),  # Reddit: xla
+        (2_449_032, 124_899_250, 4),  # ogbn-products padded to 4 partitions: gather
+        (1_000, 5_000, 2),
+        (100_000, 100_000, 4),
+        (20_000, 1_300_000, 2),
+    ],
+)
+def test_halo_engine_matches_jax(monkeypatch, n, nnz, parts):
+    """The halo pair's local engine on a card against the JAX package's on
+    the TPU (its backend faked), where its SMEM step budget admits the
+    slab's schedule; off the TPU JAX takes "xla", as the port on the CPU."""
+    g = SimpleNamespace(nrows=n, ncols=n, nnz=nnz)
+    assert jtrain._gather_feasible(n // parts, n // parts, -(-nnz // parts), r_rows=jsg.R_ROWS)
+    assert ttrain.halo_engine(g, on_card=False) == jtrain.halo_engine(g, parts) == "xla"
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    assert ttrain.halo_engine(g, on_card=True) == jtrain.halo_engine(g, parts)
+
+
+def test_halo_engine_differs_where_the_tpu_gather_schedule_is_infeasible(monkeypatch):
+    """The JAX package takes "xla" for the halo pair when a slab's gather
+    schedule would exceed the TPU's SMEM step budget; the card has none, so
+    the port keeps "gather"."""
+    g = SimpleNamespace(nrows=80_000_000, ncols=80_000_000, nnz=400_000_000)
+    assert not jtrain._gather_feasible(g.nrows // 4, g.ncols // 4, g.nnz // 4, r_rows=jsg.R_ROWS)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    assert (ttrain.halo_engine(g, on_card=True), jtrain.halo_engine(g, 4)) == ("gather", "xla")
+
+
 GB = 10**9
 
 
@@ -221,11 +254,19 @@ def test_auto_engine_choice():
     assert ttrain.build_agg_pair(w, impl="gather", device="cpu").fwd.has_w
 
 
-@pytest.mark.parametrize("impl", sorted(ttrain.LATER_IMPLS))
-def test_later_impls_name_their_roadmap_item(impl):
+def test_halo_impl_is_a_distributed_mode(capsys):
+    """impl="halo" on one device raises with the JAX package's message, and
+    the CLI's ``--impl halo`` at -P 1 exits 2 with the JAX CLI's."""
     g = sparse.random_graph(50, 3, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.build_agg_pair(g, impl=impl, device="cpu")
+    with pytest.raises(ValueError) as got:
+        ttrain.build_agg_pair(g, impl="halo", device="cpu")
+    with pytest.raises(ValueError) as want:
+        jtrain.build_agg_pair(JCSRData(g.indptr, g.indices, g.data, g.shape), impl="halo")
+    assert str(got.value) == str(want.value)
+    assert cli.main(["--device", "cpu", "--impl", "halo", "train", GOLDEN, "1", "8"]) == 2
+    got = capsys.readouterr().err.splitlines()[-1]
+    assert jcli.main(["--impl", "halo", "train", GOLDEN, "1", "8"]) == 2
+    assert got == capsys.readouterr().err.splitlines()[-1] == "--impl halo is a distributed mode; use -P <num> -R 1"
 
 
 def test_unknown_impl_rejected():
@@ -310,15 +351,15 @@ def test_cli_save_load_resumes(tmp_path, capsys):
     "args",
     [
         ["-P", "2", "-R", "0", "train"],
-        ["-P", "2", "-R", "1", "--model", "sage", "train"],
+        ["-P", "2", "-R", "1", "--model", "sage", "--time-phases", "train"],
         ["-P", "2", "-R", "1", "--model", "gat", "train"],
         ["--f64", "train"],
         ["--mmap", "train"],
         ["--multihost", "train"],
-        ["-P", "2", "-R", "1", "--impl", "gather", "train"],
+        ["-P", "2", "-R", "1", "--impl", "gather", "--profile", "prof", "train"],
         ["--time-phases", "train"],
         ["--profile", "prof", "train"],
-        ["--impl", "halo", "train"],
+        ["-P", "2", "-R", "1", "--impl", "halo", "--mmap", "train"],
         ["--multihost", "infer"],
         ["--multihost", "pagerank"],
     ],
