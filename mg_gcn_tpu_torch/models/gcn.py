@@ -18,6 +18,13 @@ Layer schedule (gcn.hpp:437-458): if ``out <= in`` compute ``Â(HW + b)``
 (linear first: the bias rides through the aggregation) else ``(ÂH)W + b``;
 LeakyReLU(0.01) on every layer but the last; an optional residual (identity
 when ``in == out``, else a projection) after the activation.
+
+Each phase runs in a :func:`~..timers.scope` named with the reference's
+timer key (gcn.hpp register_timer sites), the JAX package's ``named_scope``
+names: ``{layer}_{0|1}_{matmul-gemm|matmul-spmm|activation|residual}`` and
+``{L}_loss-layer``, from which ``--time-phases`` credits the card's time
+(``diagnostics.profile_fused_step``). In the exact mode the backward runs
+in autograd, outside every scope.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..nn import init as init_lib
 from ..ops import elementwise as ew
 from ..ops.softmax_xent import softmax_xent
 from ..ops.spmm import AggPair, aggregate, spmm
+from ..timers import scope
 
 
 @dataclass(frozen=True)
@@ -96,19 +104,29 @@ def init_params(
     return params
 
 
-def _layer_forward(layer: dict, meta: dict, pair: AggPair, h: torch.Tensor, slope: float):
-    """One GCN layer forward; returns (output, cache for the backward)."""
+def _layer_forward(layer: dict, meta: dict, pair: AggPair, h: torch.Tensor, slope: float, tag: str = "L"):
+    """One GCN layer forward; returns (output, cache for the backward).
+    ``tag`` (the layer index) names the phase scopes."""
     w, b = layer["W"], layer["b"]
     if meta["lin_first"]:
-        ahw = aggregate(pair, h @ w + b)  # bias precedes aggregation, gcn.hpp:116-123
+        with scope(f"{tag}_0_matmul-gemm"):
+            hw = h @ w + b  # bias precedes aggregation, gcn.hpp:116-123
+        with scope(f"{tag}_0_matmul-spmm"):
+            ahw = aggregate(pair, hw)
     else:
-        ahw = aggregate(pair, h) @ w + b
+        with scope(f"{tag}_0_matmul-spmm"):
+            hw = aggregate(pair, h)
+        with scope(f"{tag}_0_matmul-gemm"):
+            ahw = hw @ w + b
     if meta["activation"]:
-        ahw = ew.leaky_relu(ahw, slope)
+        with scope(f"{tag}_0_activation"):
+            ahw = ew.leaky_relu(ahw, slope)
     if meta["res_proj"]:
-        ahw = ahw + h @ layer["Wres"] + layer["bres"]
+        with scope(f"{tag}_0_residual"):
+            ahw = ahw + h @ layer["Wres"] + layer["bres"]
     elif meta["res_identity"]:
-        ahw = ahw + h
+        with scope(f"{tag}_0_residual"):
+            ahw = ahw + h
     # "post" is also the activation-sign source of the parity backward: the
     # reference reuses the overwritten AHW buffer (post activation AND
     # residual) for leaky_relu_backward (gcn.hpp:465)
@@ -126,7 +144,7 @@ def forward(
     h = x
     caches = []
     for i, layer in enumerate(params):
-        h, cache = _layer_forward(layer, config.layer_meta(i), pair, h, config.leaky_slope)
+        h, cache = _layer_forward(layer, config.layer_meta(i), pair, h, config.leaky_slope, tag=str(i))
         caches.append(cache)
     return (h, caches) if return_caches else h
 
@@ -139,31 +157,46 @@ def _layer_backward(
     g: torch.Tensor,
     slope: float,
     need_input_grad: bool,
+    tag: str = "L",
 ):
-    """Reference-parity backward of one layer (gcn.hpp:460-489)."""
+    """Reference-parity backward of one layer (gcn.hpp:460-489). A phase
+    with no work (layer 0's skipped SpMM) opens no scope, as a JAX
+    named_scope around no op leaves no trace."""
     grads = {}
-    t = ew.leaky_relu_grad(cache["post"], g, slope) if meta["activation"] else g
+    t = g
+    if meta["activation"]:
+        with scope(f"{tag}_1_activation"):
+            t = ew.leaky_relu_grad(cache["post"], g, slope)
     w = layer["W"]
     g_out = None
     if meta["lin_first"]:
-        g_hw = spmm(pair.bwd, t) if meta["backward_spmm"] else t
-        grads["b"] = torch.sum(g_hw, dim=0, keepdim=True)
-        grads["W"] = cache["h"].T @ g_hw
-        if need_input_grad:
-            g_out = g_hw @ w.T
+        g_hw = t
+        if meta["backward_spmm"]:
+            with scope(f"{tag}_1_matmul-spmm"):
+                g_hw = spmm(pair.bwd, t)
+        with scope(f"{tag}_1_matmul-gemm"):
+            grads["b"] = torch.sum(g_hw, dim=0, keepdim=True)
+            grads["W"] = cache["h"].T @ g_hw
+            if need_input_grad:
+                g_out = g_hw @ w.T
     else:
-        grads["b"] = torch.sum(t, dim=0, keepdim=True)
-        # deliberate reference deviation: the layer input, not ÂH
-        # (lin.setX(H), gcn.hpp:477) — the shared HW buffer is long gone
-        grads["W"] = cache["h"].T @ t
+        with scope(f"{tag}_1_matmul-gemm"):
+            grads["b"] = torch.sum(t, dim=0, keepdim=True)
+            # deliberate reference deviation: the layer input, not ÂH
+            # (lin.setX(H), gcn.hpp:477) — the shared HW buffer is long gone
+            grads["W"] = cache["h"].T @ t
+            g_hw = t @ w.T if need_input_grad else None
         if need_input_grad:
-            g_hw = t @ w.T
-            g_out = spmm(pair.bwd, g_hw) if meta["backward_spmm"] else g_hw
+            g_out = g_hw
+            if meta["backward_spmm"]:
+                with scope(f"{tag}_1_matmul-spmm"):
+                    g_out = spmm(pair.bwd, g_hw)
     if meta["res_proj"]:
-        grads["bres"] = torch.sum(g, dim=0, keepdim=True)
-        grads["Wres"] = cache["h"].T @ g
-        if g_out is not None:
-            g_out = g_out + g @ layer["Wres"].T
+        with scope(f"{tag}_1_residual"):
+            grads["bres"] = torch.sum(g, dim=0, keepdim=True)
+            grads["Wres"] = cache["h"].T @ g
+            if g_out is not None:
+                g_out = g_out + g @ layer["Wres"].T
     elif meta["res_identity"] and g_out is not None:
         g_out = g_out + g
     return grads, g_out
@@ -180,13 +213,14 @@ def loss_and_grad_parity(
     """Reference-exact forward + manual backward: (loss, acc, grads), grads
     in the structure of params."""
     logits, caches = forward(params, pair, x, config, return_caches=True)
-    out = softmax_xent(logits, y, mask)
+    with scope(f"{len(params)}_loss-layer"):
+        out = softmax_xent(logits, y, mask)
     g = out.grad
     grads: list = [None] * len(params)
     for i in reversed(range(len(params))):
         grads[i], g = _layer_backward(
             params[i], config.layer_meta(i), pair, caches[i], g, config.leaky_slope,
-            need_input_grad=i > 0,
+            need_input_grad=i > 0, tag=str(i),
         )
     return out.loss, out.acc, grads
 

@@ -51,14 +51,16 @@ class COOMat:
         return self.rows.shape[0]
 
     @staticmethod
-    def from_csr(csr: CSRData, device: str | torch.device = "cuda") -> "COOMat":
+    def from_csr(csr: CSRData, device: str | torch.device = "cuda", val_dtype=np.float32) -> "COOMat":
+        """``val_dtype=np.float64`` is the f64 mode's (``train(f64=True)``):
+        the values are widened, not recomputed."""
         counts = np.diff(csr.indptr).astype(np.int64)
         rows = np.repeat(np.arange(csr.nrows, dtype=np.int32), counts)
         nnz = int(rows.shape[0])
         pad = max(round_up(nnz, COO_PAD), COO_PAD) - nnz
         rows_p = np.concatenate([rows, np.full(pad, csr.nrows - 1, np.int32)])
         cols_p = np.concatenate([csr.indices.astype(np.int32), np.zeros(pad, np.int32)])
-        vals_p = np.concatenate([csr.data.astype(np.float32), np.zeros(pad, np.float32)])
+        vals_p = np.concatenate([csr.data.astype(val_dtype), np.zeros(pad, val_dtype)])
         put = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
         return COOMat(
             rows=put(rows_p),

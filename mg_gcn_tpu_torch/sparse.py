@@ -5,14 +5,17 @@ counting-sort transpose (reference matrix.hpp:340-424), self loops, the
 uniform partition, its 2-D block split and its communication volume,
 symmetric permutations and the locality orderings
 of ``data.prep cluster``, and the synthetic generators ``random_graph``,
-``planted_graph`` and ``planted_features``. The C++/OpenMP fast path
-(``native``) waits for a later slice (ROADMAP queue 1 item 4b).
+``planted_graph`` and ``planted_features``. ``normalize``, ``transpose``
+and ``comm_volume`` run on the C++/OpenMP library of :mod:`.native` where it
+is available, as the JAX package's do; its results are element-equal to the
+numpy path here.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import native
 from .formats import CSRData
 
 
@@ -30,6 +33,8 @@ def normalize(csr: CSRData, axis: bool = False) -> CSRData:
     in-degree normalization of the training path (main.cpp:143).
     Sums are taken in float64 in edge order, as the JAX package does.
     """
+    if native.available():
+        return CSRData(csr.indptr, csr.indices, native.normalize(csr, axis), csr.shape)
     data = csr.data.astype(np.float32, copy=True)
     if not axis:
         ptr = csr.indptr.astype(np.int64)
@@ -58,6 +63,8 @@ def normalize(csr: CSRData, axis: bool = False) -> CSRData:
 def transpose(csr: CSRData) -> CSRData:
     """CSR transpose via a stable counting sort (matrix.hpp:392-424): the
     result's rows hold the original column's edges in original row order."""
+    if native.available():
+        return native.transpose(csr)
     n, m = csr.shape
     cols = csr.indices.astype(np.int64)
     indptr = np.zeros(m + 1, dtype=np.int64)
@@ -129,6 +136,8 @@ def comm_volume(csr: CSRData, part: np.ndarray) -> np.ndarray:
     """P×P communication volume of a row partition (prep.py:232-272):
     volume[i][j] = the distinct columns owned by partition j that partition
     i's rows reference, the feature rows that travel j→i."""
+    if native.available():
+        return native.comm_volume(csr, np.asarray(part, np.int64))
     P = len(part) - 1
     rows = _expand_rows(csr)
     cols = csr.indices.astype(np.int64)

@@ -1,14 +1,19 @@
 """Per-phase timing registry with CSV export (port of the JAX package's
-``timers.TimerRegistry``; reference matrix.hpp:107-157, one
-``prefix+name:ms`` line per timer). The profiler ``trace`` hook waits for
-the phase-timing slice (ROADMAP queue 1 item 8)."""
+``timers.py``; reference matrix.hpp:107-157, one ``prefix+name:ms`` line per
+timer), the phase scopes of the model step (:func:`scope`, the counterpart
+of ``jax.named_scope``) and the ``--profile`` trace (:func:`trace`)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import OrderedDict
 from typing import Iterator, TextIO
+
+import torch
+
+_NO_SCOPE = contextlib.nullcontext()
 
 
 class TimerRegistry:
@@ -30,3 +35,36 @@ class TimerRegistry:
         """matrix.hpp:150-157 format: one ``<prefix><name>:<ms>`` per line."""
         for name, ms in self._entries.items():
             out.write(f"{prefix}{name}:{ms}\n")
+
+
+def scope(name: str):
+    """A ``torch.profiler.record_function`` span named ``name`` while a
+    profiler runs, else a shared no-op: the phase scopes sit on the hot path
+    and cost one flag read when nothing traces."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SCOPE
+
+
+def profiler_activities() -> list:
+    """The CPU, and the card where there is one."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None) -> Iterator[None]:
+    """Optional ``torch.profiler`` trace (host and card) around a region,
+    written into ``log_dir`` as a Chrome trace (``trace.json``), also when
+    the region raises, as ``jax.profiler.trace`` writes its own."""
+    if not log_dir:
+        yield
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=profiler_activities())
+    try:
+        with prof:
+            yield
+    finally:
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -24,7 +24,7 @@ from .nn import adam
 from .ops import spmm_edges, spmm_gather, spmm_pattern, spmm_pattern_sparse
 from .ops.spmm import AggPair, COOMat
 from .ops.spmm_pallas import TiledMat
-from .timers import TimerRegistry
+from .timers import TimerRegistry, scope
 
 IMPLS = ("auto", "pattern", "block", "edge", "gather", "xla", "pallas")
 # impl="auto" takes the block pair over the dense pack when tiles or planes
@@ -177,6 +177,7 @@ def build_agg_pair(
     pre_normalized: bool = False,
     tile_br: int = 512,
     tile_bc: int = 512,
+    coo_val_dtype=np.float32,
 ) -> AggPair:
     """Host preprocessing -> the device-resident (Âᵀ, Â) aggregation pair
     (gcn ctor, gcn.hpp:946-954: column-normalize A by in-degree, transpose;
@@ -195,7 +196,8 @@ def build_agg_pair(
       "gather"  — the serial-gather kernel, float32: a raw binary adjacency
                   takes the w-less pair with diagonal scales
                   (spmm_gather.gather_pair_from_binary_csr).
-      "xla"     — the COO engine (index_select + index_add_).
+      "xla"     — the COO engine (index_select + index_add_), its values
+                  in ``coo_val_dtype`` (np.float64: the f64 mode).
       "pallas"  — the tiled-ELL kernel, float32, (tile_br × tile_bc) tiles
                   (a debug and cross-check engine: ``TiledMat.from_csr`` refuses a
                   store over 4e9 bytes).
@@ -229,7 +231,7 @@ def build_agg_pair(
     elif impl == "pallas":
         fwd, bwd = (TiledMat.from_csr(m, br=tile_br, bc=tile_bc, device=dev) for m in (a_t, a))
     else:
-        fwd, bwd = COOMat.from_csr(a_t, device=dev), COOMat.from_csr(a, device=dev)
+        fwd, bwd = (COOMat.from_csr(m, device=dev, val_dtype=coo_val_dtype) for m in (a_t, a))
     return AggPair(fwd=fwd, bwd=bwd)
 
 
@@ -261,7 +263,7 @@ def make_train_step(
 
     def step(params, opt_state, pair, x, y, mask):
         loss, acc, grads = lag(params, pair, x, y, config, mask)
-        with torch.no_grad():
+        with torch.no_grad(), scope("adam-update"):
             if optimizer == "adam":
                 params, opt_state = adam.adam_update(params, grads, opt_state, **hp)
             else:
@@ -301,21 +303,31 @@ def train(
 
     ``hidden`` is the list of hidden widths; the size schedule becomes
     [num_features, *hidden, num_labels] (main.cpp:93-98). ``seed=None`` uses
-    the reference's bit-exact seed-99 init.
+    the reference's bit-exact seed-99 init. ``f64`` runs the whole step in
+    float64 on the COO engine (``mg_gcn_tpu/train.py:375-400``, the twin of
+    the reference's double kernel templates): the float32 normalization's
+    values widened, float64 features and init; no kernel of the port has a
+    float64 mode, so other impls are refused.
     """
     if f64:
-        raise NotImplementedError("f64 mode is not ported yet: ROADMAP queue 1 item 4b")
+        if impl not in ("xla", "auto"):
+            raise ValueError(
+                f"f64 mode runs on the COO/XLA engine only (impl {impl!r}; "
+                "the Pallas kernels compute in bf16/int8/f32)"
+            )
+        impl = "xla"
+    fdt = np.float64 if f64 else np.float32
     dev = resolve_device(device)
     sizes = (dataset.num_features, *hidden, dataset.num_labels)
     config = GCNConfig(sizes=tuple(int(s) for s in sizes), **(config_kw or {}))
-    pair = build_agg_pair(dataset.graph, impl=impl, pattern_dtype=pattern_dtype, device=dev)
-    x = torch.from_numpy(np.ascontiguousarray(dataset.features, np.float32)).to(dev)
+    pair = build_agg_pair(dataset.graph, impl=impl, pattern_dtype=pattern_dtype, device=dev, coo_val_dtype=fdt)
+    x = torch.from_numpy(np.ascontiguousarray(dataset.features, fdt)).to(dev)
     y = torch.from_numpy(dataset.labels.reshape(-1).astype(np.int64)).to(dev)
     mask = None
     if config.loss_mask == "train":
         mask = torch.from_numpy(dataset.sets.reshape(-1) == 0).to(dev)
     if params is None:
-        params = init_params(config, seed, device=dev)
+        params = init_params(config, seed, device=dev, dtype=torch.float64 if f64 else torch.float32)
     if opt_state is None:
         opt_state = adam.adam_init(params)
     step = make_train_step(config, hparams)

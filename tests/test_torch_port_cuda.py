@@ -1428,3 +1428,75 @@ def test_dist_sage_step_on_card_matches_cpu(kind):
         for k in layer_c:
             assert torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k]) <= 1e-4 * torch.linalg.vector_norm(
                 layer_c[k]), k
+
+
+def _phase_events(config, impl, tmp_path):
+    """One warm and two traced steps of ``config`` on the golden dataset
+    through ``diagnostics.profile_fused_step``: (phase totals, [(phase,
+    device event)])."""
+    import json
+
+    from mg_gcn_tpu_torch import diagnostics, xplane
+    from mg_gcn_tpu_torch.models.gcn import init_params
+    from mg_gcn_tpu_torch.nn import adam
+
+    ds = Dataset.load(GOLDEN)
+    pair = build_agg_pair(ds.graph, impl=impl, pattern_dtype="bfloat16", device="cuda")
+    params = init_params(config, device="cuda")
+    x = torch.from_numpy(ds.features).cuda()
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).cuda()
+    timers, _, _ = diagnostics.profile_fused_step(make_train_step(config), (params, adam.adam_init(params), pair, x, y,
+                                                  None), epochs=2, trace_dir=str(tmp_path))
+    events = json.load(open(tmp_path / "trace.json"))["traceEvents"]
+    return dict(timers._entries), xplane.attribute(events)
+
+
+def test_phase_attribution_parity_step_on_card(tmp_path):
+    """The parity step on the pattern pair: every pattern kernel launched
+    from ctypes is credited, through its launch's correlation id, to the
+    SpMM scope that launched it (two traced epochs: each forward scope 2
+    ``pattern_fwd`` events, each backward one 2 ``pattern_bwd``), none is
+    unattributed, and every phase key holds device time."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig
+
+    ds = Dataset.load(GOLDEN)
+    config = GCNConfig(sizes=(ds.num_features, 32, 16, ds.num_labels))
+    totals, attributed = _phase_events(config, "pattern", tmp_path)
+    seen = {}
+    for phase, e in attributed:
+        kind = "fwd" if "pattern_fwd_kernel" in e["name"] else "bwd" if "PackArgs" in e["name"] else None
+        if kind:
+            seen[(phase, kind)] = seen.get((phase, kind), 0) + 1
+    want = {(f"{i}_0_matmul-spmm", "fwd"): 2 for i in range(3)} | {(f"{i}_1_matmul-spmm", "bwd"): 2 for i in (1, 2)}
+    assert seen == want
+    assert all(ms > 0 for ms in totals.values())
+    assert {"phase_adam-update", "phase_3_loss-layer", "phase_0_1_matmul-gemm"} <= set(totals)
+
+
+def test_phase_attribution_exact_step_on_card(tmp_path):
+    """The exact (autograd) step: the forward's pattern kernels go to their
+    scopes, the backward's (launched from autograd's thread, outside every
+    scope) to ``unattributed`` — the port's rule (ROADMAP)."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig
+
+    ds = Dataset.load(GOLDEN)
+    config = GCNConfig(sizes=(ds.num_features, 32, ds.num_labels), parity=False)
+    totals, attributed = _phase_events(config, "pattern", tmp_path)
+    fwd = {p for p, e in attributed if "pattern_fwd_kernel" in e["name"]}
+    bwd = [p for p, e in attributed if "PackArgs" in e["name"]]
+    assert fwd == {"0_0_matmul-spmm", "1_0_matmul-spmm"}
+    assert bwd and set(bwd) == {"unattributed"}
+    assert not [k for k in totals if k.split("_")[2:3] == ["1"]]  # no backward phase key
+
+
+def test_f64_step_on_card_matches_cpu():
+    """``train(f64=True)`` on the card (the COO engine's index_add_ in
+    float64) against the CPU: losses within 1e-12 relative, no kernel of
+    the port launched."""
+    ds = Dataset.load(GOLDEN)
+    before = {k: dict(fn.launches) for k, fn in (("fwd", sp.pattern_fwd), ("gather", sg.gather))}
+    card = train(ds, [16, 16], epochs=3, f64=True, device="cuda", log=False)
+    cpu = train(ds, [16, 16], epochs=3, f64=True, device="cpu", log=False)
+    assert card.engine == "xla" and card.params[0]["W"].dtype == torch.float64
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-12)
+    assert {k: dict(fn.launches) for k, fn in (("fwd", sp.pattern_fwd), ("gather", sg.gather))} == before

@@ -351,14 +351,9 @@ def test_cli_save_load_resumes(tmp_path, capsys):
     "args",
     [
         ["-P", "2", "-R", "0", "train"],
-        ["-P", "2", "-R", "1", "--model", "sage", "--time-phases", "train"],
         ["-P", "2", "-R", "1", "--model", "gat", "train"],
-        ["--f64", "train"],
         ["--mmap", "train"],
         ["--multihost", "train"],
-        ["-P", "2", "-R", "1", "--impl", "gather", "--profile", "prof", "train"],
-        ["--time-phases", "train"],
-        ["--profile", "prof", "train"],
         ["-P", "2", "-R", "1", "--impl", "halo", "--mmap", "train"],
         ["--multihost", "infer"],
         ["--multihost", "pagerank"],
