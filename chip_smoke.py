@@ -139,6 +139,15 @@ the result line:
    kernel x dtype x width as phase 5, beside torch.sparse.mm on the
    partition's slab of Pᵀ / P against the gathered operand; each kernel's
    repeat check and geometry as in phase 5;
+6a. the column path — ``-P 4 -R 0`` on the main graph through
+   ``parallel.dist_col``, its 4 partitions on cuda:0, every width rounded up
+   to a multiple of P (608, 128, 128, 44): Âᵀ held once on the card (COO,
+   built on the card as phase 4's); one float32 step (exact gradients) held
+   against the single-card exact-mode COO step at the same sizes from the
+   same seed-99 parameters, the loss within rtol 1e-5 and every gradient
+   leaf ||column - one card|| <= 1e-4 ||one card||; then 3 float32 epochs
+   with finite losses, their median and peak memory, launching no kernel
+   of the port (the COO engine, as the JAX package's XLA product);
 8. the banded path — bench.py's block-banded graph (bench.py:276-292, n =
    232,968, 493 draws a row in row ± 4096, ~111M edges) with the main path's
    features, labels and model: impl="auto" must pick the block pair (its
@@ -196,6 +205,26 @@ the result line:
    once, features a lane loads and the tree's shuffles a batch (held to
    the rule) and its L2 gather bytes nnz x d_pad x element size (computed)
    are logged beside its bound, not put in the line;
+12a. the GAT path at -P 4 on one card — phase 12's model on the main graph
+   (232,968 = 4 x 58,242), its 4 partitions on cuda:0, through
+   ``parallel.dist_gat``: one float32 step against the single-card float32
+   GAT step from the same seed-99 parameters (loss within rtol 1e-5, every
+   gradient leaf within 1e-4 of its norm); the bfloat16 ring blocks' build
+   seconds and entries per block; 5 bfloat16 epochs with finite losses
+   falling from epoch 0 to 4, their median and peak memory; counters zeroed
+   before the epochs and read after: per head, layer and block with
+   entries, exactly 6 ``sddmm`` + 5 ``edge`` + 2 ``edge_t`` launches an
+   epoch (384 + 320 + 128 at 16 blocks), by width; then one more epoch
+   under torch.profiler, its device time by kernel (logged, as phase 12);
+13a. attention kernels at the -P 4 GAT path's ring blocks — partition 0's
+   diagonal and round-1 blocks (58,242 x 58,242): ``sddmm`` {bfloat16,
+   float32} x d in {1, 2, 41, 64}, ``edge`` bfloat16 x {1, 41, 64} and
+   ``edge_t`` {bfloat16, float32} x {2, 41, 64}, each against its plain
+   version with the repeat check, timed beside its bound and beside
+   torch.sparse.sampled_addmm / torch.sparse.mm on the same block (rows of
+   the kernels line, with phase 12a's launches at that width and the
+   block's own an epoch); then an empty block through the three ops: zeros,
+   no launch;
 14. path A, weighted Reddit on the edge engine — the same graph with
    bench.py's edge values (rng(5).random + 0.5): auto must pick ``edge``;
    one float32 step against the COO engine by the rule of phase 4; 5
@@ -249,7 +278,12 @@ the result line:
    ``--impl gather`` and ``--model sage --impl halo``; ``--time-phases``
    (``phase_`` rows of the JAX package's scopes, no fallback line),
    ``--profile DIR`` (a Chrome trace naming the pattern kernels) and
-   ``--f64`` (the COO engine) on the toy dataset.
+   ``--f64`` (the COO engine) on the toy dataset; at -P 4 on one card
+   ``-R 1 --model gat --heads 2 train <dir> 1 16`` and ``-R 0 train <dir> 2
+   128 128 --save CK``: their epoch lines equal the library's steps on the
+   same inputs (GAT within rtol 1e-5; the column path within rtol 1e-4, its
+   COO sums in another order each run), the column checkpoint the full
+   rounded arrays.
 
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
@@ -345,6 +379,14 @@ DAMPING, PR_EPS = 0.85, 1e-4
 # at halo-block shapes at d_pad 8, 48, 104 and 256
 N_PROD_DIST = -(-N_PROD // DIST_PARTS) * DIST_PARTS
 HALO_SMALL_WIDTHS = (8, 48, 104, 256)
+# the GAT path at -P 4 (phase 12a): phase 12's model on the main graph, its 4
+# partitions on cuda:0 (232,968 = 4 x 58,242); phase 13a checks its kernels at
+# partition 0's diagonal and round-1 blocks at these widths
+DIST_GAT_SDDMM_WIDTHS, DIST_GAT_EDGE_WIDTHS, DIST_GAT_EDGE_T_WIDTHS = (1, 2, 41, 64), (1, 41, 64), (2, 41, 64)
+# the column path (phase 6a): -P 4 -R 0 on one card rounds every width up to a
+# multiple of P (mg_gcn_tpu/cli.py:267-273): (608, 128, 128, 44)
+COL_SIZES = tuple(-(-s // DIST_PARTS) * DIST_PARTS for s in (FEATURES, *HIDDEN, CLASSES))
+COL_EPOCHS = 3
 # phase timing (phases 5f and 16): traced epochs after one warm step, and
 # the port's kernels by a piece of their device event names
 PHASE_EPOCHS = 2
@@ -1531,6 +1573,77 @@ def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
                 torch.cuda.empty_cache()
         del lib
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the column path: -P 4 -R 0 on one card (the COO engine, no kernel)
+
+
+def phase_col_path(ds) -> dict:
+    """Column-parallel GCN at -P 4 -R 0 on the main graph, its partitions on
+    cuda:0, through ``parallel.dist_col`` at the rounded sizes COL_SIZES:
+    Âᵀ held once on the card (``replicate_coo``), one float32 step (exact
+    gradients, under :func:`deterministic`) against the single-card
+    exact-mode COO step from the same seed-99 parameters
+    (:func:`compare_steps`), then COL_EPOCHS float32 epochs of
+    ``make_col_train_step`` with finite losses, their median and peak
+    memory. The COO engine is the JAX package's (``dist_col.py:33``: XLA):
+    the counters, zeroed before the epochs, must read no launch after."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.parallel import dist_col
+
+    dev = torch.device("cuda:0")
+    P, n = DIST_PARTS, ds.num_nodes
+    config = GCNConfig(sizes=COL_SIZES, parity=False)
+    params = init_params(config, device=dev)
+    x = torch.zeros((n, COL_SIZES[0]), device=dev)
+    x[:, :FEATURES] = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+    coo = coo_pair_on_card(ds.graph)
+    with deterministic():
+        ref = loss_and_grad(params, coo, x, y, config)
+    mesh = dist_col.make_col_mesh(P, [dev] * P)
+    mats = dist_col.replicate_coo(coo.fwd, mesh)
+    del coo
+    if any(m is not mats[0] for m in mats) or mats[0].fwd.rows.data_ptr() != mats[0].bwd.cols.data_ptr():
+        raise AssertionError("the column path holds Âᵀ more than once on the card")
+    mat_gb = sum(t.numel() * t.element_size() for t in (mats[0].fwd.rows, mats[0].fwd.cols, mats[0].fwd.vals)) / 1e9
+    xs, ys = dist_col.shard_columns(x, mesh), [y] * P
+    del x
+    shards = dist_col.shard_col_params(params, mesh)
+    with deterministic():
+        loss, acc, grads = dist_col.col_loss_and_grad(shards, mats, xs, ys, config, n)
+    torch.cuda.synchronize()
+    compare_steps(f"column -P {P} -R 0", (loss, acc, dist_col.gather_col_params(grads)), ref,
+                  "single-card exact COO")
+    del grads, ref
+    torch.cuda.empty_cache()
+    step = dist_col.make_col_train_step(config, mesh, n)
+    state = dist_col.shard_col_state(adam.adam_init(params), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the column path's epochs start here
+    out = dict(losses=[], epoch_seconds=[])
+    for e in range(COL_EPOCHS):
+        t0 = time.perf_counter()
+        shards, state, loss, acc = step(shards, state, mats, xs, ys)
+        out["losses"].append(float(loss))  # waits for the card
+        out["epoch_seconds"].append(time.perf_counter() - t0)
+        log(f"  column f32 epoch {e} {out['losses'][-1]} {float(acc)} {out['epoch_seconds'][-1]}")
+    torch.cuda.synchronize()
+    expect_launches(counts(), {})  # ... and end here: the COO engine launches no kernel of the port
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"column losses {out['losses']}: not finite")
+    steady = sorted(out["epoch_seconds"][1:])
+    out["epoch_s_median"] = steady[len(steady) // 2]
+    full = dist_col.gather_col_params(shards)
+    if [tuple(layer["W"].shape) for layer in full] != [(a, b) for a, b in zip(COL_SIZES, COL_SIZES[1:])]:
+        raise AssertionError(f"gathered column parameters {[tuple(la['W'].shape) for la in full]}")
+    log(f"  column -P {P} -R 0: sizes {COL_SIZES}, Âᵀ {mat_gb:.2f} GB held once on {dev}; f32 epoch median"
+        f" (epochs 1-{COL_EPOCHS - 1}) {out['epoch_s_median']:.4f} s; peak memory {out['peak_mem_gb']:.2f} GB;"
+        f" no kernel of the port launched (COO engine)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2747,22 +2860,23 @@ def gat_launches_per_epoch(config) -> dict:
     return want
 
 
-def compare_with_cpu(got, cpu) -> None:
-    """The card's float32 GAT step against the port's CPU step: loss within
-    rtol 1e-5, every gradient leaf ||card - CPU|| <= 1e-4 ||CPU||."""
-    (loss_g, acc_g, grads_g), (loss_c, acc_c, grads_c) = got, cpu
-    if not math.isclose(float(loss_g), float(loss_c), rel_tol=1e-5):
-        raise AssertionError(f"GAT float32 loss: card {float(loss_g)} vs CPU {float(loss_c)}")
+def compare_steps(label: str, got, ref, ref_name: str) -> None:
+    """One float32 step against a reference step from the same parameters:
+    the loss within rtol 1e-5, every gradient leaf ||got - ref|| <= 1e-4
+    ||ref||."""
+    (loss_g, acc_g, grads_g), (loss_r, acc_r, grads_r) = got, ref
+    if not math.isclose(float(loss_g), float(loss_r), rel_tol=1e-5):
+        raise AssertionError(f"{label} float32 loss {float(loss_g)} vs {ref_name} {float(loss_r)}")
     worst, where = 0.0, ""
-    for i, (gg, gc) in enumerate(zip(grads_g, grads_c)):
-        for k in gc:
-            rel = float(torch.linalg.vector_norm(gg[k].cpu() - gc[k]) / torch.linalg.vector_norm(gc[k]))
+    for i, (gg, gr) in enumerate(zip(grads_g, grads_r)):
+        for k in gr:
+            rel = float(torch.linalg.vector_norm(gg[k].to(gr[k].device) - gr[k]) / torch.linalg.vector_norm(gr[k]))
             if not rel <= 1e-4:
-                raise AssertionError(f"GAT layer {i} grad {k}: ||card - CPU|| / ||CPU|| = {rel} > 1e-4")
+                raise AssertionError(f"{label} layer {i} grad {k}: ||diff|| / ||{ref_name}|| = {rel} > 1e-4")
             if rel >= worst:
                 worst, where = rel, f"layer {i} {k}"
-    log(f"  GAT f32 step card vs CPU: loss {float(loss_g)!r} vs {float(loss_c)!r}, acc {float(acc_g)!r} vs"
-        f" {float(acc_c)!r}; gradients: max ||card - CPU||/||CPU|| {worst:.3e} ({where})")
+    log(f"  {label} f32 step vs {ref_name}: loss {float(loss_g)!r} vs {float(loss_r)!r}, acc {float(acc_g)!r} vs"
+        f" {float(acc_r)!r}; gradients: max ||diff||/||{ref_name}|| {worst:.3e} ({where})")
 
 
 def phase_gat_card_vs_cpu() -> None:
@@ -2785,7 +2899,7 @@ def phase_gat_card_vs_cpu() -> None:
         if dev == "cuda":
             torch.cuda.synchronize()
         log(f"  {dev}: n={g.nrows} nnz={g.nnz} build + float32 step {time.perf_counter() - t0:.2f} s")
-    compare_with_cpu(*steps)
+    compare_steps("GAT card", steps[0], steps[1], "CPU")
 
 
 def profile_epoch(run_epoch, epoch_s: float, top: int = 12) -> None:
@@ -2953,6 +3067,207 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the GAT path at -P 4 on one card (sddmm, edge, edge_t at the ring blocks)
+
+
+def dist_gat_launches_per_epoch(config, graph) -> dict:
+    """{(kernel, dtype, d_pad): launches} of one bfloat16 dist GAT epoch: per
+    head, layer and block with entries, forward 4 sddmm (scores d = 2, the
+    two shifts and the log row sums d = 1) and 3 edge (rs1, rowsum d = 1,
+    aggregation d = out); backward 2 sddmm (d = out, the rowsum's d = 1), 2
+    edge (d = 1, the scores' d = 2) and 2 edge_t (d = 2, d = out). A block
+    with no entry launches nothing."""
+    from mg_gcn_tpu_torch.ops.spmm_pattern import round_up
+
+    live = sum(nnz > 0 for row in graph.block_nnz for nnz in row)
+    want = {}
+    for i in range(config.num_layers):
+        d_out = round_up(max(config.sizes[i + 1], 8), 8)
+        for name, narrow, wide in (("sddmm", 5, 1), ("edge", 4, 1), ("edge_t", 1, 1)):
+            for d_pad, n in ((8, narrow), (d_out, wide)):
+                key = (name, "bfloat16", d_pad)
+                want[key] = want.get(key, 0) + n * config.heads * live
+    return want
+
+
+def phase_dist_gat_path(ds) -> dict:
+    """bench.py's GAT headline at -P 4, its partitions on cuda:0, through
+    ``parallel.dist_gat``: one float32 step against the single-card float32
+    GAT step from the same seed-99 parameters (:func:`compare_steps`); then
+    the bfloat16 ring blocks (build seconds, entries per block) and EPOCHS
+    epochs of ``make_dist_gat_train_step`` with finite losses falling from
+    the first to the last, their median and peak memory. The counters are
+    zeroed just before the epochs and read just after: exactly
+    :func:`dist_gat_launches_per_epoch` an epoch, by width, and no other
+    kernel. Then one more epoch under torch.profiler (:func:`profile_epoch`,
+    logged)."""
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.parallel import dist, dist_gat
+
+    dev = torch.device("cuda:0")
+    P = DIST_PARTS
+    labels = ds.labels.reshape(-1)
+    x = torch.from_numpy(gat_features(labels)).to(dev)
+    y = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=GAT_HEADS)
+    params = gat.init_params(config, None, device=dev)
+    single = gat.build_gat_graph(ds.graph, dtype="float32", device=dev)
+    ref = gat.loss_and_grad(params, single, x, y, config)
+    torch.cuda.synchronize()
+    del single
+    torch.cuda.empty_cache()
+    mesh = dist.make_mesh(P, [dev] * P)
+    xs, ys = dist.shard(x, mesh), dist.shard(y, mesh)
+    g32 = dist_gat.build_dist_gat_graph(ds.graph, mesh, dtype="float32")
+    got = dist_gat.dist_gat_loss_and_grad([params] * P, g32, xs, ys, config)
+    torch.cuda.synchronize()
+    compare_steps(f"dist GAT -P {P}", got, ref, "single-card GAT")
+    del g32, got, ref
+    torch.cuda.empty_cache()
+
+    out = {}
+    t0 = time.perf_counter()
+    graph = dist_gat.build_dist_gat_graph(ds.graph, mesh, dtype="bfloat16")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    log(f"  DistGatGraph: P = {P} on {dev}, m_loc = {graph.m_loc}, {P} x {P} bfloat16 blocks built on the card"
+        f" in {out['build_s']:.2f} s; entries per block [partition][round]: {graph.block_nnz}")
+    step = dist_gat.make_dist_gat_train_step(config, mesh, graph)
+    p, st = dist.replicate(params, mesh), dist.replicate(adam.adam_init(params), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the dist GAT path's epochs start here
+    out["losses"], out["epoch_seconds"] = [], []
+    for e in range(EPOCHS):
+        t0 = time.perf_counter()
+        p, st, loss, acc = step(p, st, graph, xs, ys)
+        loss = float(loss)  # waits for the card
+        out["epoch_seconds"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        log(f"  dist gat bf16 epoch {e} {loss} {float(acc)} {out['epoch_seconds'][-1]}")
+    torch.cuda.synchronize()
+    out["launches"] = counts()  # ... and end here
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    profile_epoch(lambda: float(step(p, st, graph, xs, ys)[2]), sorted(out["epoch_seconds"])[EPOCHS // 2])
+    losses = out["losses"]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dist GAT bf16 losses {losses}: not finite, or not falling")
+    want = {k: v * EPOCHS for k, v in dist_gat_launches_per_epoch(config, graph).items()}
+    got = {(name, dt, dp): n for name, per in out["launches"].items() for (dt, dp), n in per.items() if n}
+    if got != want:
+        raise AssertionError(f"dist GAT launches {got}, want {want}")
+    steady = sorted(out["epoch_seconds"][1:])
+    out["epoch_s_median"] = steady[len(steady) // 2]
+    per_epoch = {k: v // EPOCHS for k, v in got.items()}
+    log(f"  launches an epoch: {per_epoch} ({sum(per_epoch.values())} in all)")
+    log(f"  dist GAT bf16 epoch median (epochs 1-{EPOCHS - 1}) {out['epoch_s_median']:.4f} s; peak memory"
+        f" {out['peak_mem_gb']:.2f} GB")
+    out["graph"] = graph
+    return out
+
+
+def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
+    """sddmm (bfloat16, float32) at d = 1, 2, 41, 64, edge (bfloat16) at 1,
+    41, 64 and edge_t (bfloat16, float32) at 2, 41, 64 on partition 0's
+    diagonal and round-1 blocks of phase 12a's graph, each against its plain
+    version (two launches equal bit for bit), timed beside its bound and
+    (float32) torch.sparse.sampled_addmm / torch.sparse.mm on the same
+    block. ``launches`` is the kernel's counter at that width over phase
+    12a's epochs (every block of the 4 partitions); ``block_launches_an_epoch``
+    this block's own. Then one empty block through the three ops: zeros,
+    no launch."""
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.ops import edge_attention as ea
+    from mg_gcn_tpu_torch.ops import spmm_edges as se
+    from mg_gcn_tpu_torch.parallel import dist_gat
+
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=GAT_HEADS)
+    one_block = dist_gat_launches_per_epoch(config, dataclasses.replace(graph, blocks=[[graph.blocks[0][0]]]))
+    counted = f"every block of the {DIST_PARTS} partitions over phase 12a's {EPOCHS} bfloat16 epochs"
+    rows = []
+
+    def keep(row: dict, where: str, n: int, n_in: int) -> None:
+        key = (row["name"], row["dtype"], sp_pad(row["d"]))
+        row |= {"shape": f"dist GAT partition 0 {where} block {n} x {n_in}", "launches_counted": counted,
+                "launches_an_epoch": row["launches"] / EPOCHS, "block_launches_an_epoch": one_block.get(key, 0)}
+        log_row(row, f"; this block {row['block_launches_an_epoch']} an epoch")
+        rows.append(row)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for where, s in (("diagonal", 0), ("round 1", 1)):
+        mat, t = graph.blocks[0][s]
+        n, n_in, nnz = mat.n_out, mat.n_in, mat.nnz
+        pattern = csr_library(mat.indptr, mat.indices, torch.zeros(nnz, device="cuda"), (n, n_in))
+        for dtype in ("bfloat16", "float32"):
+            for d in DIST_GAT_SDDMM_WIDTHS:
+                label = f"sddmm {dtype} d={d} (dist GAT {where} block)"
+                args, check, ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 5, 2)
+                a, b = args[2], args[3]
+                extra = sddmm_geometry_row(label, n, a) | {"sum_bound_used": bound_use}
+                library_ms = None
+                if dtype == "float32":
+                    al, bt = a[:, :d].contiguous(), b[:, :d].t()
+                    library_ms = library_ms_or_none(
+                        "sampled_addmm", lambda: torch.sparse.sampled_addmm(pattern, al, bt, beta=0.0), 5)
+                    del al, bt
+                moved = 8 * (n + 1) + 4 * nnz + (n + n_in) * d * elt_size(a) + 4 * nnz
+                keep(kernel_row("sddmm", dtype, d, n, nnz, launches["sddmm"].get((dtype, a.shape[1]), 0), check, ms,
+                                plain_ms, library_ms, moved) | extra, where, n, n_in)
+                del args, a, b
+        del pattern
+        w32 = torch.rand(nnz, device="cuda", generator=gen)
+        w16 = w32.to(torch.bfloat16)
+        lib = csr_library(mat.indptr, mat.indices, w32, (n, n_in))
+        for d in DIST_GAT_EDGE_WIDTHS:
+            b = operand(n_in, d, "bfloat16", seed=d)
+            label = f"edge bfloat16 d={d} (dist GAT {where} block)"
+            check, ms, plain_ms = time_against_plain(label, se.edge, se.edge_plain,
+                                                     (mat.indptr, mat.indices, w16, b), "bfloat16", 5, 2, repeat=True)
+            extra = walk_geometry(label, se.edge_geometry("edge", n, b.shape[1], b.dtype))
+            bl = b[:, :d].float()
+            library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+            moved = 8 * (n + 1) + 4 * nnz + 2 * nnz + n_in * d * 2 + n * d * 4
+            keep(kernel_row("edge", "bfloat16", d, n, nnz, launches["edge"].get(("bfloat16", b.shape[1]), 0), check,
+                            ms, plain_ms, library_ms, moved) | extra, where, n, n_in)
+            del b, bl
+        del lib, w16
+        transposed = csr_library(t.t_indptr, t.t_rows, w32[t.perm.long()], (n_in, n))
+        for dtype in ("bfloat16", "float32"):
+            w = w32.to(se.DTYPES[dtype])
+            for d in DIST_GAT_EDGE_T_WIDTHS:
+                label = f"edge_t {dtype} d={d} (dist GAT {where} block)"
+                a, check, ms, plain_ms = check_edge_t(label, mat, t, w, d, dtype, 5, 2, repeat=True)
+                extra = walk_geometry(label, se.edge_geometry("edge_t", n_in, a.shape[1], a.dtype))
+                library_ms = None
+                if dtype == "float32":
+                    al = a[:, :d].contiguous()
+                    library_ms = library_ms_or_none("torch.sparse.mm", lambda: torch.sparse.mm(transposed, al), 5)
+                    del al
+                moved = 8 * (n_in + 1) + 8 * nnz + elt_size(w) * nnz + n * d * elt_size(a) + n_in * d * 4
+                keep(kernel_row("edge_t", dtype, d, n_in, nnz, launches["edge_t"].get((dtype, a.shape[1]), 0), check,
+                                ms, plain_ms, library_ms, moved) | extra, where, n, n_in)
+                del a
+        del transposed, w32
+        torch.cuda.empty_cache()
+
+    m = graph.m_loc
+    none = torch.zeros(0, dtype=torch.int64, device="cuda")
+    mat, t = dist_gat.attention_block(none, none, m, m, "bfloat16")
+    before = counts()
+    z = torch.randn((m, 64), device="cuda", generator=gen)
+    w = torch.zeros(0, device="cuda")
+    scores, prod = ea.sddmm(mat, t, z, z), ea.spmm_attn(mat, t, w, z)
+    prod_t = se.spmm_edge_tiles_t(mat, t, z, w_slots=w)
+    torch.cuda.synchronize()
+    if scores.numel() or prod.shape != (m, 64) or prod.any() or prod_t.shape != (m, 64) or prod_t.any():
+        raise AssertionError("an empty attention block did not give zeros")
+    if counts() != before:
+        raise AssertionError("an empty attention block launched a kernel")
+    log(f"  an empty {m} x {m} block: sddmm scores nothing, edge and edge_t give zeros, no launch")
+    return rows
+
+
 def run_module(tmp: str, module: str, args: list[str]) -> str:
     """``python -m <module> <args>`` from the checkout; exit code 0; its stdout."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -3092,6 +3407,82 @@ def phase_cli_dist_halo_gather(tmp: str, toy: str) -> None:
                       toy, "1", "16"], "toy_32_16_8_4.csv")
 
 
+def epoch_numbers(lines: list[str]) -> list[tuple[float, float]]:
+    """(loss, acc) of each ``epoch loss acc seconds`` line."""
+    return [(float(e[1]), float(e[2])) for e in (line.split() for line in lines if re.fullmatch(r"\d+ \S+ \S+ \S+",
+                                                                                                 line))]
+
+
+def phase_cli_dist_gat_col(tmp: str, toy: str) -> None:
+    """``-P 4 -R 1 --model gat --heads 2 train <toy> 1 16`` and ``-P 4 -R 0
+    train <toy> 2 128 128 --save CK``, four partitions on one card: the
+    epoch lines equal the library's steps on the same inputs (GAT: losses
+    within rtol 1e-5 and accuracies equal, from the seed-99 init, 7 labels
+    rounded to 8; column: losses within rtol 1e-4, since the COO engine's
+    index_add_ adds in another order each run, and the JAX CLI's parity
+    note), and the checkpoint holds the full rounded arrays."""
+    from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.formats import Dataset
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.ops.spmm import COOMat
+    from mg_gcn_tpu_torch.parallel import dist, dist_col, dist_gat
+
+    ds = Dataset.load(toy)
+    ring = ",".join(["cuda:0"] * DIST_PARTS)
+    mesh = dist.make_mesh(DIST_PARTS, ring.split(","))
+    labels = -(-ds.num_labels // DIST_PARTS) * DIST_PARTS
+    lines = run_cli(tmp, ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--model", "gat", "--heads", "2",
+                              "train", toy, "1", "16"], f"toy_32_16_{labels}_{DIST_PARTS}.csv")
+    config = gat.GATConfig(sizes=(ds.num_features, 16, labels), heads=2)
+    start = gat.init_params(config, None, device="cuda:0")
+    graph = dist_gat.build_dist_gat_graph(ds.graph, mesh, dtype="bfloat16")
+    xs, ys, masks = dist.shard_dataset(ds, mesh)
+    step = dist_gat.make_dist_gat_train_step(config, mesh, graph)
+    p, st, want = dist.replicate(start, mesh), dist.replicate(adam.adam_init(start), mesh), []
+    for _ in range(3):
+        p, st, loss, acc = step(p, st, graph, xs, ys, masks)
+        want.append((float(loss), float(acc)))
+    got = epoch_numbers(lines)
+    if not all(math.isclose(g[0], w[0], rel_tol=1e-5) and g[1] == w[1] for g, w in zip(got, want)):
+        raise AssertionError(f"CLI --model gat -P {DIST_PARTS}: epochs {got}, the library's {want}")
+    log(f"  CLI --model gat -P {DIST_PARTS}: epochs {got} (the library's {want})")
+    del graph, p, st
+
+    ck = os.path.join(tmp, "col.npz")
+    sizes = tuple(-(-s // DIST_PARTS) * DIST_PARTS for s in (ds.num_features, 128, 128, ds.num_labels))
+    lines = run_cli(tmp, ds, ["-P", str(DIST_PARTS), "-R", "0", "--device", ring, "--save", ck, "train", toy, "2",
+                              "128", "128"], f"toy_{'_'.join(map(str, sizes))}_{DIST_PARTS}.csv")
+    if not any(line.startswith("note: column path uses exact autodiff gradients") for line in lines):
+        raise AssertionError("CLI -R 0: no parity note")
+    config = GCNConfig(sizes=sizes, parity=False)
+    full = init_params(config, device="cuda:0")
+    a = sparse.normalize(ds.graph, axis=True)
+    mats = dist_col.replicate_coo(COOMat.from_csr(sparse.transpose(a), device="cuda:0"), mesh)
+    x = np.zeros((ds.num_nodes, sizes[0]), np.float32)
+    x[:, : ds.num_features] = ds.features
+    xs = dist_col.shard_columns(x, mesh)
+    ys = [torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to("cuda:0")] * DIST_PARTS
+    step = dist_col.make_col_train_step(config, mesh, ds.num_nodes)
+    p, st, want = dist_col.shard_col_params(full, mesh), dist_col.shard_col_state(adam.adam_init(full), mesh), []
+    for _ in range(3):
+        p, st, loss, acc = step(p, st, mats, xs, ys)
+        want.append((float(loss), float(acc)))
+    got = epoch_numbers(lines)
+    if not all(math.isclose(g[0], w[0], rel_tol=1e-4) for g, w in zip(got, want)) or len(got) != 3:
+        raise AssertionError(f"CLI -R 0: epochs {got}, the library's {want}")
+    with np.load(ck) as saved:
+        shapes = [saved[f"leaf_{i}"].shape for i in range(len(saved.files))]
+    state = adam.adam_init(full)
+    template = [tuple(t.shape) for t in (*(v for la in full for _, v in sorted(la.items())), state.step,
+                                         *(v for la in state.m for _, v in sorted(la.items())),
+                                         *(v for la in state.v for _, v in sorted(la.items())))]
+    if shapes != template:
+        raise AssertionError(f"CLI -R 0 checkpoint leaves {shapes}, want the full rounded arrays {template}")
+    log(f"  CLI -P {DIST_PARTS} -R 0: epochs {got} (the library's {want}); checkpoint leaves {shapes}")
+
+
 def phase_cli_phases_f64(tmp: str, toy: str) -> None:
     """``--time-phases``, ``--profile DIR`` and ``--f64`` on the toy dataset:
     the ``phase_`` rows of the JAX package's scopes from the device trace
@@ -3152,6 +3543,7 @@ def phase_cli() -> None:
             raise AssertionError("CLI -P 4: no pattern pair or no fused exchange")
         phase_cli_sage_pagerank(tmp, toy)
         phase_cli_dist_halo_gather(tmp, toy)
+        phase_cli_dist_gat_col(tmp, toy)
         phase_cli_phases_f64(tmp, toy)
 
         log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["synthetic", "-n", "20000", "--deg", "16",
@@ -3259,6 +3651,10 @@ def main() -> int:
     kernels += phase_ring_kernels(ds, dist_path.pop("pair"), dist_path["launches"])
     torch.cuda.empty_cache()  # the 15.1 GB of ring packs go before the banded path
 
+    phase(f"[6a] column path: -P {DIST_PARTS} -R 0 on one card, sizes {COL_SIZES}, n = {N_MAIN}")
+    phase_col_path(ds)
+    torch.cuda.empty_cache()
+
     phase(f"[8] banded path: bench.py's block-banded graph on the block pair, n = {N_MAIN}")
     ds_band = banded_dataset(ds)
     band = phase_banded_path(ds_band)
@@ -3283,6 +3679,13 @@ def main() -> int:
 
     phase("[13] attention kernels at the GAT path's shape")
     kernels += phase_gat_kernels(gat_path.pop("graph"), gat_path["launches"])
+    torch.cuda.empty_cache()
+
+    phase(f"[12a] GAT path at -P {DIST_PARTS} on one card, n = {N_MAIN}")
+    dist_gat_path = phase_dist_gat_path(ds)
+
+    phase("[13a] attention kernels at the -P 4 GAT path's ring blocks")
+    kernels += phase_dist_gat_kernels(dist_gat_path.pop("graph"), dist_gat_path["launches"])
     torch.cuda.empty_cache()
 
     phase("[14] path A: weighted Reddit on the edge engine")

@@ -1,10 +1,11 @@
 """mg_gcn_tpu_torch — the PyTorch/CUDA port of mg_gcn_tpu, for NVIDIA Hopper.
 
 Full-batch GCN, GraphSAGE (``models/sage.py``) and GAT training on one
-card, row-partitioned GCN and GraphSAGE training over P partitions driven
-by one process (``parallel/dist.py``, the halo exchange of
-``parallel/dist_halo.py``, the CLI's ``-P N -R 1``; partitions may share a
-card), PageRank on one card or row-partitioned (``models/pagerank.py``, the
+card, row-partitioned GCN, GraphSAGE and GAT training over P partitions
+driven by one process (``parallel/dist.py``, the halo exchange of
+``parallel/dist_halo.py``, ``parallel/dist_gat.py``, the CLI's ``-P N -R
+1``; partitions may share a card), column-parallel GCN
+(``parallel/dist_col.py``, the CLI's ``-P N -R 0``), PageRank on one card or row-partitioned (``models/pagerank.py``, the
 CLI's ``pagerank``) and inference from a checkpoint (the CLI's ``infer``).
 SAGE's mean aggregation and PageRank's iteration run on the same engines
 as GCN's, with the row-normalized operator. The aggregation

@@ -1,8 +1,10 @@
 """Command-line interface, the port of ``mg_gcn_tpu/cli.py`` (reference
 main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE) and
-``--model gat [--heads H] [--edge-weighted]`` on one card, and with
-``-P N -R 1`` GCN and SAGE row-partitioned over N partitions driven by this
-one process (``parallel/dist.py``, ``parallel/dist_halo.py``); ``infer``
+``--model gat [--heads H] [--edge-weighted]`` on one card, with ``-P N -R 1``
+GCN, SAGE and GAT row-partitioned over N partitions driven by this one
+process (``parallel/dist.py``, ``parallel/dist_halo.py``,
+``parallel/dist_gat.py``), and with ``-P N -R 0`` GCN column-parallel
+(``parallel/dist_col.py``); ``infer``
 loads a checkpoint and writes the forward pass's predictions; ``pagerank``
 runs the power iteration:
 
@@ -111,10 +113,7 @@ def _csv_name(data_dir: str, sizes, P: int) -> str:
 def _not_ported(opts) -> str | None:
     """The first option of a later slice that ``opts`` asks for, with its
     ROADMAP item, or None."""
-    dist = opts.P > 1
     later = [
-        (dist and not opts.R, "-R 0 (column parallel): ROADMAP queue 1 item 9b"),
-        (dist and opts.model == "gat", "--model gat with -P > 1: ROADMAP queue 1 item 9e"),
         (opts.mmap, "--mmap: ROADMAP queue 1 item 9g"),
     ]
     for asked, what in later:
@@ -198,6 +197,10 @@ def cmd_train(opts) -> int:
     sizes = [ds.num_features, *hidden, ds.num_labels]
     if P > 1:
         sizes[-1] = (sizes[-1] + P - 1) // P * P  # main.cpp:135
+        if not opts.R:
+            # column parallel shards every width across the P partitions;
+            # round all widths up (features are zero-padded to match)
+            sizes = [(s + P - 1) // P * P for s in sizes]
     hparams = dict(
         lr=opts.lr, beta1=opts.b1, beta2=opts.b2, weight_decay=opts.wd, eps=opts.eps_adam
     )
@@ -224,7 +227,10 @@ def cmd_train(opts) -> int:
 
     with trace(opts.profile):
         if P > 1:
-            train_dist = _train_dist_sage if opts.model == "sage" else _train_dist
+            if not opts.R:
+                train_dist = _train_col
+            else:
+                train_dist = {"sage": _train_dist_sage, "gat": _train_dist_gat}.get(opts.model, _train_dist)
             params, opt_state, code = train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh)
         else:
             params, opt_state, code = _train_single(opts, ds, config, hparams, params, opt_state, timers, dev)
@@ -448,6 +454,66 @@ def _train_dist_sage(opts, ds, config, hparams, params, opt_state, timers, mesh)
     params, opt_state = _run_epochs(opts, step, (pair, xs, ys, masks), dist.replicate(params, mesh),
                                     dist.replicate(opt_state, mesh), timers, save_view=lambda p, o: (p[0], o[0]))
     return params[0], opt_state[0], 0
+
+
+def _train_dist_gat(opts, ds, config, hparams, params, opt_state, timers, mesh):
+    """``--model gat -P N -R 1`` (``mg_gcn_tpu/cli.py:797-838``): the ring
+    attention blocks of ``parallel/dist_gat.py``, bfloat16 when
+    ``--pattern-dtype int8`` asks (the attention weights are dynamic).
+    Returns (params, opt_state, exit code)."""
+    from .parallel import dist, dist_gat
+
+    P, n = mesh.parts, ds.num_nodes
+    if n % P:
+        print(f"node count {n} not divisible by P={P}", file=sys.stderr)
+        return params, opt_state, 2
+    with timers.span("0_preprocess"):
+        dtype = "bfloat16" if opts.pattern_dtype == "int8" else opts.pattern_dtype
+        graph = dist_gat.build_dist_gat_graph(ds.graph, mesh, dtype=dtype)
+        xs, ys, masks = dist.shard_dataset(ds, mesh, mask_train=opts.mask_train)
+    step = dist_gat.make_dist_gat_train_step(config, mesh, graph, hparams, optimizer=opts.optimizer)
+    params, opt_state = _run_epochs(opts, step, (graph, xs, ys, masks), dist.replicate(params, mesh),
+                                    dist.replicate(opt_state, mesh), timers, save_view=lambda p, o: (p[0], o[0]))
+    return params[0], opt_state[0], 0
+
+
+def _train_col(opts, ds, config, hparams, params, opt_state, timers, mesh):
+    """``-P N -R 0`` (``mg_gcn_tpu/cli.py:431-484``): column-parallel GCN
+    (``parallel/dist_col.py``) on the COO engine, Âᵀ held once a device,
+    exact gradients; every width rounded to a multiple of P, the features
+    zero-padded to it. Checkpoints hold the full (rounded) arrays. Returns
+    (params, opt_state, exit code)."""
+    from dataclasses import replace
+
+    from . import sparse
+    from .ops.spmm import COOMat
+    from .parallel import dist_col
+
+    if opts.mask_train or opts.residual:
+        print("-R 0 (column parallel) does not support --mask-train/--residual; use -R 1", file=sys.stderr)
+        return params, opt_state, 2
+    if config.parity:
+        print(
+            "note: column path uses exact autodiff gradients (no parity "
+            "quirks to mirror; the reference column path predates them)",
+            file=sys.stderr,
+        )
+        config = replace(config, parity=False)
+    with timers.span("0_preprocess"):
+        a = sparse.normalize(ds.graph, axis=True)
+        mats = dist_col.replicate_coo(COOMat.from_csr(sparse.transpose(a), device=mesh.devices[0]), mesh)
+        del a
+        x = np.zeros((ds.num_nodes, config.sizes[0]), np.float32)  # zero-padded to the rounded width
+        x[:, : ds.num_features] = ds.features
+        xs = dist_col.shard_columns(x, mesh)
+        y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64))
+        ys = [y.to(dev) for dev in mesh.devices]
+    step = dist_col.make_col_train_step(config, mesh, ds.num_nodes, hparams, optimizer=opts.optimizer)
+    params, opt_state = _run_epochs(
+        opts, step, (mats, xs, ys), dist_col.shard_col_params(params, mesh),
+        dist_col.shard_col_state(opt_state, mesh), timers,
+        save_view=lambda p, o: (dist_col.gather_col_params(p), dist_col.gather_col_state(o)))
+    return dist_col.gather_col_params(params), dist_col.gather_col_state(opt_state), 0
 
 
 def cmd_infer(opts) -> int:

@@ -37,7 +37,8 @@ the row walk of ``csrc/csr_walk.cuh`` that the gather kernel shares):
 :func:`edge_t` (``_edge_t_kernel``).
 Each wrapper launches its kernel for a CUDA tensor and uses its plain
 PyTorch version for a CPU tensor — only because the tensor lies on the CPU.
-Each counts its launches in ``.launches`` by (dtype, d_pad). The walk
+Each counts its launches in ``.launches`` by (dtype, d_pad); a matrix
+with no entry (an empty ring block) gives zeros and launches nothing. The walk
 splits each row's entries over groups of lanes whose size follows d_pad:
 :func:`csr_walk_geometry` states the rule, :func:`edge_geometry` reports a
 launch's geometry from the card.
@@ -389,6 +390,8 @@ def edge(indptr: torch.Tensor, indices: torch.Tensor, w: torch.Tensor, b: torch.
     if w.dtype != b.dtype:
         raise ValueError(f"edge: weights ({w.dtype}) and B ({b.dtype}) must share the compute dtype")
     out = torch.empty((indptr.numel() - 1, b.shape[1]), dtype=torch.float32, device=b.device)
+    if not indices.numel():  # no entry: zeros, no launch on an empty (null) pointer
+        return out.zero_()
     if out.shape[0]:
         ptrs = [indptr.data_ptr(), indices.data_ptr(), w.data_ptr(), b.data_ptr()]
         run_csr_kernel(_lib(), "mggcn_edge", ptrs, out, _W_CODE[b.dtype])
@@ -404,6 +407,8 @@ def edge_i8(indptr: torch.Tensor, indices: torch.Tensor, wq: torch.Tensor, bq: t
         return edge_i8_plain(indptr, indices, wq, bq)
     check_csr_operands("edge_i8", indptr, indices, wq, bq, (torch.int8,), (torch.int8,))
     out = torch.empty((indptr.numel() - 1, bq.shape[1]), dtype=torch.int32, device=bq.device)
+    if not indices.numel():
+        return out.zero_()
     if out.shape[0]:
         ptrs = [indptr.data_ptr(), indices.data_ptr(), wq.data_ptr(), bq.data_ptr()]
         run_csr_kernel(_lib(), "mggcn_edge_i8", ptrs, out)
@@ -432,6 +437,8 @@ def edge_t(t_indptr: torch.Tensor, t_rows: torch.Tensor, perm: torch.Tensor, w: 
     if perm.dtype != torch.int32 or perm.shape != t_rows.shape or perm.device != a.device or not perm.is_contiguous():
         raise ValueError("edge_t: perm must be contiguous int32 of t_rows' shape, on A's device")
     out = torch.empty((t_indptr.numel() - 1, a.shape[1]), dtype=torch.float32, device=a.device)
+    if not t_rows.numel():
+        return out.zero_()
     if out.shape[0]:
         ptrs = [t_indptr.data_ptr(), t_rows.data_ptr(), perm.data_ptr(), w.data_ptr(), a.data_ptr()]
         run_csr_kernel(_lib(), "mggcn_edge_t", ptrs, out, _W_CODE[a.dtype])

@@ -1500,3 +1500,113 @@ def test_f64_step_on_card_matches_cpu():
     assert card.engine == "xla" and card.params[0]["W"].dtype == torch.float64
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-12)
     assert {k: dict(fn.launches) for k, fn in (("fwd", sp.pattern_fwd), ("gather", sg.gather))} == before
+
+
+# ---------------------------------------------------------------------------
+# the distributed GAT and the column path (four partitions on one card)
+
+
+def _gat_launches(config, graph) -> dict:
+    """{(kernel, d_pad): launches} of one dist GAT step: per head, layer and
+    block with entries, forward 4 sddmm (scores d = 2, two shifts and the
+    log row sums d = 1) and 3 edge (rs1, rowsum d = 1, aggregation d =
+    out); backward 2 sddmm (d = out, d = 1), 2 edge (d = 1, d = 2) and 2
+    edge_t (d = 2, d = out). An empty block launches nothing."""
+    live = sum(nnz > 0 for row in graph.block_nnz for nnz in row)
+    want = {}
+    for i in range(config.num_layers):
+        wide = sp.round_up(max(config.sizes[i + 1], 8), 8)
+        for name, narrow, n_wide in (("sddmm", 5, 1), ("edge", 4, 1), ("edge_t", 1, 1)):
+            for d_pad, k in ((8, narrow), (wide, n_wide)):
+                want[(name, d_pad)] = want.get((name, d_pad), 0) + k * config.heads * live
+    return want
+
+
+def test_dist_gat_step_on_card_matches_cpu():
+    """One float32 dist GAT step at P = 4 on one card (two layers, two
+    heads) against the CPU on a banded graph whose far blocks are empty:
+    loss within rtol 1e-5, every gradient leaf within 1e-4 of its norm;
+    exactly :func:`_gat_launches` launches by width, the empty blocks none."""
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.parallel import dist_gat
+
+    n = 8192
+    g = sparse.banded_graph(n, 16, n // 8, 3)
+    rng = np.random.default_rng(11)
+    x, y = rng.standard_normal((n, 12)).astype(np.float32), rng.integers(0, 5, n)
+    config = gat.GATConfig(sizes=(12, 16, 5), heads=2)
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = dist.make_mesh(4, [dev] * 4)
+        graph = dist_gat.build_dist_gat_graph(g, mesh, dtype="float32")
+        params = gat.init_params(config, 4, device=dev)
+        for fn in (sd.sddmm, se.edge, se.edge_t):
+            fn.launches.clear()
+        out[dev] = dist_gat.dist_gat_loss_and_grad([params] * 4, graph, dist.shard(x, mesh), dist.shard(y, mesh),
+                                                   config)
+        if dev == "cuda:0":
+            torch.cuda.synchronize()
+            assert any(nnz == 0 for row in graph.block_nnz for nnz in row)
+            got = {(name, d_pad): v for name, fn in (("sddmm", sd.sddmm), ("edge", se.edge), ("edge_t", se.edge_t))
+                   for (dt, d_pad), v in fn.launches.items()}
+            assert got == _gat_launches(config, graph)
+    (lg, _, gg), (lc, _, gc) = out["cuda:0"], out["cpu"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for layer_g, layer_c in zip(gg, gc):
+        for k in layer_c:
+            assert torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k]) <= 1e-4 * torch.linalg.vector_norm(
+                layer_c[k]), k
+
+
+def test_attention_ops_on_an_empty_block_launch_nothing():
+    """An attention block with no entry on the card: the SDDMM scores
+    nothing, both products give zeros, and no kernel launches."""
+    from mg_gcn_tpu_torch.ops import edge_attention as ea
+    from mg_gcn_tpu_torch.parallel import dist_gat
+
+    rows = torch.zeros(0, dtype=torch.int64, device="cuda")
+    mat, sched = dist_gat.attention_block(rows, rows, 300, 200, "bfloat16")
+    before = {fn: dict(fn.launches) for fn in (sd.sddmm, se.edge, se.edge_t)}
+    a, b = torch.randn(300, 41, device="cuda"), torch.randn(200, 41, device="cuda")
+    w = torch.zeros(0, device="cuda")
+    scores = ea.sddmm(mat, sched, a, b)
+    prod = ea.spmm_attn(mat, sched, w, b)
+    prod_t = se.spmm_edge_tiles_t(mat, sched, a, w_slots=w)
+    torch.cuda.synchronize()
+    assert scores.shape == (0,) and prod.shape == (300, 41) and prod_t.shape == (200, 41)
+    assert not bool(prod.any()) and not bool(prod_t.any())
+    assert {fn: dict(fn.launches) for fn in (sd.sddmm, se.edge, se.edge_t)} == before
+
+
+def test_column_step_on_card_matches_cpu():
+    """Three float32 column steps at P = 4 on one card (the COO engine, Âᵀ
+    held once on it) against the CPU: losses within rtol 1e-5; the first
+    step's gradients within 1e-4 of their norms."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.ops.spmm import COOMat
+    from mg_gcn_tpu_torch.parallel import dist_col
+
+    ds = Dataset.load(GOLDEN)
+    a_t = sparse.transpose(sparse.normalize(ds.graph, axis=True))
+    config = GCNConfig(sizes=(16, 32, 32, 8), parity=False)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64))
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = dist_col.make_col_mesh(4, [dev] * 4)
+        mats = dist_col.replicate_coo(COOMat.from_csr(a_t, device=dev), mesh)
+        xs, ys = dist_col.shard_columns(ds.features, mesh), [y.to(dev)] * 4
+        params = dist_col.shard_col_params(init_params(config, device=dev), mesh)
+        out[dev] = dist_col.col_loss_and_grad(params, mats, xs, ys, config, ds.num_nodes)
+        state = dist_col.shard_col_state(adam.adam_init(init_params(config, device=dev)), mesh)
+        step, losses = dist_col.make_col_train_step(config, mesh, ds.num_nodes), []
+        for _ in range(3):
+            params, state, loss, _ = step(params, state, mats, xs, ys)
+            losses.append(float(loss))
+        out[dev + " losses"] = losses
+    np.testing.assert_allclose(out["cuda:0 losses"], out["cpu losses"], rtol=1e-5)
+    gg, gc = (dist_col.gather_col_params(out[d][2]) for d in ("cuda:0", "cpu"))
+    for layer_g, layer_c in zip(gg, gc):
+        for k in layer_c:
+            assert torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k]) <= 1e-4 * torch.linalg.vector_norm(
+                layer_c[k]), k

@@ -363,12 +363,12 @@ def _weighted_dir(tmp_path):
 @pytest.mark.parametrize(
     "args,message",
     [
-        (["-P", "2", "-R", "0"], "ROADMAP queue 1 item 9b"),
+        (["-P", "2", "-R", "0", "--mask-train"], "-R 0 (column parallel) does not support --mask-train/--residual"),
         (["-P", "2", "-R", "1", "--exchange", "fused"], "--exchange fused needs the bit-pattern pair"),
         (["-P", "2", "-R", "1", "--impl", "pattern"], "pattern impl not applicable here"),
         (["-P", "4", "-R", "1", "--device", "cuda"], "requested -P 4 but only 0 devices visible"),
         (["-P", "3", "-R", "1", "--device", "cpu,cpu"], "--device lists 2 devices for -P 3"),
-        (["-P", "2", "-R", "1", "--model", "gat"], "ROADMAP queue 1 item 9e"),
+        (["-P", "3", "-R", "1", "--model", "gat", "--device", "cpu,cpu,cpu"], "node count 256 not divisible by P=3"),
         (["-P", "2", "-R", "1", "--impl", "gather", "-S"], "--impl gather uses the ring exchange; drop -S"),
         (["-P", "3", "-R", "1", "--impl", "halo", "--device", "cpu,cpu,cpu"], "node count 256 not divisible by P=3"),
         (["-P", "2", "-R", "1", "--multihost"], "ROADMAP queue 1 item 9g"),

@@ -350,8 +350,6 @@ def test_cli_save_load_resumes(tmp_path, capsys):
 @pytest.mark.parametrize(
     "args",
     [
-        ["-P", "2", "-R", "0", "train"],
-        ["-P", "2", "-R", "1", "--model", "gat", "train"],
         ["--mmap", "train"],
         ["--multihost", "train"],
         ["-P", "2", "-R", "1", "--impl", "halo", "--mmap", "train"],
