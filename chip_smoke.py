@@ -92,6 +92,24 @@ the result line:
 5b. pattern kernels at the SAGE path's shape — ``pattern_bwd`` at d = 608
    and 512 and ``pattern_fwd`` at 512, each dtype, as phase 5 (rows of the
    kernels line);
+5s. the multi-epoch step — ``train.make_scan_train_steps`` (one CUDA graph
+   of the step, captured once and replayed an epoch at a time) on phase
+   5's pattern pair in bfloat16, int8 and float32 (the float32 backward
+   walk at d_pad 128 one cooperative launch) and on SAGE's (phase 5a's
+   model, bfloat16, the same pack): the route must be "graph"; 3 replayed
+   epochs, on the capturing call and on a replay-only one, must equal 3
+   eager ``make_train_step`` epochs from the same parameters bit for bit
+   (losses, accuracies, parameters, Adam moments and step count). The
+   wrappers count host launches only: the capturing call must count 2
+   warm-up epochs' and the captured epoch's worth of each kernel,
+   replay-only calls none; a traced replay-only call's kernel events must
+   equal a traced eager call's name by name, and those the eager call's
+   counted launches. One line each logs the warm-up and capture seconds,
+   the per-epoch median of 3 replay calls and of 3 eager calls (3 steps,
+   one read at the end), each traced call's device-busy share of its own
+   traced window, and peak memory (phases 10 and 13s do the same for the
+   ELL and GAT paths). It runs before 5f, whose trace then shows whether a
+   profiler trace stays whole after a capture and replays;
 5c. PageRank at Reddit scale (bench.py:333-373) — the main pack with the
    row scale, PatternMat "PT", "pre", float32, damping 0.85, eps 1e-4:
    iterations, cold and warm seconds, held against a COO PageRank on the
@@ -174,7 +192,12 @@ the result line:
    random_graph(20,000, 64, seed=3): one float32 step against COO, 5
    float32 epochs with exactly 5 ``tiled`` launches an epoch, K and the
    store's bytes logged; ``tiled`` at the path's widths as phase 5, with
-   its repeat check and geometry as ``block_fwd``'s; and
+   its repeat check and geometry as ``block_fwd``'s; the multi-epoch step
+   on the path's pair as phase 5s, after 25 traces of its eager call that
+   start and stop the profiler at once and 25 settled at both ends
+   (``timers.settle_profiler``): the traces whose ``tiled`` events fall
+   short of the launches counted in them logged, none allowed among the
+   settled ones; and
    ``TiledMat.from_csr`` must refuse the main path's graph, as JAX's does;
 11. GAT, card vs CPU — one float32 step of the GAT path's model on
    random_graph(20,000, 16, seed=3) on the card against the port's CPU
@@ -205,6 +228,10 @@ the result line:
    once, features a lane loads and the tree's shuffles a batch (held to
    the rule) and its L2 gather bytes nnz x d_pad x element size (computed)
    are logged beside its bound, not put in the line;
+13s. the multi-epoch step on the GAT path — phase 12's model and attention
+   graph as phase 5s; where two eager runs of the step differ, the
+   replayed epochs are held within rtol 1e-5 of the eager ones and the
+   line says so;
 12a. the GAT path at -P 4 on one card — phase 12's model on the main graph
    (232,968 = 4 x 58,242), its 4 partitions on cuda:0, through
    ``parallel.dist_gat``: one float32 step against the single-card float32
@@ -295,6 +322,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -391,6 +419,13 @@ COL_EPOCHS = 3
 # the port's kernels by a piece of their device event names
 PHASE_EPOCHS = 2
 KERNEL_EVENTS = (("pattern_fwd_kernel", "pattern_fwd"), ("PackArgs", "pattern_bwd"), ("csr::walk_kernel", "csr walk"))
+# every kernel of the port by a piece of its device event name, with the
+# wrappers that launch it (phase 5s counts a replayed graph's kernels so)
+PORT_KERNEL_EVENTS = (("pattern_fwd_kernel", ("pattern_fwd",)), ("ring_fwd_kernel", ("ring_fwd",)),
+                      ("block_fwd_kernel", ("block_fwd",)), ("TileArgs", ("block_bwd",)),
+                      ("PackArgs", ("pattern_bwd", "ring_bwd")),
+                      ("csr::walk_kernel", ("edge", "edge_i8", "edge_t", "gather")),
+                      ("sddmm_kernel", ("sddmm", "sddmm_qskip")), ("tiled_kernel", ("tiled",)))
 FALLBACK_LINE = "no device trace; falling back to un-fused phase replay"
 
 
@@ -1005,12 +1040,13 @@ def log_row(r: dict, note: str = "") -> None:
         f" launches {r['launches']}, max_err {r['max_abs_err']:.3e} (tolerance used {r['tolerance_used']:.3f})")
 
 
-def phase_kernels_main(ds, launches: dict) -> tuple[list[dict], torch.Tensor]:
+def phase_kernels_main(ds, launches: dict) -> tuple[list[dict], tuple]:
     """The pattern kernels at the main path's shape (phase 5); returns the
-    rows and the pack, which the SAGE and PageRank paths reuse."""
+    rows and the bfloat16 pattern pair, whose pack the SAGE, scan and
+    PageRank phases reuse."""
     from mg_gcn_tpu_torch.ops import spmm_pattern as sp
 
-    fwd, _ = sp.pattern_pair_from_binary_csr(ds.graph, device="cuda")
+    fwd, bwd = sp.pattern_pair_from_binary_csr(ds.graph, device="cuda")
     n, n_pad, nnz = fwd.n, fwd.n_pad, fwd.nnz
     rows = []
     for name, kernel, plain in (("pattern_fwd", sp.pattern_fwd, sp.pattern_fwd_plain),
@@ -1041,7 +1077,7 @@ def phase_kernels_main(ds, launches: dict) -> tuple[list[dict], torch.Tensor]:
                                        check, ms, plain_ms, library_ms, moved) | extra)
                 log_row(rows[-1])
         del lib
-    return rows, fwd.pack
+    return rows, (fwd, bwd)
 
 
 def repeat_and_geometry(label: str, got: torch.Tensor, run, geometry: dict, keep: tuple | None = None) -> dict:
@@ -1810,7 +1846,8 @@ def phase_csr_kernels_small() -> None:
                 f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms")
 
 
-def drive_path(engine: str, ds, hidden, runs, impl: str = "auto", phases: bool = False) -> dict:
+def drive_path(engine: str, ds, hidden, runs, impl: str = "auto", phases: bool = False,
+               keep_pair: bool = False) -> dict:
     """One path through the entry points a user calls:
     ``build_agg_pair(impl=impl)`` must give ``engine`` (impl="auto" must
     pick it); its float32 step is held against the COO engine (with
@@ -1818,7 +1855,7 @@ def drive_path(engine: str, ds, hidden, runs, impl: str = "auto", phases: bool =
     PHASE_EPOCHS traced epochs of :func:`profile_step`); then
     ``train(impl=impl)`` for each (pattern_dtype, epochs) of ``runs`` with
     finite losses. The launch counters are zeroed just before and read just
-    after."""
+    after. ``keep_pair`` keeps the float32 pair in the result's "pair"."""
     from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
     from mg_gcn_tpu_torch.nn import adam
     from mg_gcn_tpu_torch.train import ENGINE_OF, build_agg_pair, make_train_step, train
@@ -1846,6 +1883,8 @@ def drive_path(engine: str, ds, hidden, runs, impl: str = "auto", phases: bool =
         log(f"  {engine} kernel events by scope, ms an epoch: { {k: round(v, 4) for k, v in kernel_ms.items()} };"
             f" the rest of the phase sum: {sum(totals.values()) - sum(kernel_ms.values()):.4f} ms")
     out["fwd"] = pair.fwd  # the forward matrix, for the kernels at this path's shape
+    if keep_pair:
+        out["pair"] = pair
     del pair
     t0 = time.perf_counter()
     coo = coo_pair_on_card(ds.graph)
@@ -1907,6 +1946,254 @@ def expect_launches(launches: dict, want: dict) -> None:
             got, exp = per_dtype(launches, name, dtype), want.get((name, dtype), 0)
             if got != exp:
                 raise AssertionError(f"{name} {dtype}: {got} launches on the path, want {exp}")
+
+
+SCAN_EPOCHS, SCAN_CALLS = 3, 3
+
+
+def flat_counts() -> dict:
+    """{(kernel, dtype, d_pad): launches} of every wrapper, nonzero only."""
+    return {(name, dt, dp): n for name, per in counts().items() for (dt, dp), n in per.items() if n}
+
+
+def traced_call(run) -> tuple[float, float, collections.Counter]:
+    """One ``run()`` under torch.profiler, settled at both ends: (the device's busy ms, the union
+    of its kernel, copy and memset events, the primer left out; the traced window's ms, from the
+    first device event's start to the last one's end; the port's kernel
+    events by full name). Zeros and an empty Counter when the trace holds
+    no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mg_gcn_tpu_torch.timers import settle_profiler
+    from mg_gcn_tpu_torch.xplane import device_events, trace_events
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle_profiler()
+        run()
+        settle_profiler(start=False)
+    device = device_events(trace_events(prof))
+    if not device:
+        return 0.0, 0.0, collections.Counter()
+    window = (max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in device) - min(float(e["ts"]) for e in device))
+    return busy_ms(device), window / 1e3, collections.Counter(
+        e["name"] for e in device if e.get("cat") == "kernel" and port_event_piece(e["name"]) is not None)
+
+
+TRACE_START_TRACES = 25
+
+
+def trace_start_check(label: str, run) -> None:
+    """The profiler's start-up loss on ``run()``: TRACE_START_TRACES traces
+    whose work starts as soon as the profiler has and ends it at once, and
+    as many settled at both ends (``timers.settle_profiler``). A trace is
+    whole when its port
+    kernel events equal the launches the wrappers counted in it, kernel by
+    kernel. Logs the traces that are not, and the device events a trace
+    holds; every settled trace must be whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mg_gcn_tpu_torch.timers import settle_profiler
+    from mg_gcn_tpu_torch.xplane import device_events, trace_events
+
+    def trace(settle: bool) -> tuple[int, bool]:
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if settle:
+                settle_profiler()
+            run()
+            torch.cuda.synchronize()
+            if settle:
+                settle_profiler(start=False)
+        device = device_events(trace_events(prof))
+        kernels = collections.Counter(
+            e["name"] for e in device if e.get("cat") == "kernel" and port_event_piece(e["name"]) is not None)
+        return len(device), events_by_piece(kernels) == launches_by_piece(flat_counts())
+
+    at_once = [trace(False) for _ in range(TRACE_START_TRACES)]
+    settled = [trace(True) for _ in range(TRACE_START_TRACES)]
+    sizes = lambda traces: dict(sorted(collections.Counter(n for n, _ in traces).items()))  # noqa: E731
+    short_at_once = [n for n, whole in at_once if not whole]
+    short_settled = [n for n, whole in settled if not whole]
+    log(f"  trace start, {label}: traces missing port kernel events: started at once {len(short_at_once)} of"
+        f" {TRACE_START_TRACES} (their device events {short_at_once}), settled {len(short_settled)} of"
+        f" {TRACE_START_TRACES}; device events a trace: at once {sizes(at_once)}, settled {sizes(settled)}")
+    if short_settled:
+        raise AssertionError(f"trace start, {label}: settled traces missing port kernel events: {short_settled}")
+
+
+def port_event_piece(name: str) -> str | None:
+    """The piece of :data:`PORT_KERNEL_EVENTS` that names this device event."""
+    return next((piece for piece, _ in PORT_KERNEL_EVENTS if piece in name), None)
+
+
+def events_by_piece(events: collections.Counter) -> dict:
+    out = collections.Counter()
+    for name, n in events.items():
+        out[port_event_piece(name)] += n
+    return dict(out)
+
+
+def launches_by_piece(launches: dict) -> dict:
+    """Counted launches ({(kernel, dtype, d_pad): n}) by the piece of
+    :data:`PORT_KERNEL_EVENTS` whose events they launch."""
+    piece_of = {w: piece for piece, ws in PORT_KERNEL_EVENTS for w in ws}
+    out = collections.Counter()
+    for (name, _, _), n in launches.items():
+        out[piece_of[name]] += n
+    return dict(out)
+
+
+def scan_path(label: str, config, model: str, pair, x, y, params, start_check: bool = False) -> None:
+    """``train.make_scan_train_steps`` on one path at full width against
+    ``make_train_step``'s eager epochs from the same parameters: the route
+    must be "graph"; SCAN_EPOCHS replayed epochs must equal SCAN_EPOCHS
+    eager ones bit for bit (losses, accuracies, parameters, Adam moments and
+    step count; where two eager runs differ, within rtol 1e-5, and the line
+    says so), on the capturing call and on a replay-only call.
+
+    Launches: the wrappers count host launches only, so eager's counted
+    launches must equal its traced call's port kernel events, kernel by
+    kernel; the capturing call counts (SCAN_WARMUP_STEPS + 1) epochs' worth
+    (the warm-up steps and the captured epoch); replay-only calls count
+    none; and a traced replay-only call's port kernel events must equal the
+    traced eager call's, name by name: the replayed graph launches every
+    kernel of the step as often as eager, none dropped or repeated.
+
+    Logs on one line: the warm-up and capture seconds, the per-epoch median
+    of SCAN_CALLS replay calls and of SCAN_CALLS eager calls (SCAN_EPOCHS
+    steps, one read at the end), each traced call's device-busy ms and its
+    busy share of its own traced window, and peak memory above the same
+    base (what was allocated when the path started, garbage collected).
+    ``start_check`` first runs :func:`trace_start_check` on the eager call."""
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.train import SCAN_WARMUP_STEPS, _leaves, make_scan_train_steps, make_train_step
+
+    step, opt = make_train_step(config, model=model), adam.adam_init(params)
+    steps = make_scan_train_steps(config, SCAN_EPOCHS, model=model)
+
+    def eager():
+        p, o, losses, accs = params, opt, [], []
+        for _ in range(SCAN_EPOCHS):
+            p, o, loss, acc = step(p, o, pair, x, y, None)
+            losses.append(loss)
+            accs.append(acc)
+        return p, o, torch.stack(losses), torch.stack(accs)
+
+    def replay():
+        return steps(params, opt, pair, x, y, None)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / SCAN_EPOCHS
+
+    def leaves(run_out):
+        p, o, losses, accs = run_out
+        return _leaves(p, o) + [losses, accs]
+
+    def compare(what, got, want, exact):
+        for a, b in zip(leaves(got), leaves(want), strict=True):
+            if exact and not torch.equal(a, b):
+                raise AssertionError(f"scan {label}: {what} differs from the eager epochs")
+            if not exact:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=f"scan {label}: {what} vs eager")
+
+    gc.collect()  # as the capture does (torch.cuda.graph): both peaks from the same base
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ref = eager()
+    torch.cuda.synchronize()
+    eager_launches = flat_counts()
+    exact = all(torch.equal(a, b) for a, b in zip(leaves(eager()), leaves(ref)))
+    if not exact and model != "gat":
+        raise AssertionError(f"scan {label}: two eager runs of the step differ")
+    eager_s = sorted(timed(eager)[1] for _ in range(SCAN_CALLS))
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    if start_check:
+        trace_start_check(f"{label} eager, {SCAN_EPOCHS} epochs", eager)
+    reset_counts()
+    eager_busy, eager_window, eager_events = traced_call(eager)
+    if events_by_piece(eager_events) != launches_by_piece(flat_counts()):
+        raise AssertionError(f"scan {label}: the traced eager call's kernel events {events_by_piece(eager_events)}"
+                             f" != its counted launches {launches_by_piece(flat_counts())}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got = replay()
+    torch.cuda.synchronize()
+    first_launches = flat_counts()
+    if steps.route != "graph" or len(steps.captures) != 1:
+        raise AssertionError(f"scan {label}: route {steps.route}, {len(steps.captures)} captures; want one graph")
+    compare("the capturing call", got, ref, exact)
+    want_first = {k: n * (SCAN_WARMUP_STEPS + 1) // SCAN_EPOCHS for k, n in eager_launches.items()}
+    if first_launches != want_first:
+        raise AssertionError(f"scan {label}: the capturing call counted {first_launches}, want {want_first}")
+    reset_counts()
+    replays = [timed(replay) for _ in range(SCAN_CALLS)]
+    torch.cuda.synchronize()
+    if flat_counts():
+        raise AssertionError(f"scan {label}: replay-only calls counted host launches {flat_counts()}")
+    compare("a replay-only call", replays[-1][0], ref, exact)
+    replay_s = sorted(s for _, s in replays)
+    replay_peak = torch.cuda.max_memory_allocated() / 1e9
+    replay_busy, replay_window, replay_events = traced_call(replay)
+    if replay_events != eager_events:
+        raise AssertionError(f"scan {label}: the replayed kernel events differ from eager's:"
+                             f" replay - eager {dict(replay_events - eager_events)},"
+                             f" eager - replay {dict(eager_events - replay_events)}")
+    cap = steps.captures[0]
+    med_r, med_e = replay_s[SCAN_CALLS // 2], eager_s[SCAN_CALLS // 2]
+    share = lambda busy, window: f"{busy / window:.4f}" if window else "not measured"  # noqa: E731
+    log(f"  scan {label}: route graph; warm-up {cap['warmup_s']:.3f} s ({SCAN_WARMUP_STEPS} steps), capture"
+        f" {cap['capture_s']:.3f} s; per epoch (median of {SCAN_CALLS} calls of {SCAN_EPOCHS}) replay"
+        f" {med_r * 1e3:.3f} ms, eager {med_e * 1e3:.3f} ms ({med_r / med_e:.4f}); traced call of {SCAN_EPOCHS}"
+        f" epochs: replay busy {replay_busy:.3f} of {replay_window:.3f} ms (share {share(replay_busy, replay_window)}),"
+        f" eager busy {eager_busy:.3f} of {eager_window:.3f} ms (share {share(eager_busy, eager_window)}); peak"
+        f" memory eager {eager_peak:.2f} GB, replay {replay_peak:.2f} GB (base {base:.2f} GB); replayed kernel"
+        f" events of {SCAN_EPOCHS} epochs = eager's = its counted launches, {events_by_piece(replay_events)};"
+        f" {'equal to eager bit for bit' if exact else 'two eager runs differ: held within rtol 1e-5'}")
+    del steps
+    torch.cuda.empty_cache()
+
+
+def phase_scan_main(ds, main_pair) -> None:
+    """Phase 5s: the main path's model on phase 5's pattern pair in bf16,
+    int8 and float32 (the pair's dtype replaced, one pack), then SAGE's
+    (BASELINE config 4, bf16) on the same pack, each through
+    :func:`scan_path`."""
+    from mg_gcn_tpu_torch.models import sage
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
+    from mg_gcn_tpu_torch.ops.spmm import AggPair
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+    config = GCNConfig(sizes=(FEATURES, *HIDDEN, CLASSES))
+    for dtype in ("bfloat16", "int8", "float32"):
+        pair = AggPair(*(dataclasses.replace(m, dtype_name=dtype) for m in main_pair))
+        scan_path(f"main {dtype}", config, "gcn", pair, x, y, init_params(config, device=dev))
+    config = sage.SAGEConfig(sizes=SAGE_SIZES)
+    pair = sage.build_sage_pair(ds.graph, impl="pattern", pack=main_pair[0].pack, dtype="bfloat16", device=dev)
+    scan_path("SAGE bfloat16", config, "sage", pair, x, y, sage.init_params(config, device=dev))
+
+
+def phase_scan_gat(ds, graph) -> None:
+    """Phase 13s: the GAT headline (phase 12's model and attention graph,
+    bf16, 2 heads) through :func:`scan_path`."""
+    from mg_gcn_tpu_torch.models import gat
+
+    dev = torch.device("cuda")
+    labels = ds.labels.reshape(-1)
+    x = torch.from_numpy(gat_features(labels)).to(dev)
+    y = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=GAT_HEADS)
+    scan_path("GAT bfloat16", config, "gat", graph, x, y, gat.init_params(config, None, device=dev))
 
 
 def path_a_dataset(ds):
@@ -2653,13 +2940,15 @@ def phase_ell_path(ds_main) -> list[dict]:
     its float32 step against COO, EPOCHS float32 epochs with exactly 5
     ``tiled`` launches an epoch; then the kernel at the path's widths
     against its plain version, timed beside its bound and torch.sparse.mm on
-    the same Âᵀ; and ``TiledMat.from_csr`` must refuse the main path's
-    graph (its store would pass 4e9 bytes), as the JAX package's does."""
+    the same Âᵀ; the multi-epoch step on the path's pair (:func:`scan_path`);
+    and ``TiledMat.from_csr`` must refuse the main path's graph (its store
+    would pass 4e9 bytes), as the JAX package's does."""
     from mg_gcn_tpu_torch import sparse
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
     from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
 
     ds = ell_dataset(ds_main)
-    out = drive_path("pallas", ds, HIDDEN, [("float32", EPOCHS)], impl="pallas")
+    out = drive_path("pallas", ds, HIDDEN, [("float32", EPOCHS)], impl="pallas", keep_pair=True)
     fwd = out["fwd"]
     log(f"  ELL store: K = {fwd.ell_k} slots, {fwd.n_rb} x {fwd.n_cb} tiles of {fwd.br}, {fwd.store_bytes / 1e9:.3f} GB"
         " a direction")
@@ -2685,6 +2974,10 @@ def phase_ell_path(ds_main) -> list[dict]:
                                out["launches"]["tiled"].get(("float32", d), 0), check, ms, plain_ms, library_ms, moved)
                     | extra)
         log_row(rows[-1])
+    config = GCNConfig(sizes=(ds.num_features, *HIDDEN, ds.num_labels))
+    scan_path("ELL float32", config, "gcn", out.pop("pair"), torch.from_numpy(ds.features).cuda(),
+              torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).cuda(), init_params(config, device="cuda"),
+              start_check=True)
     t0 = time.perf_counter()
     try:
         tpl.TiledMat.from_csr(ds_main.graph, device="cuda")
@@ -3615,7 +3908,8 @@ def main() -> int:
         log(f"  bf16 epoch {e} {loss} {acc} {s}")
 
     phase("[5] pattern kernels at the main-path shape")
-    kernels, pack = phase_kernels_main(ds, main_path["launches"])
+    kernels, main_pair = phase_kernels_main(ds, main_path["launches"])
+    pack = main_pair[0].pack
     torch.cuda.empty_cache()
 
     phase(f"[5a] SAGE path: BASELINE config 4, sizes {SAGE_SIZES}, on the main pack")
@@ -3624,6 +3918,11 @@ def main() -> int:
 
     phase("[5b] pattern kernels at the SAGE path's shape")
     kernels += phase_sage_kernels(ds, pack, sage_path["launches"])
+
+    phase(f"[5s] multi-epoch step (make_scan_train_steps), replayed against eager: the main path in bf16, int8"
+          f" and float32, SAGE in bf16, n = {N_MAIN}")
+    phase_scan_main(ds, main_pair)
+    del main_pair
 
     phase(f"[5c] PageRank at Reddit scale on the main pack, n = {N_MAIN}")
     rows, pr_single = phase_pagerank_reddit(ds, pack)
@@ -3678,8 +3977,13 @@ def main() -> int:
     gat_path = phase_gat_path(ds)
 
     phase("[13] attention kernels at the GAT path's shape")
-    kernels += phase_gat_kernels(gat_path.pop("graph"), gat_path["launches"])
+    gat_graph = gat_path.pop("graph")
+    kernels += phase_gat_kernels(gat_graph, gat_path["launches"])
     torch.cuda.empty_cache()
+
+    phase(f"[13s] multi-epoch step, replayed against eager: the GAT path, n = {N_MAIN}")
+    phase_scan_gat(ds, gat_graph)
+    del gat_graph
 
     phase(f"[12a] GAT path at -P {DIST_PARTS} on one card, n = {N_MAIN}")
     dist_gat_path = phase_dist_gat_path(ds)

@@ -25,7 +25,7 @@ from .models.gcn import GCNConfig
 from .ops import elementwise as ew
 from .ops.softmax_xent import softmax_xent
 from .ops.spmm import AggPair, spmm
-from .timers import TimerRegistry, profiler_activities
+from .timers import TimerRegistry, profiler_activities, settle_profiler
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -44,7 +44,8 @@ def profile_fused_step(
     """Trace ``epochs`` calls of the real train step and record per-phase
     device milliseconds (averaged per epoch) under the reference timer keys.
     ``step_fn(*args)`` returns updated (params, opt_state, loss, ...); the
-    first two are fed back. One warm step runs outside the trace. Returns
+    first two are fed back. One warm step runs outside the trace, which
+    starts and ends settled (:func:`~mg_gcn_tpu_torch.timers.settle_profiler`). Returns
     ``(timers, params, opt_state)``; no phase entry is added when the trace
     holds no device event (the caller may fall back to
     :func:`profile_epoch`). ``trace_dir`` also keeps the Chrome trace there.
@@ -60,10 +61,12 @@ def profile_fused_step(
     params, opt_state = out[0], out[1]
     _sync(out[2])
     with torch.profiler.profile(activities=profiler_activities()) as prof:
+        settle_profiler()
         for _e in range(epochs):
             out = step_fn(params, opt_state, *rest_args)
             params, opt_state = out[0], out[1]
             _sync(out[2])
+        settle_profiler(start=False)
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
     totals = device_time_by_scope(trace_events(prof, trace_dir))

@@ -53,6 +53,33 @@ def profiler_activities() -> list:
     return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
 
 
+# A trace can miss the first device events after its profiler starts: in a
+# long-lived process the first ~1 ms of card work of every trace, however
+# long the profiler ran idle before it (chip_smoke phase 10 counts them).
+# settle_profiler puts PRIMER_KERNELS short spin kernels (PRIMER_CYCLES
+# clock cycles each; PRIMER_EVENT in their event name) there instead, and
+# the trace readers (xplane.device_events) leave them out.
+PRIMER_KERNELS, PRIMER_CYCLES, PRIMER_EVENT = 32, 200_000, "spin_kernel"
+# seconds the card is left idle after the primer and before a profiler stops
+PROFILER_SETTLE_S = 0.05
+
+
+def settle_profiler(start: bool = True) -> None:
+    """Called just after a profiler starts (``start``) and again just
+    before it stops: the card idle; at the start the primer kernels, then
+    the card idle again; then :data:`PROFILER_SETTLE_S`. So the trace holds
+    the traced work's first and last device events. Nothing without a
+    card."""
+    if not torch.cuda.is_available():
+        return
+    torch.cuda.synchronize()
+    if start:
+        for _ in range(PRIMER_KERNELS):
+            torch.cuda._sleep(PRIMER_CYCLES)
+        torch.cuda.synchronize()
+    time.sleep(PROFILER_SETTLE_S)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str | None) -> Iterator[None]:
     """Optional ``torch.profiler`` trace (host and card) around a region,
@@ -65,6 +92,10 @@ def trace(log_dir: str | None) -> Iterator[None]:
     prof = torch.profiler.profile(activities=profiler_activities())
     try:
         with prof:
-            yield
+            settle_profiler()
+            try:
+                yield
+            finally:
+                settle_profiler(start=False)
     finally:
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -1,16 +1,21 @@
 """Single-card training: the aggregation pair, the train step (GCN, SAGE
-and GAT) and the GCN epoch loop.
+and GAT), the multi-epoch step and the GCN epoch loop.
 
 Port of ``mg_gcn_tpu/train.py:121-432`` (the reference's single-GPU path,
 main.cpp:113-133): per epoch ``forward -> backward -> update -> sync``,
 printing ``epoch loss acc seconds`` to stderr. PyTorch runs eagerly, so the
-step is a plain function; nothing is compiled.
+step is a plain function; nothing is compiled. The multi-epoch step
+(:func:`make_scan_train_steps`, the JAX package's ``lax.scan``) captures
+the step on a card once as a CUDA graph and replays it an epoch at a time.
 """
 
 from __future__ import annotations
 
+import gc
+import os
 import sys
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -271,6 +276,202 @@ def make_train_step(
         return params, opt_state, loss, acc
 
     return step
+
+
+# steps make_scan_train_steps runs on scratch copies before its capture:
+# they take the one-time work out of the captured region (each kernel
+# library's nvcc build and load, the launchers' cudaFuncSetAttribute,
+# autograd's device thread, cuBLAS's workspace for the capture stream)
+SCAN_WARMUP_STEPS = 2
+
+
+def scan_route(device: torch.device) -> tuple[str, str]:
+    """(route, reason) of :func:`make_scan_train_steps` for tensors on
+    ``device``, by rule before anything runs: "graph" (the step captured once
+    as a CUDA graph, replayed an epoch at a time) on a card; "loop" (the
+    step called an epoch at a time, nothing read back between epochs) on
+    the CPU, which has no graphs, and where the card's current stream is
+    capturing already: a capture does not nest, so the epochs go into the
+    caller's graph."""
+    if device.type != "cuda":
+        return "loop", "the CPU has no CUDA graphs"
+    with torch.cuda.device(device):
+        if torch.cuda.is_current_stream_capturing():
+            return "loop", "the current stream is capturing already; a capture does not nest"
+    return "graph", "the step captured once as a CUDA graph, replayed an epoch at a time"
+
+
+def _clone_tree(tree) -> list:
+    return [{k: v.clone() for k, v in layer.items()} for layer in tree]
+
+
+def _clone_state(state: adam.AdamState) -> adam.AdamState:
+    return adam.AdamState(step=state.step.clone(), m=_clone_tree(state.m), v=_clone_tree(state.v))
+
+
+def _leaves(params, state: adam.AdamState) -> list:
+    """The tensors of (params, state), in one fixed order."""
+    return [v for tree in (params, state.m, state.v) for layer in tree for v in layer.values()] + [state.step]
+
+
+def _same(a, b) -> bool:
+    """``a`` is ``b``, or both are tuples of the same objects (a GAT graph)."""
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+    return a is b
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost line ``exc`` was raised from: the operation that broke
+    a capture."""
+    frames = traceback.extract_tb(exc.__traceback__)
+    if not frames:
+        return "an unknown operation"
+    f = frames[-1]
+    return f"{os.path.basename(f.filename)}:{f.lineno} ({(f.line or '').strip()})"
+
+
+@dataclass
+class _Capture:
+    """One captured epoch: the graph and its static buffers."""
+
+    key: tuple  # the leaves' names, shapes and dtypes
+    inputs: tuple  # (pair, x, y, mask), held so their memory outlives the graph
+    graph: Any
+    params: list
+    opt_state: adam.AdamState
+    losses: torch.Tensor  # [num_epochs]
+    accs: torch.Tensor
+    epoch: torch.Tensor  # int64 (1,): the slot the next replay writes
+    warmup_s: float
+    capture_s: float
+
+
+def _capture_key(params, opt_state) -> tuple:
+    return tuple((i, k, tuple(v.shape), v.dtype) for i, layer in enumerate(params) for k, v in layer.items()) + (
+        opt_state.step.dtype,)
+
+
+def _capture(step, params, opt_state, pair, x, y, mask, num_epochs: int, model: str) -> _Capture:
+    """Warm the step up on a side stream on scratch copies, then capture one
+    epoch on that stream: the step on the static buffers, its results
+    copied back into them, its loss and accuracy written into slot
+    ``epoch`` of the outputs, ``epoch`` advanced, the cyclic collector off
+    (``torch.cuda.graph`` collects once before it begins). A capture that
+    fails raises with the line that broke it."""
+    dev = x.device
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        p, o = _clone_tree(params), _clone_state(opt_state)
+        for _ in range(SCAN_WARMUP_STEPS):
+            p, o, loss, acc = step(p, o, pair, x, y, mask)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    loss_dtype, acc_dtype = loss.dtype, acc.dtype
+    del p, o, loss, acc
+    torch.cuda.synchronize(dev)
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    static_p, static_o = _clone_tree(params), _clone_state(opt_state)
+    losses = torch.zeros(num_epochs, dtype=loss_dtype, device=dev)
+    accs = torch.zeros(num_epochs, dtype=acc_dtype, device=dev)
+    epoch = torch.zeros(1, dtype=torch.int64, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    failure = None
+    collecting = gc.isenabled()
+    gc.disable()  # a graph the collector frees mid-capture (cudaGraphExecDestroy) would break the capture
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            try:
+                p, o, loss, acc = step(static_p, static_o, pair, x, y, mask)
+                for dst, src in zip(_leaves(static_p, static_o), _leaves(p, o)):
+                    dst.copy_(src)
+                losses.index_copy_(0, epoch, loss.reshape(1))
+                accs.index_copy_(0, epoch, acc.reshape(1))
+                epoch.add_(1)
+            except Exception as exc:  # raised below, once the capture has ended
+                failure = exc
+    except Exception as exc:  # the capture's end; the first failure is the one to name
+        failure = failure or exc
+    finally:
+        if collecting:
+            gc.enable()
+    if failure is not None:
+        raise RuntimeError(f"CUDA graph capture of the {model} step failed at {_where(failure)}: "
+                           f"{type(failure).__name__}: {failure}") from failure
+    return _Capture(key=_capture_key(params, opt_state), inputs=(pair, x, y, mask), graph=graph, params=static_p,
+                    opt_state=static_o, losses=losses, accs=accs, epoch=epoch, warmup_s=warmup_s,
+                    capture_s=time.perf_counter() - t0)
+
+
+class ScanSteps:
+    """The callable :func:`make_scan_train_steps` returns: ``step`` (a
+    :func:`make_train_step` step) ``num_epochs`` times a call, on the route
+    :func:`scan_route` gives, with the last capture kept. A plain object,
+    not a closure, so that dropping it frees its graph and pool at once: a
+    graph freed by the cyclic collector during another capture would break
+    that capture."""
+
+    def __init__(self, step: Callable, num_epochs: int, model: str):
+        self.step, self.num_epochs, self.model = step, num_epochs, model
+        self.route: str | None = None
+        self.captures: list[dict] = []  # warm-up and capture seconds, one entry a capture
+        self._kept: _Capture | None = None
+
+    def __call__(self, params, opt_state, pair, x, y, mask):
+        route, why = scan_route(x.device)
+        if route != self.route:
+            print(f"scan route: {route} ({why})", file=sys.stderr)
+            self.route = route
+        if route == "loop":
+            losses, accs = [], []
+            for _ in range(self.num_epochs):
+                params, opt_state, loss, acc = self.step(params, opt_state, pair, x, y, mask)
+                losses.append(loss)
+                accs.append(acc)
+            return params, opt_state, torch.stack(losses), torch.stack(accs)
+        key, inputs, cap = _capture_key(params, opt_state), (pair, x, y, mask), self._kept
+        if cap is None or cap.key != key or not all(map(_same, cap.inputs, inputs)):
+            self._kept = cap = None  # the old graph's memory goes before the new capture
+            self._kept = cap = _capture(self.step, params, opt_state, pair, x, y, mask, self.num_epochs, self.model)
+            self.captures.append(dict(warmup_s=cap.warmup_s, capture_s=cap.capture_s))
+        for dst, src in zip(_leaves(cap.params, cap.opt_state), _leaves(params, opt_state)):
+            dst.copy_(src)
+        cap.epoch.zero_()
+        for _ in range(self.num_epochs):
+            cap.graph.replay()
+        return _clone_tree(cap.params), _clone_state(cap.opt_state), cap.losses.clone(), cap.accs.clone()
+
+
+def make_scan_train_steps(config, num_epochs: int, hparams: dict | None = None, model: str = "gcn") -> ScanSteps:
+    """``num_epochs`` Adam steps of ``model`` ("gcn", "sage" or "gat", as
+    :func:`make_train_step` dispatches) in one call:
+    (params, opt_state, pair, x, y, mask) -> (params, opt_state,
+    losses[num_epochs], accs[num_epochs]), the losses and accuracies tensors
+    on the step's device. Port of ``mg_gcn_tpu/train.py:307-345``
+    (``lax.scan``, one dispatch).
+
+    The route is :func:`scan_route`'s, printed on stderr at the first call
+    (and again where it changes). "graph": the first call warms the step up
+    on copies (:data:`SCAN_WARMUP_STEPS` steps, whose results are dropped)
+    and captures one epoch (:func:`_capture`); each call copies the caller's
+    parameters and Adam state into the graph's buffers, replays the graph
+    ``num_epochs`` times (Adam's step count and bias corrections live on the
+    card, so each replay is the next epoch), reads nothing back, and returns
+    clones that alias nothing. The graph is kept for the identity of
+    (pair, x, y, mask) and the leaves' shapes and dtypes: a call on its own
+    results replays it, another pair recaptures. The kernel wrappers count
+    their host launches only: the warm-up steps' and the captured epoch's;
+    a replay launches the graph, not the wrappers, so it adds nothing to
+    their counters (a device trace of the replay sees its kernels).
+    "loop": :func:`make_train_step`'s step ``num_epochs`` times, the losses
+    stacked on the device. The returned :class:`ScanSteps` records its route
+    in ``.route`` and each capture's warm-up and capture seconds in
+    ``.captures``."""
+    if num_epochs < 1:
+        raise ValueError(f"num_epochs must be at least 1, got {num_epochs}")
+    return ScanSteps(make_train_step(config, hparams, model=model), num_epochs, model)  # raises on an unknown model
 
 
 @dataclass

@@ -42,9 +42,17 @@ def trace_events(prof, trace_dir: str | None = None) -> list[dict]:
             return json.load(fh)["traceEvents"]
 
 
+def device_events(events: list[dict]) -> list[dict]:
+    """The device events of a trace (kernels, copies, memsets), without the
+    primer kernels ``timers.settle_profiler`` puts before the traced work."""
+    from .timers import PRIMER_EVENT
+
+    return [e for e in events if e.get("cat") in DEVICE_CATS and PRIMER_EVENT not in e.get("name", "")]
+
+
 def attribute(events: list[dict]) -> list[tuple[str, dict]]:
-    """(phase key or ``"unattributed"``, event) for every device event, in
-    trace order."""
+    """(phase key or ``"unattributed"``, event) for every device event of
+    :func:`device_events`, in trace order."""
     launches = {}
     scopes = defaultdict(list)
     for e in events:
@@ -55,9 +63,7 @@ def attribute(events: list[dict]) -> list[tuple[str, dict]]:
             t0 = float(e["ts"])
             scopes[(e.get("pid"), e.get("tid"))].append((t0, t0 + float(e.get("dur", 0.0)), e["name"]))
     out = []
-    for e in events:
-        if e.get("cat") not in DEVICE_CATS:
-            continue
+    for e in device_events(events):
         phase = "unattributed"
         launch = launches.get((e.get("args") or {}).get("correlation"))
         if launch is not None:

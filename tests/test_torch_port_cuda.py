@@ -1610,3 +1610,284 @@ def test_column_step_on_card_matches_cpu():
         for k in layer_c:
             assert torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k]) <= 1e-4 * torch.linalg.vector_norm(
                 layer_c[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the multi-epoch step: train.make_scan_train_steps as a replayed CUDA graph
+
+
+def _scan_case(case: str, seed: int = 4, device: str = "cuda"):
+    """(config, model, pair, x, y, params) of a small step: GCN on the
+    pattern pair (bf16, int8; float32 in the exact mode) and on ``tiled``,
+    SAGE on the pattern pair (bf16), GAT (bf16, 2 heads)."""
+    from mg_gcn_tpu_torch.models import gat, gcn, sage
+
+    n, classes = 3000, 7
+    g = sparse.random_graph(n, 12, seed=seed)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, 24)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, classes, n)).to(device)
+    if case == "sage":
+        config = sage.SAGEConfig(sizes=(24, 32, classes))
+        return config, "sage", sage.build_sage_pair(g, impl="pattern", dtype="bfloat16", device=device), x, y, \
+            sage.init_params(config, device=device)
+    if case == "gat":
+        config = gat.GATConfig(sizes=(24, 16, classes), heads=2)
+        return config, "gat", gat.build_gat_graph(g, dtype="bfloat16", device=device), x, y, \
+            gat.init_params(config, None, device=device)
+    impl, dtype = {"gcn-bf16": ("pattern", "bfloat16"), "gcn-int8": ("pattern", "int8"),
+                   "gcn-f32-exact": ("pattern", "float32"), "gcn-tiled": ("pallas", "float32")}[case]
+    config = gcn.GCNConfig(sizes=(24, 48, 48, classes), parity=case != "gcn-f32-exact")
+    pair = build_agg_pair(g, impl=impl, pattern_dtype=dtype, device=device)
+    return config, "gcn", pair, x, y, gcn.init_params(config, device=device)
+
+
+# each kernel wrapper of the port, beside the piece of its kernel's device
+# event name (a replayed graph's kernels are counted from a trace)
+_WRAPPER_EVENTS = {"pattern_fwd": (sp.pattern_fwd, "pattern_fwd_kernel"), "pattern_bwd": (sp.pattern_bwd, "PackArgs"),
+                   "edge": (se.edge, "csr::walk_kernel"), "edge_i8": (se.edge_i8, "csr::walk_kernel"),
+                   "edge_t": (se.edge_t, "csr::walk_kernel"), "gather": (sg.gather, "csr::walk_kernel"),
+                   "sddmm": (sd.sddmm, "sddmm_kernel"), "sddmm_qskip": (sd.sddmm_qskip, "sddmm_kernel"),
+                   "block_fwd": (sps.block_fwd, "block_fwd_kernel"), "block_bwd": (sps.block_bwd, "TileArgs"),
+                   "tiled": (tpl.tiled, "tiled_kernel"), "ring_fwd": (ring.ring_pattern_fwd, "ring_fwd_kernel"),
+                   "ring_bwd": (ring.ring_pattern_bwd, "PackArgs")}
+_EVENT_PIECES = ("pattern_fwd_kernel", "ring_fwd_kernel", "block_fwd_kernel", "TileArgs", "PackArgs",
+                 "csr::walk_kernel", "sddmm_kernel", "tiled_kernel")
+
+
+def _scan_counts() -> dict:
+    return {(name, key): n for name, (fn, _) in _WRAPPER_EVENTS.items() for key, n in fn.launches.items() if n}
+
+
+def _scan_reset() -> None:
+    for fn, _ in _WRAPPER_EVENTS.values():
+        fn.launches.clear()
+
+
+def _piece(name: str):
+    return next((p for p in _EVENT_PIECES if p in name), None)
+
+
+def _traced_kernels(run):
+    """The port's kernel events of one ``run()`` under torch.profiler,
+    settled at both ends, by full name."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mg_gcn_tpu_torch.timers import settle_profiler
+    from mg_gcn_tpu_torch.xplane import trace_events
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle_profiler()
+        run()
+        settle_profiler(start=False)
+    return Counter(e["name"] for e in trace_events(prof) if e.get("cat") == "kernel" and _piece(e["name"]))
+
+
+def _by_piece(events=None, counts=None) -> dict:
+    from collections import Counter
+
+    out = Counter()
+    for name, n in (events or {}).items():
+        out[_piece(name)] += n
+    for (name, _), n in (counts or {}).items():
+        out[_WRAPPER_EVENTS[name][1]] += n
+    return dict(out)
+
+
+def _eager(step, params, opt, pair, x, y, epochs):
+    losses, accs = [], []
+    for _ in range(epochs):
+        params, opt, loss, acc = step(params, opt, pair, x, y, None)
+        losses.append(loss)
+        accs.append(acc)
+    return params, opt, torch.stack(losses), torch.stack(accs)
+
+
+def _scan_leaves(run) -> list:
+    from mg_gcn_tpu_torch.train import _leaves
+
+    params, opt, losses, accs = run
+    return _leaves(params, opt) + [losses, accs]
+
+
+def _assert_runs_equal(got, want, exact: bool = True):
+    for a, b in zip(_scan_leaves(got), _scan_leaves(want), strict=True):
+        if exact:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("case", ["gcn-bf16", "gcn-int8", "gcn-f32-exact", "gcn-tiled", "sage", "gat"])
+def test_scan_replay_equals_eager(case, capsys):
+    """Three replayed epochs equal three eager steps from the same
+    parameters bit for bit (GAT: where two eager runs agree), twice in a
+    row. The counters count host launches only: the first call the warm-up
+    steps and the captured epoch, the second (replay only) none; a traced
+    replay's kernel events equal a traced eager call's name by name, and
+    those the eager call's counted launches."""
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.train import SCAN_WARMUP_STEPS, make_scan_train_steps
+
+    config, model, pair, x, y, params = _scan_case(case)
+    step, steps = make_train_step(config, model=model), make_scan_train_steps(config, 3, model=model)
+    opt = adam.adam_init(params)
+    _scan_reset()
+    eager_events = _traced_kernels(lambda: _eager(step, params, opt, pair, x, y, 3))
+    eager_counts = _scan_counts()
+    assert eager_counts and _by_piece(events=eager_events) == _by_piece(counts=eager_counts)
+    _scan_reset()
+    first = steps(params, opt, pair, x, y, None)
+    torch.cuda.synchronize()
+    first_counts = _scan_counts()
+    _scan_reset()
+    held = {}
+    replay_events = _traced_kernels(lambda: held.update(second=steps(first[0], first[1], pair, x, y, None)))
+    second = held["second"]
+    assert _scan_counts() == {}
+    assert replay_events == eager_events
+    eager = _eager(step, params, opt, pair, x, y, 3)
+    eager_more = _eager(step, eager[0], eager[1], pair, x, y, 3)
+    exact = True
+    if model == "gat":
+        again = _eager(step, params, opt, pair, x, y, 3)
+        exact = all(torch.equal(a, b) for a, b in zip(_scan_leaves(again), _scan_leaves(eager)))
+    _assert_runs_equal(first, eager, exact)
+    _assert_runs_equal(second, eager_more, exact)
+    assert int(second[1].step) == 6
+    assert first_counts == {k: v * (SCAN_WARMUP_STEPS + 1) // 3 for k, v in eager_counts.items()}
+    assert steps.route == "graph" and len(steps.captures) == 1
+    assert capsys.readouterr().err.count("scan route: graph") == 1
+
+
+def test_settled_traces_hold_every_kernel():
+    """A trace settled at both ends (``timers.settle_profiler``) holds
+    every kernel of a short step: 30 traces of 3 exact float32 epochs,
+    whose first kernel is a ``pattern_fwd``, each hold the launches
+    counted."""
+    from mg_gcn_tpu_torch.nn import adam
+
+    config, model, pair, x, y, params = _scan_case("gcn-f32-exact")
+    step, opt = make_train_step(config, model=model), adam.adam_init(params)
+    _eager(step, params, opt, pair, x, y, 3)
+    torch.cuda.synchronize()
+    for _ in range(30):
+        _scan_reset()
+        events = _traced_kernels(lambda: _eager(step, params, opt, pair, x, y, 3))
+        assert _by_piece(events=events) == _by_piece(counts=_scan_counts())
+
+
+@pytest.mark.parametrize("case", ["gcn-bf16", "sage", "gat"])
+def test_scan_second_pair_recaptures(case):
+    """Another pair recaptures (and equals eager on it); the first pair's
+    results are clones that a later call does not touch."""
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.train import make_scan_train_steps
+
+    config, model, pair, x, y, params = _scan_case(case)
+    *_, pair2, _, _, _ = _scan_case(case, seed=5)
+    step, steps = make_train_step(config, model=model), make_scan_train_steps(config, 3, model=model)
+    opt = adam.adam_init(params)
+    one = steps(params, opt, pair, x, y, None)
+    kept = [t.clone() for t in _scan_leaves(one)]
+    two = steps(params, opt, pair2, x, y, None)
+    assert len(steps.captures) == 2
+    _assert_runs_equal(two, _eager(step, params, opt, pair2, x, y, 3))
+    _assert_runs_equal(one, _eager(step, params, opt, pair, x, y, 3))
+    assert all(torch.equal(a, b) for a, b in zip(_scan_leaves(one), kept))
+    steps(one[0], one[1], pair2, x, y, None)
+    assert len(steps.captures) == 2  # the same pair, the same leaves: the graph is replayed
+
+
+def test_scan_captures_the_cooperative_backward_walk():
+    """The float32 pattern pair at d_pad 128 on a 65,536-node pack: the
+    backward walk is one cooperative launch over its column windows, and
+    the replayed epochs equal the eager ones."""
+    from mg_gcn_tpu_torch.models import gcn
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.train import make_scan_train_steps
+
+    n = 65536
+    g = sparse.random_graph(n, 4, seed=6)
+    assert sp.pattern_bwd_geometry(n, 128, torch.float32)["windows"] > 1
+    config = gcn.GCNConfig(sizes=(16, 128, 128, 5))
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 5, n)).cuda()
+    pair = build_agg_pair(g, impl="pattern", pattern_dtype="float32", device="cuda")
+    params = gcn.init_params(config, device="cuda")
+    opt = adam.adam_init(params)
+    got = make_scan_train_steps(config, 2)(params, opt, pair, x, y, None)
+    _assert_runs_equal(got, _eager(make_train_step(config), params, opt, pair, x, y, 2))
+
+
+@pytest.mark.parametrize("case", ["gcn-bf16", "sage", "gat"])
+def test_scan_loop_route_says_so(case, capsys):
+    """The loop route, by rule: tensors on the CPU, and a call made while
+    the card's stream is capturing already (its epochs go into the
+    caller's graph, whose replay equals the eager steps)."""
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.train import make_scan_train_steps, scan_route
+
+    assert scan_route(torch.device("cpu"))[0] == "loop"
+    assert scan_route(torch.device("cuda"))[0] == "graph"
+    config, model, pair, x, y, params = _scan_case(case)
+    step, steps = make_train_step(config, model=model), make_scan_train_steps(config, 2, model=model)
+    opt = adam.adam_init(params)
+    want = _eager(step, params, opt, pair, x, y, 2)  # also builds the kernels outside the capture
+    side, outer = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer, stream=side):
+        assert scan_route(torch.device("cuda"))[0] == "loop"
+        got = steps(params, opt, pair, x, y, None)
+    outer.replay()
+    torch.cuda.synchronize()
+    _assert_runs_equal(got, want)
+    assert steps.route == "loop" and not steps.captures
+    err = capsys.readouterr().err
+    assert "scan route: loop (the current stream is capturing already" in err
+    _, _, pair_cpu, x_cpu, y_cpu, params_cpu = _scan_case(case, device="cpu")
+    steps_cpu = make_scan_train_steps(config, 2, model=model)
+    out = steps_cpu(params_cpu, adam.adam_init(params_cpu), pair_cpu, x_cpu, y_cpu, None)
+    assert out[2].device.type == "cpu" and steps_cpu.route == "loop"
+    assert "scan route: loop (the CPU has no CUDA graphs)" in capsys.readouterr().err
+
+
+def test_scan_capture_failure_names_the_operation(monkeypatch):
+    """A step that reads from the card cannot be captured: the call raises
+    with the line that broke the capture and keeps no graph; the counters
+    hold the host launches made, the warm-up steps' and the failed
+    capture's one epoch; the card works on after."""
+    from mg_gcn_tpu_torch import train as ttrain
+    from mg_gcn_tpu_torch.nn import adam
+
+    config, model, pair, x, y, params = _scan_case("gcn-bf16")
+    real = ttrain.make_train_step
+
+    def reading_step(*args, **kw):
+        inner = real(*args, **kw)
+
+        def step(*a):
+            out = inner(*a)
+            # a host read, which a capturing stream does not allow
+            float(out[2])
+            return out
+
+        return step
+
+    monkeypatch.setattr(ttrain, "make_train_step", reading_step)
+    steps = ttrain.make_scan_train_steps(config, 2, model=model)
+    _scan_reset()
+    with pytest.raises(RuntimeError, match=r"capture of the gcn step failed at test_torch_port_cuda\.py:\d+ "
+                                           r"\(float\(out\[2\]\)\)"):
+        steps(params, adam.adam_init(params), pair, x, y, None)
+    assert not steps.captures
+    warm = _scan_counts()
+    monkeypatch.setattr(ttrain, "make_train_step", real)
+    _scan_reset()
+    want = _eager(make_train_step(config, model=model), params, adam.adam_init(params), pair, x, y, 2)
+    torch.cuda.synchronize()
+    assert warm == {k: v * (ttrain.SCAN_WARMUP_STEPS + 1) // 2 for k, v in _scan_counts().items()}
+    _assert_runs_equal(ttrain.make_scan_train_steps(config, 2, model=model)(
+        params, adam.adam_init(params), pair, x, y, None), want)

@@ -237,6 +237,65 @@ def test_scope_is_free_without_a_profiler():
     assert [e["name"] for e in phase_spans(xplane.trace_events(prof))] == ["0_0_matmul-spmm"]
 
 
+def test_settle_profiler_primes_the_card_only(monkeypatch):
+    """``settle_profiler``: with a card, at a trace's start the card
+    synchronized, PRIMER_KERNELS spin kernels, synchronized again, then
+    PROFILER_SETTLE_S slept; at its end only the sync and the sleep;
+    without a card, nothing."""
+    calls = []
+    monkeypatch.setattr(timers.time, "sleep", lambda s: calls.append(("sleep", s)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: calls.append(("synchronize",)))
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: calls.append(("spin", cycles)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    timers.settle_profiler()
+    timers.settle_profiler(start=False)
+    assert calls == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    timers.settle_profiler()
+    spins = [("spin", timers.PRIMER_CYCLES)] * timers.PRIMER_KERNELS
+    assert calls == [("synchronize",), *spins, ("synchronize",), ("sleep", timers.PROFILER_SETTLE_S)]
+    calls.clear()
+    timers.settle_profiler(start=False)
+    assert calls == [("synchronize",), ("sleep", timers.PROFILER_SETTLE_S)]
+
+
+def test_trace_readers_leave_the_primer_out():
+    """``xplane.device_events`` and ``attribute`` drop the primer's spin
+    kernels and keep every other device event."""
+    events = [{"cat": "kernel", "name": "void at::cuda::(anonymous namespace)::spin_kernel(long)", "ts": 0, "dur": 5,
+               "args": {"correlation": 1}},
+              {"cat": "kernel", "name": "pattern_fwd_kernel", "ts": 10, "dur": 5, "args": {"correlation": 2}},
+              {"cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 20, "dur": 1, "args": {}},
+              {"cat": "cpu_op", "name": "aten::mm", "ts": 0, "dur": 1}]
+    assert [e["name"] for e in xplane.device_events(events)] == ["pattern_fwd_kernel", "Memcpy DtoD"]
+    assert [e["name"] for _, e in xplane.attribute(events)] == ["pattern_fwd_kernel", "Memcpy DtoD"]
+
+
+def test_trace_and_profile_fused_step_settle_both_ends(monkeypatch, tmp_path):
+    """The ``--profile`` trace and ``profile_fused_step`` settle the
+    profiler while it runs, before the traced work and after it."""
+    seen = []
+    def settle(start=True):
+        seen.append((start, torch.autograd._profiler_enabled()))
+
+    monkeypatch.setattr(timers, "settle_profiler", settle)
+    monkeypatch.setattr(diagnostics, "settle_profiler", settle)
+    with timers.trace(str(tmp_path)):
+        seen.append("work")
+    g, x, y = inputs()
+    config = tgcn.GCNConfig(sizes=SIZES)
+    params = tgcn.init_params(config, device="cpu")
+    pair = ttrain.build_agg_pair(g, impl="xla", device="cpu")
+
+    def step(*a):
+        seen.append("step")
+        return ttrain.make_train_step(config)(*a)
+
+    args = (pair, torch.from_numpy(x), torch.from_numpy(y.astype(np.int64)), None)
+    diagnostics.profile_fused_step(step, (params, tadam.adam_init(params), *args), epochs=1)
+    assert seen == [(True, True), "work", (False, True), "step", (True, True), "step", (False, True)]
+
+
 def test_profile_fused_step_feeds_back_and_falls_through_on_the_cpu():
     """One warm step, then ``epochs`` traced steps, each fed the last one's
     params and state, which it returns: three Adam steps in all. On the CPU
