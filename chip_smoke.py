@@ -312,6 +312,29 @@ the result line:
    COO sums in another order each run), the column checkpoint the full
    rounded arrays.
 
+19. multi-process halo — BASELINE config 3's widths at -P 2 across two
+   processes, both on cuda:0 (MG_GCN_LOCAL_DEVICE_IDS=0): a papers100M-like
+   graph (scripts/papers_rehearsal.py:33-60's geometry, n = 8,388,608, 15
+   draws a row, about 126M entries; 128 features, 172 labels) drawn on the
+   card and written in the reference formats under chiprun_out/ (removed
+   after the phase), graph_t.bin by ``ensure_pigo_transpose``; two
+   processes of ``cli --multihost -P 2 -R 1 --impl halo --mmap -E 3 train
+   <dir> 3 128 128 128`` (each reading its row slabs of graph.bin and
+   graph_t.bin) and the same command in one process at -P 2: both workers
+   exit 0, each prints the route line "staged through host over gloo" and
+   the halo pair on the gather engine, and the (loss, acc) columns of both
+   processes equal the one-process run's bit for bit. Logged beside the
+   card's name and power limit: epoch and set-up seconds, each process's
+   peak card memory and host RSS, the halo rows moved against the useful
+   ones, the bytes sent to the other process an epoch and the share of the
+   epochs spent in the exchange helpers. Process 0 checks ``gather`` at its
+   partition's diagonal and round-0 blocks of Âᵀ at d = 128 against the plain
+   version summed in float64 (rows of the kernels line, with its launches
+   at that width over its run). Then ``--model sage`` at -P 2 on
+   random_graph(262,144, 16) across two processes, bit for bit with one
+   process, and a world of one process on the NCCL route (one all-gather,
+   one hop to itself).
+
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -427,6 +450,18 @@ PORT_KERNEL_EVENTS = (("pattern_fwd_kernel", ("pattern_fwd",)), ("ring_fwd_kerne
                       ("csr::walk_kernel", ("edge", "edge_i8", "edge_t", "gather")),
                       ("sddmm_kernel", ("sddmm", "sddmm_qskip")), ("tiled_kernel", ("tiled",)))
 FALLBACK_LINE = "no device trace; falling back to un-fused phase replay"
+# phase 19: BASELINE config 3 ("edge-partitioned across 2 hosts with halo
+# exchange") as two processes on one card: a papers100M-like graph
+# (scripts/papers_rehearsal.py:33-60's geometry: 80% of a row's draws in
+# row ± 2000, 20% uniform, self loops, duplicates merged) of 2^23 rows and 15
+# draws a row (about ogbn-products' 126M entries: papers100M's 111M rows cut
+# to a run's time), papers100M's widths (128 features, 172 labels, three
+# hidden layers of 128), -P 2 -R 1 --impl halo --mmap, 3 epochs; the gather
+# kernel checked at d = 128; a small SAGE run (random_graph(2^18, 16)) the
+# same way
+MH_N, MH_DEG, MH_BAND, MH_FAR = 8_388_608, 15, 2000, 0.2
+MH_FEATURES, MH_CLASSES, MH_HIDDEN, MH_PARTS, MH_EPOCHS = 128, 172, (128, 128, 128), 2, 3
+MH_KERNEL_D, MH_SAGE_N, MH_SAGE_DEG, MH_TIMEOUT_S = 128, 262_144, 16, 600
 
 
 def log(*args):
@@ -1497,7 +1532,7 @@ def phase_dist_path(ds) -> dict:
         return (lambda hs: dist.dist_aggregate_pattern(pair, hs, "PT", dtype, strategy),
                 lambda gs: dist.dist_aggregate_pattern(pair, gs, "P", dtype, strategy))
 
-    got = dist.dist_loss_and_grad([params] * P, *aggs("float32", "fused"), xs, ys, config, n, masks)
+    got = dist.dist_loss_and_grad([params] * P, *aggs("float32", "fused"), xs, ys, config, n, masks, mesh=mesh)
     torch.cuda.synchronize()
     compare_with_coo("dist fused", got, ref, ref="single-card pattern")
     del got, ref
@@ -2520,7 +2555,7 @@ def phase_products_dist(ds_b) -> dict:
             log(f"  DistGatherPair built on the card in {run['build_s']:.2f} s")
             agg = dist.dist_aggregate_gather
         got = dist.dist_loss_and_grad([params] * P, lambda hs: agg(pair.fwd, hs), lambda gs: agg(pair.bwd, gs), xs,
-                                      ys, config, n, masks)
+                                      ys, config, n, masks, mesh=mesh)
         torch.cuda.synchronize()
         compare_with_coo(f"-P {P} {kind}", got, ref, ref="single-card COO")
         del got
@@ -2630,7 +2665,8 @@ def phase_sage_dist(ds) -> None:
         pair = dist.build_pair(kind, m, m_t, mesh)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        got = dist.dist_sage_loss_and_grad([params] * P, dist.sage_aggregation(kind, pair), xs, ys, config, n)
+        got = dist.dist_sage_loss_and_grad([params] * P, dist.sage_aggregation(kind, pair), xs, ys, config, n,
+                                           mesh=mesh)
         torch.cuda.synchronize()
         compare_with_coo(f"SAGE -P {P} {kind}", got, ref, ref="single-card SAGE COO")
         log(f"  SAGE -P {P} {kind} f32 step against the float64 step: {gap(got, exact)}")
@@ -3849,6 +3885,318 @@ def phase_cli() -> None:
             run_cli(tmp, ds, ["--impl", impl, "train", clustered, "1", "16"], csv)
 
 
+def write_papers_like(directory: str, n: int, draws: int, features: int, classes: int, seed: int) -> dict:
+    """A papers100M-like dataset in the reference formats (the geometry of
+    scripts/papers_rehearsal.py:33-60: ``draws`` edges a row, 80% to
+    columns row ± MH_BAND clipped to [0, n), 20% uniform; self loops;
+    duplicates merged; binary), drawn and merged on the card from a seed,
+    with standard normal float32 features, labels in [0, classes) and sets
+    in {0, 1, 2}. Returns its row and entry counts."""
+    from mg_gcn_tpu_torch.formats import CSRData, write_dense, write_pigo_csr
+
+    os.makedirs(directory, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    src = torch.randint(0, n, (n * draws,), device="cuda", generator=gen)
+    near = torch.clamp(src + torch.randint(-MH_BAND, MH_BAND + 1, src.shape, device="cuda", generator=gen), 0, n - 1)
+    far = torch.randint(0, n, src.shape, device="cuda", generator=gen)
+    dst = torch.where(torch.rand(src.shape, device="cuda", generator=gen) < 1 - MH_FAR, near, far)
+    del near, far
+    loops = torch.arange(n, device="cuda")
+    key = torch.unique(torch.cat([src, loops]) * n + torch.cat([dst, loops]))  # sorted: CSR order
+    del src, dst
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    torch.cumsum(torch.bincount(key // n, minlength=n), 0, out=indptr[1:])
+    indices = (key % n).to(torch.int32).cpu().numpy()
+    nnz = key.numel()
+    del key
+    write_pigo_csr(os.path.join(directory, "graph.bin"),
+                   CSRData(indptr.cpu().numpy(), indices, np.ones(nnz, np.float32), (n, n)))
+    del indices
+    with open(os.path.join(directory, "features.bin"), "wb") as f:
+        np.array([n, features], np.uint32).tofile(f)
+        for r0 in range(0, n, 1 << 20):
+            rows = min(1 << 20, n - r0)
+            f.write(torch.randn((rows, features), device="cuda", generator=gen).cpu().numpy().tobytes())
+    labels = torch.randint(0, classes, (n, 1), device="cuda", generator=gen).to(torch.int32).cpu().numpy()
+    labels[0] = classes - 1  # 1 + max(labels) is the class count (main.cpp:88)
+    write_dense(os.path.join(directory, "labels.bin"), labels, np.uint32)
+    sets = torch.randint(0, 3, (n, 1), device="cuda", generator=gen).to(torch.int32).cpu().numpy()
+    write_dense(os.path.join(directory, "sets.bin"), sets, np.uint32)
+    torch.cuda.empty_cache()
+    return {"n": n, "nnz": nnz}
+
+
+def mh_env(rank: int | None, port: int) -> dict:
+    """The environment of a worker: its rank's ``MG_GCN_*`` variables (all
+    on cuda:0), or none for a one-process run."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MG_GCN_")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
+    if rank is not None:
+        env.update(MG_GCN_COORDINATOR=f"localhost:{port}", MG_GCN_NUM_PROCESSES=str(MH_PARTS),
+                   MG_GCN_PROCESS_ID=str(rank), MG_GCN_LOCAL_DEVICE_IDS="0")
+    return env
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_workers(label: str, specs: list[dict], world: bool) -> list[dict]:
+    """Run ``python chip_smoke.py --multihost-worker <spec>`` once a spec,
+    as the ranks of one run when ``world`` (else one process alone). Every
+    worker must exit 0 within MH_TIMEOUT_S; all are killed otherwise, and a
+    failure raises. Returns each worker's result (its last stdout line)
+    with its stderr lines."""
+    port = free_port()
+    procs = []
+    try:
+        for rank, spec in enumerate(specs):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--multihost-worker", json.dumps(spec)],
+                cwd=ROOT, env=mh_env(rank if world else None, port), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=MH_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: worker {rank} exited {p.returncode}:\n{err[-6000:]}\n{out[-2000:]}")
+        result = json.loads(out.strip().splitlines()[-1])
+        result["stderr"] = err.splitlines()
+        results.append(result)
+    return results
+
+
+def epoch_lines(lines: list[str]) -> list[tuple[str, str, float]]:
+    """(loss, acc, seconds) of each ``epoch loss acc seconds`` line, the
+    numbers as printed."""
+    out = [line.split() for line in lines if re.fullmatch(r"\d+ \S+ \S+ \S+", line)]
+    return [(e[1], e[2], float(e[3])) for e in out]
+
+
+def multihost_worker(spec: dict) -> int:
+    """One worker of phase 19: ``mg_gcn_tpu_torch.cli.main(spec["argv"])``
+    with the run's halo pair kept (``DistHaloPair.from_pigo`` /
+    ``from_csr_pair`` wrapped) and the exchange helpers
+    (``multihost.exchange`` / ``all_gather``) wrapped to add up their wall
+    seconds and the bytes they send to other processes (an all-gather's
+    once for each peer) from the pair's build on. Prints one JSON line: the
+    gather launches by width over the run, peak card memory and host RSS,
+    the exchange's bytes and seconds, the pair's moved and useful halo
+    rows, and with ``spec["kernels"]`` the gather kernel's rows at this
+    process's first partition's diagonal and round-0 blocks of Âᵀ at d =
+    MH_KERNEL_D."""
+    import resource
+
+    sys.path.insert(0, ROOT)
+    from mg_gcn_tpu_torch import cli
+    from mg_gcn_tpu_torch.parallel import dist_halo, multihost
+
+    kept, spent = {}, {"exchange_s": 0.0, "bytes": 0}
+
+    def keep(build):
+        def wrapped(*a, **k):
+            pair = build(*a, **k)
+            torch.cuda.synchronize()
+            kept.update(pair=pair, built=time.perf_counter())
+            spent.update(exchange_s=0.0, bytes=0)
+            return pair
+        return staticmethod(wrapped)
+
+    def timed(fn, sent):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent["exchange_s"] += time.perf_counter() - t0
+                spent["bytes"] += sent(*a)
+        return wrapped
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    H = dist_halo.DistHaloPair
+    H.from_pigo, H.from_csr_pair = keep(H.from_pigo), keep(H.from_csr_pair)
+    multihost.exchange = timed(multihost.exchange, lambda sends, recvs: sum(nbytes(t) for t, _, _ in sends))
+    multihost.all_gather = timed(multihost.all_gather, lambda t: nbytes(t) * (multihost.process_count() - 1))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    code = cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    out = {"code": code, "wall_s": time.perf_counter() - t0, "launches": [[dt, d, v] for (dt, d), v in
+                                                                          counts()["gather"].items()],
+           "peak_card_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+           "bytes_after_build": spent["bytes"],
+           "exchange_s": spent["exchange_s"], "epochs_s": time.perf_counter() - kept.get("built", t0)}
+    pair = kept.get("pair")
+    if pair is not None:
+        out.update(moved=pair.fwd.parts * sum(pair.fwd.round_widths), useful=pair.fwd.halo_total,
+                   round_widths=list(pair.fwd.round_widths), engine=type(pair.fwd).__name__)
+    if spec.get("kernels") and code == 0:
+        out["rows"] = multihost_kernel_rows(pair, counts()["gather"])
+    print(json.dumps(out))
+    multihost.shutdown()
+    return 0 if code == 0 else 1
+
+
+def multihost_kernel_rows(pair, launches: dict) -> list[dict]:
+    """The gather kernel at this process's first partition's Âᵀ blocks (the
+    diagonal, m_loc x m_loc, and round 0's, m_loc x w_0) at d =
+    MH_KERNEL_D: against its plain version summed in float64, twice bit for
+    bit, timed beside the bound, the plain version and torch.sparse.mm on
+    the same block. ``launches`` is this process's counter over its run."""
+    from mg_gcn_tpu_torch.ops import spmm_gather as sg
+
+    d, rows = MH_KERNEL_D, []
+    for where, blk in (("diagonal", pair.fwd.loc[0]), ("round 0", pair.fwd.rem[0][0])):
+        b = operand(blk.n_in, d, "float32", seed=d)
+        label = f"gather float32 d={d} (two-process halo {where}, {blk.n_out} x {blk.n_in})"
+        check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain,
+                                                 (blk.indptr, blk.indices, blk.w, b), "float32", 5, 2, repeat=True)
+        extra = walk_geometry(label, sg.gather_geometry(blk.n_out, b.shape[1], b.dtype, True))
+        lib, bl = csr_library(blk.indptr, blk.indices, blk.w, (blk.n_out, blk.n_in)), b[:, :d].contiguous()
+        library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
+        del lib, bl
+        moved = 8 * (blk.n_out + 1) + 8 * blk.nnz + blk.n_in * d * 4 + blk.n_out * d * 4
+        rows.append(kernel_row("gather", "float32", d, blk.n_out, blk.nnz, launches.get(("float32", b.shape[1]), 0),
+                               check, ms, plain_ms, library_ms, moved) | extra
+                    | {"shape": f"two-process halo {where} {blk.n_out} x {blk.n_in}",
+                       "launches_counted": "process 0's run, every block of its partition's Âᵀ and Â at this width"})
+        del b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def nccl_check() -> int:
+    """The NCCL route builds: a world of one process on cuda:0
+    (``multihost.initialize``) takes it, and one all-gather and one hop to
+    itself (``multihost.exchange``) return their tensors."""
+    sys.path.insert(0, ROOT)
+    from mg_gcn_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{free_port()}", num_processes=1, process_id=0, local_device_ids=[0],
+                         timeout=120)
+    t = torch.arange(12.0, device="cuda:0").reshape(3, 4)
+    gathered = multihost.all_gather(t)
+    hop = multihost.exchange([(t, 0, 1)], [(torch.empty_like(t), 0, 1)])
+    torch.cuda.synchronize()
+    ok = multihost.route() == "nccl" and len(gathered) == 1 and torch.equal(gathered[0], t) and torch.equal(hop[0], t)
+    print(json.dumps({"route": multihost.route(), "ok": bool(ok)}))
+    multihost.shutdown()
+    return 0 if ok else 1
+
+
+def phase_multihost(smi: str) -> list[dict]:
+    """Phase 19 (see the module docstring). Returns the gather kernel's
+    rows at the per-process block shapes."""
+    import shutil
+
+    from mg_gcn_tpu_torch.formats import Dataset, ensure_pigo_transpose, read_pigo_header
+    from mg_gcn_tpu_torch.train import halo_engine
+
+    root = os.path.join(ROOT, "chiprun_out", "multihost")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "papers_like")
+        info = write_papers_like(data, MH_N, MH_DEG, MH_FEATURES, MH_CLASSES, seed=19)
+        t1 = time.perf_counter()
+        ensure_pigo_transpose(data)
+        log(f"  dataset: n = {info['n']}, {info['nnz']} entries, {MH_FEATURES} features, {MH_CLASSES} labels;"
+            f" written in {t1 - t0:.1f} s (drawn on the card), graph_t.bin by ensure_pigo_transpose in"
+            f" {time.perf_counter() - t1:.1f} s")
+        header = read_pigo_header(os.path.join(data, "graph.bin"))
+        if halo_engine(header, True) != "gather":
+            raise AssertionError("the halo rule did not take the gather engine for the papers-like graph")
+        args = ["-P", str(MH_PARTS), "-R", "1", "--impl", "halo", "--mmap", "-E", str(MH_EPOCHS), "train", data,
+                str(len(MH_HIDDEN)), *map(str, MH_HIDDEN)]
+        csv = lambda tag: ["--csv-dir", os.path.join(root, f"csv_{tag}")]  # noqa: E731
+        two = launch_workers("two processes", [
+            {"argv": ["--multihost", *csv(f"rank{r}"), *args], "kernels": r == 0} for r in range(MH_PARTS)],
+            world=True)
+        one = launch_workers("one process", [{"argv": ["--device", ",".join(["cuda:0"] * MH_PARTS), *csv("one"),
+                                                        *args]}], world=False)[0]
+        for r, w in enumerate(two):
+            if not any("exchange route: card tensors staged through host over gloo" in x for x in w["stderr"]):
+                raise AssertionError(f"worker {r}: no staged route line:\n" + "\n".join(w["stderr"][:20]))
+            if "halo local engine: serial-gather" not in w["stderr"]:
+                raise AssertionError(f"worker {r}: the halo pair is not on the gather engine")
+        lines = [epoch_lines(w["stderr"]) for w in two]
+        want = epoch_lines(one["stderr"])
+        if len(want) != MH_EPOCHS or not all(math.isfinite(float(e[0])) for e in want):
+            raise AssertionError(f"one process: epoch lines {want}")
+        for r, got in enumerate(lines):
+            if [e[:2] for e in got] != [e[:2] for e in want]:
+                raise AssertionError(f"worker {r}: (loss, acc) {[e[:2] for e in got]} != one process's"
+                                     f" {[e[:2] for e in want]}")
+        log(f"  route: {[x for x in two[0]['stderr'] if 'exchange route' in x][0]}")
+        log(f"  losses (both processes and one process, bit for bit): {[e[0] for e in want]}")
+        for tag, w, ep in [(f"process {r}", w, lines[r]) for r, w in enumerate(two)] + [("one process", one, want)]:
+            epoch_s = [e[2] for e in ep]
+            log(f"  {tag}: epoch seconds {epoch_s} (median of 1-{MH_EPOCHS - 1}"
+                f" {float(np.median(epoch_s[1:])):.3f} s); run {w['wall_s']:.1f} s, of which set-up (start to the"
+                f" pair built) {w['wall_s'] - w['epochs_s']:.1f} s; peak card memory {w['peak_card_gb']:.2f} GB,"
+                f" peak host RSS {w['peak_rss_gb']:.2f} GB; halo rows moved {w.get('moved')} a product"
+                f" ({w.get('useful')} useful, round widths {w.get('round_widths')}); gather launches"
+                f" {sorted(map(tuple, w['launches']))}; [{smi}]")
+        for r, w in enumerate(two):
+            per_epoch = w["bytes_after_build"] / MH_EPOCHS
+            log(f"  process {r}: {per_epoch / 1e9:.3f} GB sent to the other process an epoch; exchange helpers"
+                f" {w['exchange_s']:.2f} s of its {w['epochs_s']:.2f} s of epochs"
+                f" ({w['exchange_s'] / w['epochs_s']:.3f}, host wall clock, waits included) [{smi}]")
+        launches = {(dt, d): v for dt, d, v in two[0]["launches"]}
+        if not launches or min(launches.values()) < 1:
+            raise AssertionError(f"process 0 launched no gather kernel: {launches}")
+        rows = two[0]["rows"]
+        for r in rows:
+            log_row(r, f"; {r['shape']}")
+
+        t0 = time.perf_counter()
+        small = os.path.join(root, "sage")
+        from mg_gcn_tpu_torch import sparse
+
+        rng = np.random.default_rng(23)
+        Dataset(graph=sparse.random_graph(MH_SAGE_N, MH_SAGE_DEG, seed=23),
+                features=rng.standard_normal((MH_SAGE_N, MH_FEATURES)).astype(np.float32),
+                labels=rng.integers(0, MH_CLASSES, (MH_SAGE_N, 1)).astype(np.int32),
+                sets=rng.integers(0, 3, (MH_SAGE_N, 1)).astype(np.int32)).save(small)
+        ensure_pigo_transpose(small)
+        sage = ["--model", "sage", "-P", str(MH_PARTS), "-R", "1", "--impl", "halo", "-E", "3", "train", small, "1",
+                str(MH_HIDDEN[0])]
+        two = launch_workers("SAGE two processes", [{"argv": ["--multihost", *csv(f"sage{r}"), *sage]}
+                                                    for r in range(MH_PARTS)], world=True)
+        one = launch_workers("SAGE one process", [{"argv": ["--device", "cuda:0,cuda:0", *csv("sage"), *sage]}],
+                             world=False)[0]
+        want = [e[:2] for e in epoch_lines(one["stderr"])]
+        if len(want) != 3 or any([e[:2] for e in epoch_lines(w["stderr"])] != want for w in two):
+            raise AssertionError(f"SAGE: two processes {[epoch_lines(w['stderr']) for w in two]} != one {want}")
+        if two[0].get("engine") != "DistHaloGatherMat":
+            raise AssertionError(f"SAGE: the halo pair is a {two[0].get('engine')}")
+        log(f"  SAGE -P {MH_PARTS} two processes (n = {MH_SAGE_N}, random_graph({MH_SAGE_N}, {MH_SAGE_DEG}),"
+            f" {MH_FEATURES} -> {MH_HIDDEN[0]} -> {MH_CLASSES}, halo pair on the gather engine): losses {want}"
+            f" bit for bit with one process, in {time.perf_counter() - t0:.1f} s")
+
+        r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--nccl-check"], cwd=ROOT,
+                           env=mh_env(None, 0), capture_output=True, text=True, timeout=300)
+        if r.returncode != 0 or not json.loads(r.stdout.strip().splitlines()[-1])["ok"]:
+            raise AssertionError(f"NCCL route check exited {r.returncode}:\n{r.stderr[-4000:]}\n{r.stdout[-1000:]}")
+        log(f"  NCCL route, a world of one on cuda:0: {r.stdout.strip().splitlines()[-1]}")
+        return rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4034,6 +4382,10 @@ def main() -> int:
 
     phase("[18] CLI")
     phase_cli()
+
+    phase(f"[19] multi-process halo: BASELINE config 3's widths at -P {MH_PARTS} across {MH_PARTS} processes on"
+          f" cuda:0, n = {MH_N}")
+    kernels += phase_multihost(smi)
     phase("done")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -4045,4 +4397,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:] == ["--nccl-check"]:
+        sys.exit(nccl_check())
     sys.exit(main())

@@ -6,7 +6,11 @@ process (``parallel/dist.py``, ``parallel/dist_halo.py``,
 ``parallel/dist_gat.py``), and with ``-P N -R 0`` GCN column-parallel
 (``parallel/dist_col.py``); ``infer``
 loads a checkpoint and writes the forward pass's predictions; ``pagerank``
-runs the power iteration:
+runs the power iteration. ``--multihost`` joins a run of several processes
+(``parallel/multihost.py``, from the ``MG_GCN_*`` variables): ``-P N -R 1``
+GCN and SAGE split their partitions over the processes, each process
+reading only its row slabs of the graph under ``--impl halo`` / ``auto``;
+``--mmap`` maps ``features.bin`` instead of reading it whole:
 
     python -m mg_gcn_tpu_torch.cli [-E epochs] [options] train <data_dir> <L> <d1> ... <dL>
     python -m mg_gcn_tpu_torch.cli [options] --load CK infer <data_dir> <L> <d1> ... <dL>
@@ -20,8 +24,9 @@ all on the CPU; ``cuda`` means ``cuda:0 .. cuda:N-1``). Per-epoch output is
 (main.cpp:100-111 conventions). ``--time-phases`` adds the per-phase device
 times of GCN's step to that CSV (``diagnostics.py``), ``--profile DIR``
 writes a torch.profiler Chrome trace of the run into DIR, and ``--f64`` runs
-single-card GCN in float64 on the COO engine. Flags of later slices exit
-with code 2 and name their ROADMAP item.
+single-card GCN in float64 on the COO engine. Across processes every process
+prints its epoch lines and process 0 alone writes the CSV and checkpoints;
+the paths of a later slice exit with code 2 and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -110,16 +115,35 @@ def _csv_name(data_dir: str, sizes, P: int) -> str:
     return f"{name}_{P}.csv"
 
 
-def _not_ported(opts) -> str | None:
-    """The first option of a later slice that ``opts`` asks for, with its
-    ROADMAP item, or None."""
+def _not_ported(opts, processes: int) -> str | None:
+    """The first path of a later slice that ``opts`` asks for across
+    ``processes``, with its ROADMAP item, or None."""
+    if processes == 1:
+        return None
     later = [
-        (opts.mmap, "--mmap: ROADMAP queue 1 item 9g"),
+        (opts.command == "infer", "infer across processes"),
+        (opts.command == "pagerank", "pagerank across processes"),
+        (opts.command == "train" and opts.P > 1 and opts.model == "gat", "--model gat across processes"),
+        (opts.command == "train" and opts.P > 1 and not opts.R, "-R 0 across processes"),
     ]
     for asked, what in later:
         if asked:
-            return what
+            return f"{what}: ROADMAP queue 1 item 9i"
     return None
+
+
+def _features(ds, dtype=np.float32) -> torch.Tensor:
+    """The features as a host tensor of ``dtype``; a mapped file is read
+    into memory here (the one-card paths hold every row)."""
+    f = ds.features
+    return torch.from_numpy(np.array(f, dtype) if isinstance(f, np.memmap) else np.ascontiguousarray(f, dtype))
+
+
+def _main_process() -> bool:
+    """Process 0 writes the run's files (CSV, checkpoints)."""
+    from .parallel import multihost
+
+    return multihost.process_index() == 0
 
 
 def _invalid(opts) -> str | None:
@@ -159,10 +183,6 @@ def cmd_train(opts) -> int:
     if invalid:
         print(invalid, file=sys.stderr)
         return 2
-    missing = _not_ported(opts)
-    if missing:
-        print(f"not ported yet: {missing}", file=sys.stderr)
-        return 2
     if len(opts.args) < 2:
         print("train requires: <data_dir> <L> <d1> ... <dL>", file=sys.stderr)
         return 2
@@ -177,11 +197,12 @@ def cmd_train(opts) -> int:
     from .formats import Dataset
     from .models import gat, gcn, sage
     from .nn import adam
+    from .parallel import multihost
     from .timers import TimerRegistry, trace
 
-    P = opts.P
+    P, processes = opts.P, multihost.process_count()
     try:
-        if P > 1:
+        if P > 1 or processes > 1:
             mesh = _partition_ring(opts.device, P)
             dev = mesh.devices[0]
         else:
@@ -189,7 +210,11 @@ def cmd_train(opts) -> int:
     except (RuntimeError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    ds = Dataset.load(data_dir)
+    # across processes the halo pair builds from each process's row slabs
+    # (mg_gcn_tpu/cli.py:238-262): no process reads the whole graph
+    slab_graph = (processes > 1 and P > 1 and opts.R == 1 and opts.impl in ("halo", "auto")
+                  and opts.model in ("gcn", "sage") and not opts.f64)
+    ds = Dataset.load(data_dir, mmap_features=opts.mmap, graph_mode="header" if slab_graph else "full")
     print(f"{ds.num_nodes} {ds.graph.nnz}", file=sys.stderr)
     print(f"num_labels = {ds.num_labels}", file=sys.stderr)
     print(f"feature size = {ds.num_features}", file=sys.stderr)
@@ -218,7 +243,8 @@ def cmd_train(opts) -> int:
         params = gcn.init_params(config, opts.seed, device=dev,
                                  dtype=torch.float64 if opts.f64 else torch.float32)
     timers = TimerRegistry()
-    os.makedirs(opts.csv_dir, exist_ok=True)
+    if _main_process():  # the JAX CLI makes it on every process (ROADMAP queue 3)
+        os.makedirs(opts.csv_dir, exist_ok=True)
     csv_path = os.path.join(opts.csv_dir, _csv_name(data_dir, sizes, P))
 
     opt_state = adam.adam_init(params)
@@ -236,10 +262,11 @@ def cmd_train(opts) -> int:
             params, opt_state, code = _train_single(opts, ds, config, hparams, params, opt_state, timers, dev)
     if code:
         return code
-    with open(csv_path, "w") as f:
-        timers.dump(f)
-    if opts.save:
-        save_checkpoint(opts.save, (params, opt_state))
+    if _main_process():  # the JAX CLI lets every process write these (ROADMAP queue 3)
+        with open(csv_path, "w") as f:
+            timers.dump(f)
+        if opts.save:
+            save_checkpoint(opts.save, (params, opt_state))
     return 0
 
 
@@ -247,9 +274,15 @@ def _partition_ring(spec: str, P: int):
     """The ring of ``-P`` partitions for ``--device``: ``cuda`` is ``cuda:0 ..
     cuda:P-1`` (fewer visible cards raise with the JAX CLI's message); one
     other device takes all P partitions; a comma list names each
-    partition's device."""
+    partition's device. Across W processes the same for this process's P / W
+    partitions, ``cuda`` meaning the cards of ``MG_GCN_LOCAL_DEVICE_IDS``."""
+    from .parallel import multihost
     from .parallel.dist import make_mesh
 
+    processes = multihost.process_count()
+    if P % processes:
+        raise ValueError(f"-P {P} partitions do not split evenly over {processes} processes")
+    local = P // processes
     names = [d.strip() for d in spec.split(",")]
     if names == ["cuda"]:
         try:
@@ -258,9 +291,10 @@ def _partition_ring(spec: str, P: int):
             visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
             raise ValueError(f"requested -P {P} but only {visible} devices visible") from None
     if len(names) == 1:
-        names = names * P
-    if len(names) != P:
-        raise ValueError(f"--device lists {len(names)} devices for -P {P}")
+        names = names * local
+    if len(names) != local:
+        raise ValueError(f"--device lists {len(names)} devices for -P {P}"
+                         + (f" over {processes} processes ({local} a process)" if processes > 1 else ""))
     return make_mesh(P, names)
 
 
@@ -276,7 +310,7 @@ def _run_epochs(opts, step, args, params, opt_state, timers, save_view=lambda p,
         dt = time.perf_counter() - t0
         timers.record(f"{e}_0_epoch", dt * 1e3)
         print(f"{e} {loss} {acc} {dt}", file=sys.stderr)
-        if opts.save_every and opts.save and (e + 1) % opts.save_every == 0:
+        if opts.save_every and opts.save and (e + 1) % opts.save_every == 0 and _main_process():
             save_checkpoint(opts.save, save_view(params, opt_state))
     return params, opt_state
 
@@ -306,8 +340,7 @@ def _train_single(opts, ds, config, hparams, params, opt_state, timers, dev):
 
     with timers.span("0_preprocess"):
         pair = _single_pair(opts, ds.graph, dev)
-        fdt = np.float64 if opts.f64 else np.float32
-        x = torch.from_numpy(np.ascontiguousarray(ds.features, fdt)).to(dev)
+        x = _features(ds, np.float64 if opts.f64 else np.float32).to(dev)
         y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
         mask = (
             torch.from_numpy(ds.sets.reshape(-1) == 0).to(dev)
@@ -345,15 +378,44 @@ def _halo_lines(pair, P: int, n: int) -> None:
           f" {(P - 1) * n})", file=sys.stderr)
 
 
+def _slab_halo_pair(header, mesh, norm: str, pair_kind: str):
+    """The halo pair from each process's row slabs of ``graph.bin`` and
+    ``graph_t.bin`` (``mg_gcn_tpu/cli.py:487-515``): process 0 checks that
+    ``graph_t.bin`` is there and matches ``graph.bin``
+    (``formats.check_pigo_transpose``), every process learns the outcome
+    (a broadcast, the barrier), then ``DistHaloPair.from_pigo`` builds. A
+    missing or stale transpose raises ValueError on every process, naming
+    ``ensure_pigo_transpose``: the JAX CLI's transpose of the whole graph
+    on process 0 has no counterpart (ROADMAP queue 3)."""
+    from .formats import check_pigo_transpose
+    from .parallel import multihost
+    from .parallel.dist_halo import DistHaloPair
+
+    d_dir = os.path.dirname(header.path)
+    problem = None
+    if mesh.rank == 0:
+        try:
+            check_pigo_transpose(d_dir)
+        except ValueError as exc:
+            problem = str(exc)
+    problem = multihost.broadcast_object(problem)
+    if problem:
+        raise ValueError(problem)
+    return DistHaloPair.from_pigo(header.path, os.path.join(d_dir, "graph_t.bin"), mesh,
+                                  engine="gather" if pair_kind == "halo_gather" else "xla", norm=norm)
+
+
 def _train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh):
     """``-P N -R 1`` GCN (``mg_gcn_tpu/cli.py:517-694``): the pair
     ``train.dist_engine`` picks. The row-partitioned pattern pair where the
     JAX CLI's gate takes it (on a card; on the CPU where ``--impl pattern``
-    asks), with the fused ring exchange by default; ``--impl gather`` the
-    serial-gather ring blocks; ``--impl halo``, and ``auto`` otherwise, the
-    halo pair (its local engine by ``train.halo_engine``); any other impl
-    the COO ring pair. Returns (params, opt_state, exit code)."""
+    asks; one process only), with the fused ring exchange by default;
+    ``--impl gather`` the serial-gather ring blocks; ``--impl halo``, and
+    ``auto`` otherwise, the halo pair (its local engine by
+    ``train.halo_engine``; across processes from each one's row slabs); any
+    other impl the COO ring pair. Returns (params, opt_state, exit code)."""
     from . import sparse
+    from .formats import GraphHeader
     from .parallel import dist
     from .train import dist_engine
 
@@ -365,7 +427,7 @@ def _train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh):
     card = _card_bytes(mesh)
     per_card = max(mesh.devices.count(d) for d in mesh.replica_devices)
     try:
-        pair_kind, why = dist_engine(ds.graph, opts.impl, P, per_card, card)
+        pair_kind, why = dist_engine(ds.graph, opts.impl, P, per_card, card, processes=mesh.world)
     except ValueError as exc:
         print(exc, file=sys.stderr)
         return params, opt_state, 2
@@ -406,11 +468,18 @@ def _train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh):
             if fused_auto:
                 print("exchange: fused ring (auto)", file=sys.stderr)
         else:
-            a = sparse.normalize(ds.graph, axis=True)  # main.cpp:143
-            pair = dist.build_pair(pair_kind, sparse.transpose(a), a, mesh)
+            if isinstance(ds.graph, GraphHeader):
+                try:
+                    pair = _slab_halo_pair(ds.graph, mesh, "gcn", pair_kind)
+                except ValueError as exc:
+                    print(exc, file=sys.stderr)
+                    return params, opt_state, 2
+            else:
+                a = sparse.normalize(ds.graph, axis=True)  # main.cpp:143
+                pair = dist.build_pair(pair_kind, sparse.transpose(a), a, mesh)
+                del a
             if pair_kind in ("halo", "halo_gather"):
                 _halo_lines(pair, P, n)
-            del a
             xs, ys, masks = dist.shard_dataset(ds, mesh, mask_train=opts.mask_train)
     params, opt_state = _run_epochs(opts, step, (pair, xs, ys, masks), dist.replicate(params, mesh),
                                     dist.replicate(opt_state, mesh), timers, save_view=lambda p, o: (p[0], o[0]))
@@ -418,14 +487,16 @@ def _train_dist(opts, ds, config, hparams, params, opt_state, timers, mesh):
 
 
 def _train_dist_sage(opts, ds, config, hparams, params, opt_state, timers, mesh):
-    """``--model sage -P N -R 1`` (``mg_gcn_tpu/cli.py:697-795``, without its
-    per-process slab branch) over the mean pair (M, Mᵀ): ``--impl halo``
-    the halo pair (its local engine by ``train.halo_engine``, through
-    ``train.dist_engine``), ``--impl gather`` the serial-gather ring
-    blocks, every other impl
-    (``auto`` too) the COO ring pair; ``-S`` the all_gather exchange.
-    Returns (params, opt_state, exit code)."""
+    """``--model sage -P N -R 1`` (``mg_gcn_tpu/cli.py:697-795``) over the
+    mean pair (M, Mᵀ): ``--impl halo`` the halo pair (its local engine by
+    ``train.halo_engine``, through ``train.dist_engine``), ``--impl
+    gather`` the serial-gather ring blocks, every other impl (``auto``
+    too) the COO ring pair; ``-S`` the all_gather exchange. Across
+    processes ``--impl halo`` and ``auto`` build the halo pair from each
+    process's row slabs (:func:`_slab_halo_pair`). Returns (params,
+    opt_state, exit code)."""
     from . import sparse
+    from .formats import GraphHeader
     from .parallel import dist
     from .train import dist_engine
 
@@ -437,19 +508,29 @@ def _train_dist_sage(opts, ds, config, hparams, params, opt_state, timers, mesh)
     if opts.impl == "gather" and strategy != "ring":
         print("--impl gather uses the ring exchange; drop -S", file=sys.stderr)
         return params, opt_state, 2
-    # SAGE's auto takes COO (cli.py:743-745); halo and gather as the GCN path
+    # SAGE's auto takes COO (cli.py:743-745), but the slab build halo;
+    # halo and gather as the GCN path
+    on_disk = isinstance(ds.graph, GraphHeader)
     pair_kind = "coo"
-    if opts.impl in ("halo", "gather"):
-        pair_kind = dist_engine(ds.graph, opts.impl, P, P, _card_bytes(mesh))[0]
+    if opts.impl in ("halo", "gather") or on_disk:
+        pair_kind = dist_engine(ds.graph, "halo" if on_disk else opts.impl, P, P, _card_bytes(mesh),
+                                processes=mesh.world)[0]
     try:  # a halo pair asked for the all_gather exchange: the JAX step's refusal
         step = dist.make_dist_sage_train_step(config, mesh, n, hparams, strategy=strategy, pair_kind=pair_kind)
     except ValueError as exc:
         print(exc, file=sys.stderr)
         return params, opt_state, 2
     with timers.span("0_preprocess"):
-        m = sparse.normalize(ds.graph, axis=False)
-        pair = dist.build_pair(pair_kind, m, sparse.transpose(m), mesh)
-        del m
+        if on_disk:
+            try:
+                pair = _slab_halo_pair(ds.graph, mesh, "sage", pair_kind)
+            except ValueError as exc:
+                print(exc, file=sys.stderr)
+                return params, opt_state, 2
+        else:
+            m = sparse.normalize(ds.graph, axis=False)
+            pair = dist.build_pair(pair_kind, m, sparse.transpose(m), mesh)
+            del m
         xs, ys, masks = dist.shard_dataset(ds, mesh, mask_train=opts.mask_train)
     params, opt_state = _run_epochs(opts, step, (pair, xs, ys, masks), dist.replicate(params, mesh),
                                     dist.replicate(opt_state, mesh), timers, save_view=lambda p, o: (p[0], o[0]))
@@ -551,7 +632,7 @@ def cmd_infer(opts) -> int:
     except (RuntimeError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    ds = Dataset.load(data_dir)
+    ds = Dataset.load(data_dir, mmap_features=opts.mmap)
     sizes = [ds.num_features, *hidden, ds.num_labels]
     if P > 1:
         sizes[-1] = (sizes[-1] + P - 1) // P * P
@@ -566,7 +647,7 @@ def cmd_infer(opts) -> int:
         return 2
     template = model.init_params(config, device=dev)
     params, _ = load_checkpoint(opts.load, (template, adam.adam_init(template)))
-    x = torch.from_numpy(np.ascontiguousarray(ds.features, np.float32))
+    x = _features(ds)
     if P > 1:
         from . import sparse
         from .parallel import dist
@@ -628,15 +709,29 @@ def cmd_pagerank(opts) -> int:
 
 
 def main(argv=None) -> int:
+    from .parallel import multihost
+
     opts = build_parser().parse_args(argv)
     if opts.multihost:  # the JAX CLI forms its multi-process runtime for every command
-        print("not ported yet: --multihost: ROADMAP queue 1 item 9g", file=sys.stderr)
+        try:
+            multihost.initialize()
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+    try:
+        missing = _not_ported(opts, multihost.process_count())
+        if missing:
+            print(f"not ported yet: {missing}", file=sys.stderr)
+            return 2
+        commands = {"train": cmd_train, "infer": cmd_infer, "pagerank": cmd_pagerank}
+        if opts.command in commands:
+            return commands[opts.command](opts)
+        print(f"Unknown command: {opts.command}", file=sys.stderr)
         return 2
-    commands = {"train": cmd_train, "infer": cmd_infer, "pagerank": cmd_pagerank}
-    if opts.command in commands:
-        return commands[opts.command](opts)
-    print(f"Unknown command: {opts.command}", file=sys.stderr)
-    return 2
+    finally:
+        # leave the group before exit: a gloo group torn down by the
+        # interpreter's exit while a peer disconnects can abort the process
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

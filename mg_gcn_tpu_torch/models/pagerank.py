@@ -134,7 +134,7 @@ def power_iterate_dist(
     prev = [torch.ones((dmat.rows_per_shard, 1), dtype=torch.float32, device=r.device) for r in dmat.rows]
     p, it = step(prev), 1
     while it < max_iters:
-        err = dist.reduce_parts([torch.max(torch.abs(a - b)) for a, b in zip(p, prev)], torch.maximum)
+        err = dist.reduce_parts([torch.max(torch.abs(a - b)) for a, b in zip(p, prev)], torch.maximum, dmat.ring)
         if not bool(err >= eps):
             break
         prev, p, it = p, step(p), it + 1
@@ -156,7 +156,8 @@ def pagerank_dist(
     partition's device, rescaled by the total to mean 1."""
     from ..parallel import dist
 
+    dist.require_one_process(mesh, "pagerank -P N")
     p, _ = power_iterate_dist(dist_pagerank_mat(graph, mesh), damping, eps, max_iters, strategy)
-    total = dist.reduce_parts([torch.sum(x) for x in p], torch.add)
+    total = dist.reduce_parts([torch.sum(x) for x in p], torch.add, mesh)
     out = p[0].device
     return torch.cat([(x * (graph.nrows / total.to(x.device))).reshape(-1).to(out) for x in p])

@@ -1,21 +1,31 @@
-"""1-D row-partitioned GCN training over P partitions driven by one process.
+"""1-D row-partitioned GCN training over P partitions, driven by one
+process or by several.
 
 Port of ``mg_gcn_tpu/parallel/dist.py`` (the CLI's ``-P N -R 1`` path). The
 JAX package runs it as one program over a device mesh (``shard_map``); the
 reference as one host process driving P GPUs (dist_matrix.hpp:30). The port
-does as the reference does: one process drives P partitions, each placed on
+does as the reference does: a process drives its partitions, each placed on
 a ``torch.device``, and several partitions may share a card (``[cuda:0] * 4``,
-like the JAX package's virtual CPU devices). The mapping:
+like the JAX package's virtual CPU devices). After
+``multihost.initialize`` the P partitions split over the processes,
+contiguously in rank order, as the JAX mesh orders the devices by process;
+with one process it drives all P. The mapping:
 
-* the mesh -> :class:`Ring`, the ordered partition devices (:func:`make_mesh`);
-* an array sharded over the mesh -> a list of P tensors, partition j's on its
-  device (:func:`shard`);
+* the mesh -> :class:`Ring`, this process's partitions' devices in ring
+  order, and which process owns each partition (:func:`make_mesh`);
+* an array sharded over the mesh -> a list of this process's partitions'
+  tensors, each on its device (:func:`shard`);
 * ``lax.ppermute`` -> a copy of the neighbour's block into a buffer on this
-  partition's device (a peer copy when the two lie on different cards);
-* ``lax.psum`` / ``lax.pmax`` -> a sum / max over the partitions in partition
-  order on one device, so that a run repeats bit for bit;
+  partition's device (a peer copy when the two lie on different cards), or a
+  message when another process owns the neighbour (:func:`_permute`);
+* ``lax.psum`` / ``lax.pmax`` -> every partition's tensor gathered to every
+  process and folded in partition order (:func:`reduce_parts`), so that a
+  run repeats bit for bit whatever the number of processes;
 * replicated parameters and optimizer state -> one copy per distinct device
   (:func:`replicate`), each updated from the same summed gradients.
+
+Every loop over partitions visits this process's partitions only; the
+process boundary lives in :class:`Ring` and these helpers.
 
 The pairs: COO ring blocks (:class:`DistAggPair`), the bit-packed pattern
 pair (:class:`DistPatternPair`), ring blocks on the serial-gather kernel
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device, sparse
+from . import multihost
 from ..formats import CSRData
 from ..models.gcn import GCNConfig
 from ..nn import adam
@@ -53,13 +64,31 @@ STRATEGIES = {"coo": ("ring", "all_gather"), "pattern": ("ring", "all_gather", "
 
 @dataclass(frozen=True)
 class Ring:
-    """The partitions' devices in ring order (the JAX package's 1-D mesh)."""
+    """The partitions in ring order (the JAX package's 1-D mesh):
+    ``devices`` are this process's partitions' devices, and the ``world``
+    processes own ``len(devices)`` contiguous partitions each, process
+    ``rank`` partitions [first, first + len(devices))."""
 
     devices: tuple[torch.device, ...]
+    world: int = 1
+    rank: int = 0
 
     @property
     def parts(self) -> int:
-        return len(self.devices)
+        return len(self.devices) * self.world
+
+    @property
+    def first(self) -> int:
+        return self.rank * len(self.devices)
+
+    @property
+    def local(self) -> range:
+        """The global ids of this process's partitions."""
+        return range(self.first, self.first + len(self.devices))
+
+    def owner(self, j: int) -> int:
+        """The process that owns partition j."""
+        return j // len(self.devices)
 
     @property
     def replica_devices(self) -> tuple[torch.device, ...]:
@@ -67,18 +96,34 @@ class Ring:
         the parameters each."""
         return tuple(dict.fromkeys(self.devices))
 
-    def replica_of(self, j: int) -> int:
-        """Index into :attr:`replica_devices` of partition j's device."""
-        return self.replica_devices.index(self.devices[j])
+    def replica_of(self, i: int) -> int:
+        """Index into :attr:`replica_devices` of this process's i-th
+        partition's device."""
+        return self.replica_devices.index(self.devices[i])
 
 
 def make_mesh(num_devices: int | None = None, devices=None) -> Ring:
     """The ring of partitions (``mg_gcn_tpu/parallel/dist.py:54-72``).
 
-    With ``devices=None``: ``cuda:0 .. cuda:{P-1}``, P = ``num_devices`` or
-    every visible card; fewer visible cards than P raises, never a smaller
-    ring. An explicit ``devices`` list may repeat a device: ``["cuda:0"] * 4``
-    puts four partitions on one card, ``["cpu"] * P`` all on the CPU."""
+    One process: with ``devices=None``, ``cuda:0 .. cuda:{P-1}``, P =
+    ``num_devices`` or every visible card; fewer visible cards than P raises,
+    never a smaller ring. An explicit ``devices`` list may repeat a device:
+    ``["cuda:0"] * 4`` puts four partitions on one card, ``["cpu"] * P`` all
+    on the CPU.
+
+    After ``multihost.initialize`` with W processes: P = ``num_devices``
+    must split into W equal shares of L = P / W partitions, and
+    ``devices`` lists this process's L devices; with ``devices=None`` they
+    are the cards ``MG_GCN_LOCAL_DEVICE_IDS`` names, in turn (else
+    ``cuda:0 .. cuda:{L-1}``)."""
+    world, rank = multihost.process_count(), multihost.process_index()
+    if world > 1:
+        if num_devices is None or num_devices % world:
+            raise ValueError(f"-P {num_devices} partitions do not split evenly over {world} processes")
+        num_devices //= world
+        if devices is None:
+            ids = multihost.local_device_ids() or range(num_devices)
+            devices = [f"cuda:{ids[i % len(ids)]}" for i in range(num_devices)]
     if devices is None:
         visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
         num_devices = visible if num_devices is None else num_devices
@@ -94,10 +139,12 @@ def make_mesh(num_devices: int | None = None, devices=None) -> Ring:
         dev = resolve_device(d)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+            raise ValueError(f"{dev} is not visible ({torch.cuda.device_count()} CUDA device(s))")
         devs.append(dev)
     if not devs or (num_devices is not None and len(devs) != num_devices):
         raise ValueError(f"make_mesh({num_devices}) with {len(devs)} device(s)")
-    return Ring(tuple(devs))
+    return Ring(tuple(devs), world, rank)
 
 
 def _to(tree, device: torch.device):
@@ -119,44 +166,91 @@ def replicate(tree, mesh: Ring) -> list:
 
 def shard(x, mesh: Ring) -> list[torch.Tensor]:
     """Split the leading axis of ``x`` (numpy array or tensor) into P equal
-    row blocks, partition j's on its device."""
-    t = torch.as_tensor(x)
-    if t.shape[0] % mesh.parts:
-        raise ValueError(f"{t.shape[0]} rows do not split into {mesh.parts} equal partitions")
-    m = t.shape[0] // mesh.parts
-    return [t[j * m : (j + 1) * m].to(dev) for j, dev in enumerate(mesh.devices)]
+    row blocks: this process's partitions' blocks, each on its device. A
+    numpy ``x`` is sliced a block at a time (a ``np.memmap`` is read only
+    there)."""
+    if not isinstance(x, (torch.Tensor, np.ndarray)):
+        x = np.asarray(x)
+    if x.shape[0] % mesh.parts:
+        raise ValueError(f"{x.shape[0]} rows do not split into {mesh.parts} equal partitions")
+    m = x.shape[0] // mesh.parts
+    out = []
+    for j, dev in zip(mesh.local, mesh.devices):
+        blk = x[j * m : (j + 1) * m]
+        if isinstance(blk, np.ndarray):
+            blk = np.ascontiguousarray(blk)
+            blk = torch.from_numpy(blk if blk.flags.writeable else blk.copy())
+        out.append(blk.to(dev))
+    return out
 
 
 def shard_dataset(ds, mesh: Ring, n_rows: int | None = None, mask_train: bool = False):
     """(xs, ys, masks): the dataset's float32 features, int64 labels and
-    loss mask on the partitions. Rows are padded with zeros to ``n_rows``
-    (the pattern pair's n_pad) and the mask then keeps the real rows
-    (``mg_gcn_tpu/cli.py:556-567``); ``mask_train`` keeps the train set
-    (sets == 0) only. ``masks`` is None when every row counts."""
+    loss mask on this process's partitions, built a partition at a time (a
+    mapped ``features.bin`` is read only there). Rows are padded with zeros
+    to ``n_rows`` (the pattern pair's n_pad) and the mask then keeps the
+    real rows (``mg_gcn_tpu/cli.py:556-567``); ``mask_train`` keeps the
+    train set (sets == 0) only. ``masks`` is None when every row counts."""
     n = ds.num_nodes
     n_rows = n if n_rows is None else n_rows
-    x = np.zeros((n_rows, ds.num_features), np.float32)
-    x[:n] = ds.features
-    y = np.zeros(n_rows, np.int64)
-    y[:n] = ds.labels.reshape(-1)
-    mask = np.zeros(n_rows, bool)
-    mask[:n] = ds.sets.reshape(-1) == 0 if mask_train else True
-    masks = shard(mask, mesh) if mask_train or n_rows > n else None
-    return shard(x, mesh), shard(y, mesh), masks
+    if n_rows % mesh.parts:
+        raise ValueError(f"{n_rows} rows do not split into {mesh.parts} equal partitions")
+    m = n_rows // mesh.parts
+    labels, sets = ds.labels.reshape(-1), ds.sets.reshape(-1)
+    xs, ys, masks = [], [], []
+    for j, dev in zip(mesh.local, mesh.devices):
+        r0, r1 = min(j * m, n), min((j + 1) * m, n)
+        x = np.zeros((m, ds.num_features), np.float32)
+        x[: r1 - r0] = ds.features[r0:r1]
+        y = np.zeros(m, np.int64)
+        y[: r1 - r0] = labels[r0:r1]
+        mask = np.zeros(m, bool)
+        mask[: r1 - r0] = sets[r0:r1] == 0 if mask_train else True
+        xs.append(torch.from_numpy(x).to(dev))
+        ys.append(torch.from_numpy(y).to(dev))
+        masks.append(torch.from_numpy(mask).to(dev))
+    return xs, ys, masks if mask_train or n_rows > n else None
 
 
-def reduce_parts(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
-    """``op`` folded over the partitions' tensors in partition order, on the
-    first partition's device (psum with torch.add, pmax with torch.maximum)."""
+def fold(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
+    """``op`` folded over ``xs`` in order, on ``xs[0]``'s device: tensors
+    all of one process. :func:`reduce_parts` folds a ring's partitions; the
+    column path, which runs in one process only, folds its shards here."""
     out = xs[0]
     for x in xs[1:]:
         out = op(out, x.to(out.device))
     return out
 
 
-def _psum_trees(trees: Sequence) -> list[dict]:
-    """The per-partition gradient trees summed leaf by leaf (psum)."""
-    return [{k: reduce_parts([t[i][k] for t in trees], torch.add) for k in layer} for i, layer in enumerate(trees[0])]
+def reduce_parts(xs: Sequence[torch.Tensor], op: Callable, mesh: Ring) -> torch.Tensor:
+    """``op`` folded over every partition of ``mesh`` in partition order, on
+    the first local partition's device (psum with torch.add, pmax with
+    torch.maximum). ``xs`` are this process's partitions' tensors; across
+    processes (``mesh.world > 1``) every partition's is gathered first, so
+    each process folds the same tensors in the same order as one process
+    would, never in a library's all-reduce order."""
+    return fold(multihost.all_gather_parts(list(xs)) if mesh.world > 1 else xs, op)
+
+
+def _psum_trees(trees: Sequence, mesh: Ring) -> list[dict]:
+    """The per-partition gradient trees summed leaf by leaf (psum), in
+    partition order. Across processes every leaf travels in one gather."""
+    keys = [(i, k) for i, layer in enumerate(trees[0]) for k in layer]
+    if mesh.world == 1:
+        leaves = {key: fold([t[key[0]][key[1]] for t in trees], torch.add) for key in keys}
+    else:
+        flat = multihost.all_gather_parts([torch.cat([t[i][k].reshape(-1) for i, k in keys]) for t in trees])
+        pieces = [torch.split(f, [trees[0][i][k].numel() for i, k in keys]) for f in flat]
+        leaves = {key: fold([p[e] for p in pieces], torch.add).reshape(trees[0][key[0]][key[1]].shape)
+                  for e, key in enumerate(keys)}
+    return [{k: leaves[(i, k)] for k in layer} for i, layer in enumerate(trees[0])]
+
+
+def require_one_process(mesh: Ring, what: str) -> None:
+    """Refuse ``what`` on a ring that spans processes: those paths hold every
+    partition in one process (ROADMAP queue 1 item 9i)."""
+    if mesh.world > 1:
+        raise NotImplementedError(f"not ported yet: {what} across processes: ROADMAP queue 1 item 9i")
 
 
 def _copy_to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -164,16 +258,59 @@ def _copy_to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return torch.empty_like(x, device=device).copy_(x)
 
 
-def _ppermute(blocks: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def _permute(blocks: Sequence[torch.Tensor], shift: int, mesh: Ring, copy: bool = True) -> list[torch.Tensor]:
+    """Local partition j receives the block partition (j + shift) % P holds
+    (``lax.ppermute`` with perm (i, (i - shift) % P)); every block has the
+    same shape. A block of this process is copied onto j's device (with
+    ``copy=False`` one already there is used as it is); a block of another
+    process arrives in one batch of sends and receives with the rest of the
+    hop's messages (``multihost.exchange``)."""
+    def local_block(b, device):
+        return b if not copy and b.device == device else _copy_to(b, device)
+
+    if mesh.world == 1:
+        p = len(blocks)
+        return [local_block(blocks[(j + shift) % p], blocks[j].device) for j in range(p)]
+    P, first = mesh.parts, mesh.first
+    out: list = [None] * len(blocks)
+    sends, recvs, into = [], [], []
+    for jl, j in enumerate(mesh.local):
+        src = (j + shift) % P
+        if mesh.owner(src) == mesh.rank:
+            out[jl] = local_block(blocks[src - first], blocks[jl].device)
+        else:
+            recvs.append((torch.empty_like(blocks[jl]), mesh.owner(src), src * P + j))
+            into.append(jl)
+    for kl, k in enumerate(mesh.local):
+        dst = (k - shift) % P
+        if mesh.owner(dst) != mesh.rank:
+            sends.append((blocks[kl], mesh.owner(dst), k * P + dst))
+    for jl, got in zip(into, multihost.exchange(sends, recvs)):
+        out[jl] = got
+    return out
+
+
+def _ppermute(blocks: Sequence[torch.Tensor], mesh: Ring) -> list[torch.Tensor]:
     """One ring hop (JAX's ``_ring_perm``, dist.py:318-321): partition j
     receives the block partition j+1 held."""
-    p = len(blocks)
-    return [_copy_to(blocks[(j + 1) % p], blocks[j].device) for j in range(p)]
+    return _permute(blocks, 1, mesh)
+
+
+def _all_parts(blocks: Sequence[torch.Tensor], mesh: Ring) -> list:
+    """Every partition's block, in partition order: this process's blocks as
+    they are, the others' gathered (the all_gather exchange)."""
+    if mesh.world == 1:
+        return list(blocks)
+    out = multihost.all_gather_parts(list(blocks))
+    for jl, j in enumerate(mesh.local):
+        out[j] = blocks[jl]
+    return out
 
 
 def _slots(blocks: Sequence[torch.Tensor], j: int, order) -> torch.Tensor:
     """Partition j's (len(order), *block) buffer: slot s the copy of block
-    ``order[s]`` (its own block copied too)."""
+    ``order[s]`` (its own block copied too); ``blocks`` holds every
+    partition's block (:func:`_all_parts`)."""
     own = blocks[j]
     out = torch.empty((len(order), *own.shape), dtype=own.dtype, device=own.device)
     for s, k in enumerate(order):
@@ -228,10 +365,11 @@ COO_RING_PAD = 512
 class DistRowMat:
     """Row-partitioned sparse matrix as ring-ordered padded COO blocks.
 
-    ``rows[j]`` / ``cols[j]`` / ``vals[j]`` are partition j's (P, E) arrays on
-    its device: entry [s] is the COO block A[j, (j+s) % P] with row ids local
-    to row slab j and column ids local to column block (j+s) % P. Padding
-    entries have val == 0, row = last local row, col = 0.
+    ``rows[i]`` / ``cols[i]`` / ``vals[i]`` are this process's i-th
+    partition j's (P, E) arrays on its device: entry [s] is the COO block
+    A[j, (j+s) % P] with row ids local to row slab j and column ids local to
+    column block (j+s) % P. Padding entries have val == 0, row = last local
+    row, col = 0. ``ring`` is the ring it was built for.
     """
 
     rows: list[torch.Tensor]  # int32 (P, E) each
@@ -240,6 +378,7 @@ class DistRowMat:
     n: int  # global rows (== cols; square)
     parts: int
     nnz: int
+    ring: Ring
 
     @property
     def rows_per_shard(self) -> int:
@@ -256,21 +395,25 @@ class DistRowMat:
             )
         part = sparse.uniform_partition(n, parts)
         blocks = sparse.partition_blocks(csr, part, part)
+        # the padded width is every partition's widest block: each process
+        # holds the whole graph here, so all of them compute the same one
         emax = max(blocks[j][k].nnz for j in range(parts) for k in range(parts))
         emax = max(sp.round_up(emax, COO_RING_PAD), COO_RING_PAD)
         m_loc = n // parts
-        rows = np.full((parts, parts, emax), m_loc - 1, np.int32)
-        cols = np.zeros((parts, parts, emax), np.int32)
-        vals = np.zeros((parts, parts, emax), np.float32)
-        for j in range(parts):
+        out = {"rows": [], "cols": [], "vals": []}
+        for j, dev in zip(mesh.local, mesh.devices):
+            rows = np.full((parts, emax), m_loc - 1, np.int32)
+            cols = np.zeros((parts, emax), np.int32)
+            vals = np.zeros((parts, emax), np.float32)
             for s in range(parts):
                 blk = blocks[j][(j + s) % parts]  # ring order
                 e = blk.nnz
-                rows[j, s, :e] = np.repeat(np.arange(m_loc, dtype=np.int32), np.diff(blk.indptr))
-                cols[j, s, :e] = blk.indices
-                vals[j, s, :e] = blk.data
-        put = lambda a: [torch.from_numpy(a[j]).to(dev) for j, dev in enumerate(mesh.devices)]  # noqa: E731
-        return DistRowMat(rows=put(rows), cols=put(cols), vals=put(vals), n=n, parts=parts, nnz=csr.nnz)
+                rows[s, :e] = np.repeat(np.arange(m_loc, dtype=np.int32), np.diff(blk.indptr))
+                cols[s, :e] = blk.indices
+                vals[s, :e] = blk.data
+            for key, a in (("rows", rows), ("cols", cols), ("vals", vals)):
+                out[key].append(torch.from_numpy(a).to(dev))
+        return DistRowMat(**out, n=n, parts=parts, nnz=csr.nnz, ring=mesh)
 
 
 @dataclass
@@ -293,29 +436,31 @@ def _block_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, b: t
 
 
 def dist_aggregate(mat: DistRowMat, hs: Sequence[torch.Tensor], strategy: str = "ring") -> list[torch.Tensor]:
-    """C_j = Σ_s A[j, (j+s) % P] @ B_{(j+s) % P} for every partition j
-    (``mg_gcn_tpu/parallel/dist.py:439-477``); ``hs`` are the (n/P, d) row
-    blocks. ``ring``: P rounds of local products, the blocks moving one hop
-    between rounds. ``all_gather``: every partition gathers all blocks, then
-    one product over its concatenated edges (the reference's ``-S``)."""
-    parts, m = mat.parts, mat.rows_per_shard
+    """C_j = Σ_s A[j, (j+s) % P] @ B_{(j+s) % P} for this process's
+    partitions j (``mg_gcn_tpu/parallel/dist.py:439-477``); ``hs`` are their
+    (n/P, d) row blocks. ``ring``: P rounds of local products, the blocks
+    moving one hop between rounds. ``all_gather``: every partition gathers
+    all blocks, then one product over its concatenated edges (the
+    reference's ``-S``)."""
+    parts, m, ring = mat.parts, mat.rows_per_shard, mat.ring
     if strategy == "all_gather":
+        every = _all_parts(hs, ring)
         out = []
-        for j, h in enumerate(hs):
-            b_full = torch.cat([x.to(h.device) for x in hs])  # (n, d), partition order
+        for i, (j, h) in enumerate(zip(ring.local, hs)):
+            b_full = torch.cat([x.to(h.device) for x in every])  # (n, d), partition order
             block_ids = torch.remainder(j + torch.arange(parts, device=h.device), parts)
-            cols = mat.cols[j].long() + block_ids[:, None] * m
-            out.append(_block_spmm(mat.rows[j].reshape(-1), cols.reshape(-1), mat.vals[j].reshape(-1), b_full, m))
+            cols = mat.cols[i].long() + block_ids[:, None] * m
+            out.append(_block_spmm(mat.rows[i].reshape(-1), cols.reshape(-1), mat.vals[i].reshape(-1), b_full, m))
         return out
     if strategy != "ring":
         raise ValueError(f"unknown dist spmm strategy {strategy!r}")
     cs = [torch.zeros((m, h.shape[1]), dtype=h.dtype, device=h.device) for h in hs]
     blocks = list(hs)
     for s in range(parts):
-        for j in range(parts):
-            cs[j] += _block_spmm(mat.rows[j][s], mat.cols[j][s], mat.vals[j][s], blocks[j], m)
+        for i in range(len(hs)):
+            cs[i] += _block_spmm(mat.rows[i][s], mat.cols[i][s], mat.vals[i][s], blocks[i], m)
         if s + 1 < parts:
-            blocks = _ppermute(blocks)
+            blocks = _ppermute(blocks, ring)
     return cs
 
 
@@ -327,13 +472,15 @@ def dist_aggregate(mat: DistRowMat, hs: Sequence[torch.Tensor], strategy: str = 
 class DistGatherMat:
     """Row-partitioned sparse matrix as ring-ordered blocks on the
     serial-gather kernel (``mg_gcn_tpu/parallel/dist.py:330-380``):
-    ``blocks[j][s]`` is the weighted CSR block A[j, (j+s) % P] (m_loc ×
-    m_loc) on partition j's device, the TPU's padded schedules' counterpart."""
+    ``blocks[i][s]`` is the weighted CSR block A[j, (j+s) % P] (m_loc ×
+    m_loc) of this process's i-th partition j, on its device, the TPU's
+    padded schedules' counterpart."""
 
     blocks: list[list[GatherMat]]
     n: int
     parts: int
     nnz: int
+    ring: Ring
 
     @property
     def rows_per_shard(self) -> int:
@@ -341,17 +488,18 @@ class DistGatherMat:
 
     @staticmethod
     def from_csr(csr: CSRData, mesh: Ring) -> "DistGatherMat":
-        """Build each partition's blocks on its device from its row slab."""
+        """Build this process's partitions' blocks on their devices, each
+        from its row slab."""
         n, parts = csr.nrows, mesh.parts
         if n % parts:
             raise ValueError(f"n ({n}) must be divisible by the mesh size ({parts})")
         m = n // parts
         blocks = []
-        for j, dev in enumerate(mesh.devices):
+        for j, dev in zip(mesh.local, mesh.devices):
             split = column_blocks(row_slab(csr, j, m), parts, dev)
             blocks.append([gather_block(*split[(j + s) % parts], m, m) for s in range(parts)])
             del split
-        return DistGatherMat(blocks=blocks, n=n, parts=parts, nnz=csr.nnz)
+        return DistGatherMat(blocks=blocks, n=n, parts=parts, nnz=csr.nnz, ring=mesh)
 
 
 @dataclass
@@ -373,14 +521,14 @@ def dist_aggregate_gather(mat: DistGatherMat, hs: Sequence[torch.Tensor]) -> lis
     float32, the blocks moving one hop between rounds, as
     :func:`dist_aggregate`'s ring."""
     parts = mat.parts
-    cs: list = [None] * parts
+    cs: list = [None] * len(hs)
     blocks = list(hs)
     for s in range(parts):
-        for j in range(parts):
-            prod = spmm_gather(mat.blocks[j][s], blocks[j])
-            cs[j] = prod if s == 0 else cs[j] + prod
+        for i in range(len(hs)):
+            prod = spmm_gather(mat.blocks[i][s], blocks[i])
+            cs[i] = prod if s == 0 else cs[i] + prod
         if s + 1 < parts:
-            blocks = _ppermute(blocks)
+            blocks = _ppermute(blocks, mat.ring)
     return [c.to(h.dtype) for c, h in zip(cs, hs)]
 
 
@@ -428,7 +576,8 @@ class DistPatternPair:
       scale[j]       = the 1/in-degree slab of partition j's rows
 
     Slabs are m_loc = round_up(ceil(n/P), 4096) rows, so a partition holds
-    2·P·m_loc²/8 bytes of packs, on its device.
+    2·P·m_loc²/8 bytes of packs, on its device; a process holds its own
+    partitions' (the lists' entries, in order).
     """
 
     pack_fwd: list[torch.Tensor]  # int32 (P, m_loc, m_loc/32) each
@@ -440,6 +589,7 @@ class DistPatternPair:
     m_loc: int
     dtype_name: str
     nnz: int
+    ring: Ring
 
     @staticmethod
     def from_binary_csr(csr: CSRData, mesh: Ring, dtype: str = "bfloat16") -> "DistPatternPair":
@@ -455,12 +605,12 @@ class DistPatternPair:
         indeg = np.bincount(csr.indices, minlength=m * parts).astype(np.float64)
         with np.errstate(divide="ignore"):
             s_vec = np.where(indeg > 0, 1.0 / indeg, 0.0).astype(np.float32)
-        packs = [_ring_packs(csr, m, j, parts, dev) for j, dev in enumerate(mesh.devices)]
+        packs = [_ring_packs(csr, m, j, parts, dev) for j, dev in zip(mesh.local, mesh.devices)]
         return DistPatternPair(
             pack_fwd=[f for f, _ in packs],
             pack_bwd=[b for _, b in packs],
-            scale=[torch.from_numpy(s_vec[j * m : (j + 1) * m]).to(dev) for j, dev in enumerate(mesh.devices)],
-            n=n, n_pad=m * parts, parts=parts, m_loc=m, dtype_name=dtype, nnz=csr.nnz,
+            scale=[torch.from_numpy(s_vec[j * m : (j + 1) * m]).to(dev) for j, dev in zip(mesh.local, mesh.devices)],
+            n=n, n_pad=m * parts, parts=parts, m_loc=m, dtype_name=dtype, nnz=csr.nnz, ring=mesh,
         )
 
 
@@ -488,7 +638,8 @@ def dist_aggregate_pattern(
     if strategy not in STRATEGIES["pattern"]:
         raise ValueError(f"unknown dist spmm strategy {strategy!r}")
     dtype_name = dtype_name or pair.dtype_name
-    parts, m = pair.parts, pair.m_loc
+    parts, m, ring = pair.parts, pair.m_loc, pair.ring
+    local = ring.local
     d = hs[0].shape[1]
     d_pad = sp.round_up(max(d, 8), 8)
     op_dt = sp.DTYPES[dtype_name]
@@ -498,9 +649,10 @@ def dist_aggregate_pattern(
     hs = [h.to(torch.float32) for h in hs]
     if not forward:  # pre-scale the own block (before int8 quantizing, too)
         hs = [h * sc[:, None] for h, sc in zip(hs, pair.scale)]
-    qscale = [None] * parts
+    qscale = [None] * len(hs)
     if op_dt == torch.int8:
-        amax = torch.clamp(reduce_parts([torch.amax(torch.abs(h), dim=0) for h in hs], torch.maximum), min=1e-30)
+        amax = torch.clamp(reduce_parts([torch.amax(torch.abs(h), dim=0) for h in hs], torch.maximum, ring),
+                           min=1e-30)
         # a tensor divisor: CUDA turns division by a Python scalar into a
         # multiply by its reciprocal (ROADMAP queue 3)
         qscale = [q / torch.full_like(q, 127.0) for q in (amax.to(h.device) for h in hs)]
@@ -514,22 +666,25 @@ def dist_aggregate_pattern(
         # one launch a partition over its P slots; at P = 1 the kernel runs
         # one round (the JAX package swaps to "ring" there, dist.py:509-512,
         # because its RDMA kernel needs a peer; this one reads no peer)
-        ring = ring_pattern_fwd if forward else ring_pattern_bwd
-        accs = [ring(packs[j], _slots(blocks, j, [(j + s) % parts for s in range(parts)])) for j in range(parts)]
+        kernel = ring_pattern_fwd if forward else ring_pattern_bwd
+        every = _all_parts(blocks, ring)
+        accs = [kernel(packs[i], _slots(every, j, [(j + s) % parts for s in range(parts)]))
+                for i, j in enumerate(local)]
     else:
         call = sp.pattern_fwd if forward else sp.pattern_bwd
         accs = [torch.zeros((m, d_pad), dtype=acc_dt, device=b.device) for b in blocks]
         if strategy == "all_gather":
-            for j in range(parts):
-                gathered = _slots(blocks, j, range(parts))  # partition order
+            every = _all_parts(blocks, ring)
+            for i, j in enumerate(local):
+                gathered = _slots(every, j, range(parts))  # partition order
                 for s in range(parts):
-                    accs[j] += call(packs[j][s], gathered[(j + s) % parts])
+                    accs[i] += call(packs[i][s], gathered[(j + s) % parts])
         else:
             for s in range(parts):
-                for j in range(parts):
-                    accs[j] += call(packs[j][s], blocks[j])
+                for i in range(len(blocks)):
+                    accs[i] += call(packs[i][s], blocks[i])
                 if s + 1 < parts:
-                    blocks = _ppermute(blocks)
+                    blocks = _ppermute(blocks, ring)
     out = []
     for acc, q, sc in zip(accs, qscale, pair.scale):
         c = acc[:, :d].to(torch.float32)
@@ -585,7 +740,7 @@ def _dist_layer_backward(layers, meta: dict, agg_bwd, cache: dict, gs, slope: fl
     return grads, g_out
 
 
-def _dist_softmax_xent(logits, ys, n_total: int, masks):
+def _dist_softmax_xent(logits, ys, n_total: int, masks, mesh: Ring):
     """Row-local softmax + NLL with partition-summed scalars (gcn.hpp:890-929):
     (loss, acc, per-partition logits gradients)."""
     probs = [softmax(lg) for lg in logits]
@@ -594,7 +749,7 @@ def _dist_softmax_xent(logits, ys, n_total: int, masks):
         denom = torch.tensor(float(n_total), device=logits[0].device)
     else:
         ms = [mk.to(torch.float32) for mk in masks]
-        denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add), min=1)
+        denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add, mesh), min=1)
     for j, (o, y) in enumerate(zip(probs, ys)):
         y = y.long()
         logp = torch.log(torch.clamp(torch.gather(o, 1, y[:, None])[:, 0], min=torch.finfo(o.dtype).tiny))
@@ -607,8 +762,8 @@ def _dist_softmax_xent(logits, ys, n_total: int, masks):
         else:
             terms.append((torch.sum(logp * ms[j]), torch.sum(correct * ms[j])))
             grads.append(g * ms[j][:, None] / dn)
-    loss = -reduce_parts([t[0] for t in terms], torch.add) / denom
-    acc = reduce_parts([t[1] for t in terms], torch.add) / denom
+    loss = -reduce_parts([t[0] for t in terms], torch.add, mesh) / denom
+    acc = reduce_parts([t[1] for t in terms], torch.add, mesh) / denom
     return loss, acc, grads
 
 
@@ -624,27 +779,29 @@ def _local_xent_terms(logits, y, m, denom):
     return -torch.sum(logp * m) / denom, torch.sum(correct * m) / denom
 
 
-def dist_loss_and_grad(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None):
-    """Forward and reference-parity backward over the partitions
-    (``mg_gcn_tpu/parallel/dist.py:718-752``). ``params[j]`` is the
-    parameter tree on partition j's device; ``agg_fwd`` / ``agg_bwd`` map the
-    partitions' blocks to theirs. Returns (loss, acc, grads), the gradients
-    summed over the partitions in partition order, on the first partition's
-    device. Layer 0 skips its backward product, as the reference does."""
+def dist_loss_and_grad(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None, *,
+                       mesh: Ring):
+    """Forward and reference-parity backward over this process's partitions
+    (``mg_gcn_tpu/parallel/dist.py:718-752``). ``params[i]`` is the
+    parameter tree on its i-th partition's device; ``agg_fwd`` / ``agg_bwd``
+    map the partitions' blocks to theirs. Returns (loss, acc, grads), the
+    gradients summed over every partition (of every process of ``mesh``) in
+    partition order, on the first local partition's device. Layer 0 skips
+    its backward product, as the reference does."""
     with torch.no_grad():
         hs, caches = xs, []
         for i in range(config.num_layers):
             hs, cache = _dist_layer_forward([p[i] for p in params], config.layer_meta(i), agg_fwd, hs,
                                             config.leaky_slope)
             caches.append(cache)
-        loss, acc, gs = _dist_softmax_xent(hs, ys, n_total, masks)
+        loss, acc, gs = _dist_softmax_xent(hs, ys, n_total, masks, mesh)
         local: list = [[None] * config.num_layers for _ in params]
         for i in reversed(range(config.num_layers)):
             grads, gs = _dist_layer_backward([p[i] for p in params], config.layer_meta(i), agg_bwd, caches[i], gs,
                                              config.leaky_slope, need_input_grad=i > 0)
             for j, g in enumerate(grads):
                 local[j][i] = g
-    return loss, acc, _psum_trees(local)
+    return loss, acc, _psum_trees(local, mesh)
 
 
 class _ExactAgg(torch.autograd.Function):
@@ -662,7 +819,7 @@ class _ExactAgg(torch.autograd.Function):
         return (None, None, *ctx.agg_bwd(list(gs)))
 
 
-def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks):
+def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks, mesh: Ring):
     """(loss, acc, grads) of the partitions' summed local loss shares by one
     backward pass: each partition has its own parameter leaves,
     ``logits_of(leaves)`` gives the partitions' logits, and the leaves'
@@ -673,18 +830,19 @@ def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks):
         denom = torch.tensor(float(n_total), device=ys[0].device)
     else:
         ms = [mk.to(torch.float32) for mk in masks]
-        denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add), min=1.0)
+        denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add, mesh), min=1.0)
     with torch.enable_grad():
         terms = [_local_xent_terms(h, y, m, denom.to(h.device)) for h, y, m in zip(logits_of(leaves), ys, ms)]
         flat = [v for p in leaves for layer in p for v in layer.values()]
         flat_grads = iter(torch.autograd.grad([t[0] for t in terms], flat))
     local = [[{k: next(flat_grads) for k in layer} for layer in p] for p in leaves]
-    loss = reduce_parts([t[0].detach() for t in terms], torch.add)
-    acc = reduce_parts([t[1] for t in terms], torch.add)
-    return loss, acc, _psum_trees(local)
+    loss = reduce_parts([t[0].detach() for t in terms], torch.add, mesh)
+    acc = reduce_parts([t[1] for t in terms], torch.add, mesh)
+    return loss, acc, _psum_trees(local, mesh)
 
 
-def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None):
+def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None, *,
+                             mesh: Ring):
     """Exact-autograd twin of :func:`dist_loss_and_grad` (config.parity
     False, CLI ``--exact``; ``mg_gcn_tpu/parallel/dist.py:774-805``): one
     backward pass through :class:`_ExactAgg` gives each partition's leaves
@@ -697,10 +855,10 @@ def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig
             hs, _ = _dist_layer_forward([p[i] for p in leaves], config.layer_meta(i), agg, hs, config.leaky_slope)
         return hs
 
-    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks)
+    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks, mesh)
 
 
-def dist_sage_loss_and_grad(params, agg, xs, ys, config, n_total: int, masks=None):
+def dist_sage_loss_and_grad(params, agg, xs, ys, config, n_total: int, masks=None, *, mesh: Ring):
     """GraphSAGE's loss and exact gradients over the partitions
     (``mg_gcn_tpu/parallel/dist.py:1151-1174``): ``agg`` maps the
     partitions' blocks to their M·H blocks, differentiably; each layer is
@@ -720,7 +878,7 @@ def dist_sage_loss_and_grad(params, agg, xs, ys, config, n_total: int, masks=Non
                     hs = [l2_norm_rows(h) for h in hs]
         return hs
 
-    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks)
+    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks, mesh)
 
 
 def _check_pair_kind(pair_kind: str, strategy: str, kinds) -> None:
@@ -820,8 +978,8 @@ def make_dist_train_step(
 
     def step(params, opt_state, pair, xs, ys, masks=None):
         agg_fwd, agg_bwd = _aggregations(pair_kind, pair, strategy, pattern_dtype)
-        per_part = [params[mesh.replica_of(j)] for j in range(mesh.parts)]
-        loss, acc, grads = lag(per_part, agg_fwd, agg_bwd, xs, ys, config, n_total, masks)
+        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
+        loss, acc, grads = lag(per_part, agg_fwd, agg_bwd, xs, ys, config, n_total, masks, mesh=mesh)
         return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
 
     return step
@@ -866,9 +1024,9 @@ def make_dist_sage_train_step(
         hp.update(hparams)
 
     def step(params, opt_state, pair, xs, ys, masks=None):
-        per_part = [params[mesh.replica_of(j)] for j in range(mesh.parts)]
+        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
         loss, acc, grads = dist_sage_loss_and_grad(per_part, sage_aggregation(pair_kind, pair, strategy), xs, ys,
-                                                   config, n_total, masks)
+                                                   config, n_total, masks, mesh=mesh)
         return (*_update_replicas(params, opt_state, grads, mesh, hp, "adam"), loss, acc)
 
     return step
@@ -882,7 +1040,7 @@ def make_dist_infer(config: GCNConfig, mesh: Ring, strategy: str = "ring"):
         raise ValueError(f"unknown dist spmm strategy {strategy!r}")
 
     def infer(params, pair: DistAggPair, xs):
-        per_part = [params[mesh.replica_of(j)] for j in range(mesh.parts)]
+        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
         with torch.no_grad():
             hs = xs
             for i in range(config.num_layers):

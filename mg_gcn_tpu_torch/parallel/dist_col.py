@@ -47,13 +47,15 @@ from ..models.gcn import GCNConfig
 from ..nn import adam
 from ..ops import elementwise as ew
 from ..ops.spmm import AggPair, COOMat, aggregate
-from .dist import Ring, _copy_to, make_mesh, reduce_parts
+from .dist import Ring, _copy_to, fold, make_mesh, require_one_process
 
 
 def make_col_mesh(num_devices: int | None = None, devices=None) -> Ring:
     """The ring of column partitions (``mg_gcn_tpu/parallel/dist_col.py:38``):
-    :func:`~.dist.make_mesh`'s rules."""
-    return make_mesh(num_devices, devices)
+    :func:`~.dist.make_mesh`'s rules; one process only."""
+    mesh = make_mesh(num_devices, devices)
+    require_one_process(mesh, "-R 0")
+    return mesh
 
 
 def dist_transpose(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -94,7 +96,7 @@ def _tp_linear(hs, ws, bs) -> list[torch.Tensor]:
     partition k's device, plus bias block k."""
     partials = [h @ w for h, w in zip(hs, ws)]
     c = partials[0].shape[1] // len(hs)
-    return [reduce_parts([p[:, k * c : (k + 1) * c].to(b.device) for p in partials], torch.add) + b
+    return [fold([p[:, k * c : (k + 1) * c].to(b.device) for p in partials], torch.add) + b
             for k, b in enumerate(bs)]
 
 
@@ -108,9 +110,9 @@ def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Te
     acc) on the first partition's device."""
     c_loc = logits[0].shape[1]
     devs = [lg.device for lg in logits]
-    row_max = reduce_parts([torch.amax(lg.detach(), dim=1) for lg in logits], torch.maximum)
+    row_max = fold([torch.amax(lg.detach(), dim=1) for lg in logits], torch.maximum)
     es = [torch.exp(lg - row_max.to(d)[:, None]) for lg, d in zip(logits, devs)]
-    denom = reduce_parts([torch.sum(e, dim=1) for e in es], torch.add)
+    denom = fold([torch.sum(e, dim=1) for e in es], torch.add)
     os_ = [e / denom.to(d)[:, None] for e, d in zip(es, devs)]
     picks = []
     for k, (o, y) in enumerate(zip(os_, ys)):
@@ -118,15 +120,15 @@ def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Te
         in_shard = (local >= 0) & (local < c_loc)
         p = torch.gather(o, 1, torch.clamp(local, 0, c_loc - 1)[:, None])[:, 0]
         picks.append(torch.where(in_shard, p, torch.zeros_like(p)))
-    p_label = reduce_parts(picks, torch.add)
+    p_label = fold(picks, torch.add)
     logp = torch.log(torch.clamp(p_label, min=torch.finfo(p_label.dtype).tiny))
 
     # accuracy only: the first shard holding the row's max wins
     local_max = [torch.amax(o.detach(), dim=1) for o in os_]
-    gmax = reduce_parts(local_max, torch.maximum)
+    gmax = fold(local_max, torch.maximum)
     cands = [torch.where(lm == gmax.to(d), torch.argmax(o.detach(), dim=1) + k * c_loc, 2**30)
              for k, (o, lm, d) in enumerate(zip(os_, local_max, devs))]
-    pred = reduce_parts(cands, torch.minimum)
+    pred = fold(cands, torch.minimum)
     correct = (pred == ys[0].long().to(pred.device)).to(logp.dtype)
     return -torch.sum(logp) / n_total, torch.sum(correct) / n_total
 
@@ -193,6 +195,7 @@ def make_col_train_step(
         )
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
+    require_one_process(mesh, "-R 0")
     hp = dict(adam.DEFAULT_HPARAMS)
     if hparams:
         hp.update(hparams)

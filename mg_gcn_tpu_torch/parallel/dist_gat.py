@@ -53,7 +53,8 @@ from ..nn import adam
 from ..ops import elementwise as ew
 from ..ops.edge_attention import sddmm, spmm_attn
 from ..ops.spmm_edges import DTYPES, EdgeTileMat, TSched, transposed_schedule
-from .dist import Ring, _exact_loss_and_grad, _ppermute, _update_replicas, column_blocks, reduce_parts, row_slab
+from .dist import (Ring, _exact_loss_and_grad, _ppermute, _update_replicas, column_blocks, reduce_parts,
+                   require_one_process, row_slab)
 
 
 @dataclass(frozen=True)
@@ -63,7 +64,8 @@ class DistGatGraph:
     ``blocks[j][s]`` is the (EdgeTileMat, TSched) pair of block A[j, (j+s)
     % P] (m_loc × m_loc, rows local to slab j, columns local to column slab
     (j+s) % P) on partition j's device. Edge values are not read: attention
-    recomputes its entry weights every layer."""
+    recomputes its entry weights every layer. ``ring`` is the ring it was
+    built for."""
 
     blocks: list[list[tuple[EdgeTileMat, TSched]]]
     n: int
@@ -71,6 +73,7 @@ class DistGatGraph:
     m_loc: int
     dtype_name: str
     nnz: int
+    ring: Ring
 
     @property
     def block_nnz(self) -> list[list[int]]:
@@ -95,6 +98,7 @@ def build_dist_gat_graph(csr: CSRData, mesh: Ring, dtype: str = "bfloat16") -> D
     """Partition j's P ring blocks, built on its device from its row slab
     (``mg_gcn_tpu/parallel/dist_gat.py:97-165``). Self-loops should be
     present (prep adds them), so that every node attends to itself."""
+    require_one_process(mesh, "--model gat -P N")
     n, parts = csr.nrows, mesh.parts
     if n % parts:
         raise ValueError(
@@ -109,10 +113,10 @@ def build_dist_gat_graph(csr: CSRData, mesh: Ring, dtype: str = "bfloat16") -> D
         split = column_blocks(row_slab(csr, j, m), parts, dev)
         blocks.append([attention_block(*split[(j + s) % parts][:2], m, m, dtype) for s in range(parts)])
         del split
-    return DistGatGraph(blocks=blocks, n=n, parts=parts, m_loc=m, dtype_name=dtype, nnz=csr.nnz)
+    return DistGatGraph(blocks=blocks, n=n, parts=parts, m_loc=m, dtype_name=dtype, nnz=csr.nnz, ring=mesh)
 
 
-def _global_max(scores: Sequence[Sequence[torch.Tensor]]) -> list[torch.Tensor]:
+def _global_max(scores: Sequence[Sequence[torch.Tensor]], ring: Ring) -> list[torch.Tensor]:
     """The max of every partition's detached scores (pmax), non-finite → 0,
     on each partition's device. A partition whose blocks hold no entry
     contributes −inf."""
@@ -121,7 +125,7 @@ def _global_max(scores: Sequence[Sequence[torch.Tensor]]) -> list[torch.Tensor]:
         dev = row[0].device
         maxes = [torch.amax(sc.detach()) for sc in row if sc.numel()]
         local.append(torch.amax(torch.stack(maxes)) if maxes else torch.tensor(float("-inf"), device=dev))
-    smax = reduce_parts(local, torch.maximum)
+    smax = reduce_parts(local, torch.maximum, ring)
     smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
     return [smax.to(row[0].device) for row in scores]
 
@@ -143,12 +147,12 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
             sc = sddmm(mat, sched, torch.cat([e_dsts[j], ones[j]], dim=1), torch.cat([ones[j], vis[j]], dim=1))
             scores[j][s] = ew.leaky_relu(sc, slope)
         if s + 1 < P:
-            vis = _ppermute(vis)
+            vis = _ppermute(vis, g.ring)
 
     # the per-row stabilization of ops.edge_attention.slot_softmax: a clipped
     # global-shift pass estimates each row's LSE, then the normalization
     # shifts by that per-row constant
-    smax = _global_max(scores)
+    smax = _global_max(scores, g.ring)
     lse1 = []
     for j in range(P):
         with torch.no_grad():
@@ -181,7 +185,7 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
             prod = spmm_attn(mat, sched, torch.exp(scores[j][s] - shift - slot_lrs), vis_z[j])
             out[j] = prod if out[j] is None else out[j] + prod
         if s + 1 < P:
-            vis_z = _ppermute(vis_z)
+            vis_z = _ppermute(vis_z, g.ring)
     return out
 
 
@@ -213,7 +217,8 @@ def dist_gat_loss_and_grad(params, g: DistGatGraph, xs, ys, config: GATConfig, m
     """(loss, acc, grads) of the partitions' summed local loss shares by one
     backward pass; the gradients summed over the partitions in partition
     order, on the first partition's device."""
-    return _exact_loss_and_grad(params, lambda leaves: dist_gat_forward(leaves, g, xs, config), ys, g.n, masks)
+    return _exact_loss_and_grad(params, lambda leaves: dist_gat_forward(leaves, g, xs, config), ys, g.n, masks,
+                                g.ring)
 
 
 def make_dist_gat_train_step(

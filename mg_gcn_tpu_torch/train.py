@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import resolve_device, sparse
-from .formats import CSRData, Dataset
+from .formats import CSRData, Dataset, GraphHeader
 from .models.gcn import GCNConfig, init_params, loss_and_grad
 from .nn import adam
 from .ops import spmm_edges, spmm_gather, spmm_pattern, spmm_pattern_sparse
@@ -130,11 +130,13 @@ def dist_pattern_engine(graph: CSRData, parts: int, per_card: int, card_bytes: i
                   f" {'within' if fits else 'over'} {budget_gb:.1f} GB")
 
 
-def halo_engine(graph: CSRData, on_card: bool) -> str:
+def halo_engine(graph: CSRData | GraphHeader, on_card: bool) -> str:
     """The local engine of the halo pair (``mg_gcn_tpu/train.py:78-119``):
     on a card "gather" when the expected edge-tile slot fill of the whole
     graph is below EDGE_FILL_MIN, else "xla" (COO); on the CPU "xla", as
-    the JAX package takes off the TPU.
+    the JAX package takes off the TPU. ``graph`` may be a
+    :class:`~.formats.GraphHeader`: the rule reads its counts only, and asks
+    no slab budget of ``graph.bin`` or ``graph_t.bin`` (ROADMAP queue 3).
 
     The JAX package also asks ``_gather_feasible`` of the largest row slab's
     block (the TPU's SMEM step budget) and takes "xla" where it fails. The
@@ -146,7 +148,8 @@ def halo_engine(graph: CSRData, on_card: bool) -> str:
     return "gather" if fill < EDGE_FILL_MIN else "xla"
 
 
-def dist_engine(graph: CSRData, impl: str, parts: int, per_card: int, card_bytes: int | None) -> tuple[str, str]:
+def dist_engine(graph: CSRData | GraphHeader, impl: str, parts: int, per_card: int, card_bytes: int | None,
+                processes: int = 1) -> tuple[str, str]:
     """(pair kind, reason) of the ``-P N -R 1`` GCN path for ``impl``, as
     the JAX CLI picks it (``mg_gcn_tpu/cli.py:543-640``), with ``per_card``
     of the ``parts`` partitions on each card of ``card_bytes`` memory (None:
@@ -154,11 +157,15 @@ def dist_engine(graph: CSRData, impl: str, parts: int, per_card: int, card_bytes
     :func:`dist_pattern_engine` takes the pack (on the CPU only where
     ``--impl pattern`` asks, for a binary adjacency); "gather" for impl
     gather; for impl halo, and for auto otherwise, "halo" or "halo_gather"
-    by :func:`halo_engine`'s local engine; else "coo". impl="pattern" where
-    the pack cannot run raises."""
+    by :func:`halo_engine`'s local engine; else "coo". The pattern pair is
+    gated off across ``processes`` > 1 and for a graph left on disk (a
+    :class:`~.formats.GraphHeader`), as the JAX CLI gates it (cli.py:548).
+    impl="pattern" where the pack cannot run raises."""
     why = "no card"
     if impl in ("auto", "pattern"):
-        if card_bytes is None:
+        if processes > 1 or isinstance(graph, GraphHeader):
+            fits, why = False, f"{processes} processes" if processes > 1 else "graph on disk"
+        elif card_bytes is None:
             fits = impl == "pattern" and spmm_pattern.is_binary(graph)
         else:
             fits, why = dist_pattern_engine(graph, parts, per_card, card_bytes)

@@ -1419,7 +1419,7 @@ def test_dist_sage_step_on_card_matches_cpu(kind):
         params = sage.init_params(config, device=dev)
         sg.gather.launches.clear()
         out[dev] = dist.dist_sage_loss_and_grad([params] * 4, dist.sage_aggregation(kind, pair), dist.shard(x, mesh),
-                                                dist.shard(y, mesh), config, n)
+                                                dist.shard(y, mesh), config, n, mesh=mesh)
         if dev == "cuda:0":
             assert sum(sg.gather.launches.values()) == (48 if kind in ("gather", "halo_gather") else 0)
     (lg, _, gg), (lc, _, gc) = out["cuda:0"], out["cpu"]
@@ -1891,3 +1891,46 @@ def test_scan_capture_failure_names_the_operation(monkeypatch):
     assert warm == {k: v * (ttrain.SCAN_WARMUP_STEPS + 1) // 2 for k, v in _scan_counts().items()}
     _assert_runs_equal(ttrain.make_scan_train_steps(config, 2, model=model)(
         params, adam.adam_init(params), pair, x, y, None), want)
+
+
+MP_CASES = ("gcn:halo_gather:2", "gcn:gather:2", "sage:halo_gather:2", "gcn:halo_gather:4")
+
+
+def test_two_processes_on_one_card_bit_equal_one_process(tmp_path):
+    """Two processes on cuda:0 (``MG_GCN_LOCAL_DEVICE_IDS=0``): the route
+    stages card tensors through host memory over gloo, and 3 epochs of GCN
+    on the halo pair and the gather ring and of SAGE on the halo pair, all on
+    the gather kernel (deterministic), at -P 2 and -P 4, equal the
+    one-process run on the card bit for bit: losses, accuracies and final
+    parameters, on both processes (``tests/torch_port_mp_worker.py``)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    # by path: a card machine may have another top-level package named tests
+    spec = importlib.util.spec_from_file_location("torch_port_mp_worker", os.path.join(here, "torch_port_mp_worker.py"))
+    mp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mp)
+    n, rng = 4096, np.random.default_rng(3)
+    d = str(tmp_path / "ds")
+    Dataset(graph=sparse.random_graph(n, 12, seed=3, weights="random"),
+            features=rng.standard_normal((n, 24)).astype(np.float32),
+            labels=rng.integers(0, 6, (n, 1)).astype(np.int32),
+            sets=rng.integers(0, 3, (n, 1)).astype(np.int32)).save(d)
+    from mg_gcn_tpu_torch.formats import ensure_pigo_transpose
+
+    ensure_pigo_transpose(d)
+    worker = [mp.WORKER, d]
+    one = str(tmp_path / "one.npz")
+    assert mp.launch([[*worker, one, "cuda:0", *MP_CASES]], [str(tmp_path / "one.log")], timeout=300) == [0]
+    ranks, logs = [str(tmp_path / f"rank{r}.npz") for r in range(2)], [str(tmp_path / f"rank{r}.log") for r in range(2)]
+    codes = mp.launch([[*worker, path, "cuda:0", *MP_CASES] for path in ranks], logs, world=2, device_ids="0",
+                      timeout=300)
+    assert codes == [0, 0], [open(log).read()[-3000:] for log in logs]
+    for log in logs:
+        assert "exchange route: card tensors staged through host over gloo" in open(log).read()
+    want = np.load(one)
+    for path in ranks:
+        got = np.load(path)
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            assert np.array_equal(got[k], want[k]), (path, k)

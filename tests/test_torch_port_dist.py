@@ -371,13 +371,14 @@ def _weighted_dir(tmp_path):
         (["-P", "3", "-R", "1", "--model", "gat", "--device", "cpu,cpu,cpu"], "node count 256 not divisible by P=3"),
         (["-P", "2", "-R", "1", "--impl", "gather", "-S"], "--impl gather uses the ring exchange; drop -S"),
         (["-P", "3", "-R", "1", "--impl", "halo", "--device", "cpu,cpu,cpu"], "node count 256 not divisible by P=3"),
-        (["-P", "2", "-R", "1", "--multihost"], "ROADMAP queue 1 item 9g"),
+        (["-P", "2", "-R", "1", "--multihost"], "no coordinator: set MG_GCN_COORDINATOR"),
     ],
     ids=lambda a: " ".join(a) if isinstance(a, list) else None,
 )
 def test_cli_dist_refusals(tmp_path, capsys, monkeypatch, args, message):
     """Each exits 2 with its message; the weighted graph has no pattern pair."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("MG_GCN_COORDINATOR", raising=False)
     device = [] if "--device" in args else ["--device", "cpu"]
     assert cli.main([*args, *device, "-E", "1", "--csv-dir", str(tmp_path), "train", _weighted_dir(tmp_path),
                      "1", "8"]) == 2

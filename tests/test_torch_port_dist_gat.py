@@ -212,7 +212,7 @@ def test_ring_hops_carry_gradient(monkeypatch):
     x, y, _ = inputs(n, seed=7)
     one, got = single_and_dist(g, parts, config, params, x, y, None)
     assert_same_step(got, one, n)
-    monkeypatch.setattr(dist_gat, "_ppermute", lambda blocks: [b.detach() for b in dist._ppermute(blocks)])
+    monkeypatch.setattr(dist_gat, "_ppermute", lambda blocks, ring: [b.detach() for b in dist._ppermute(blocks, ring)])
     _, cut = single_and_dist(g, parts, config, params, x, y, None)
     for i in range(config.num_layers):
         for k in ("a_src", "W"):

@@ -195,6 +195,38 @@ def test_dist_aggregate_halo_gather_matches_jax(monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+def test_one_process_halo_product_keeps_one_buffer_alive(monkeypatch):
+    """In one process the product runs partition by partition: at each
+    remote block's product one gathered halo buffer is alive, never the
+    whole round's P, and no message route is taken; the result is the
+    dense product."""
+    import weakref
+
+    parts, n = 4, 480
+    a = sparse.normalize(weighted_graph(n, 6, seed=18), axis=True)
+    h = np.random.default_rng(4).standard_normal((n, 8)).astype(np.float32)
+    ring = cpu_ring(parts)
+    mat = dist_halo.DistHaloMat.from_csr(a, ring)
+    halos, alive = [], []
+    product = dist_halo._block_product
+
+    def watch(blk, b):
+        if any(blk is r for rem in mat.rem for r in rem):
+            halos.append(weakref.ref(b))
+            alive.append(sum(r() is not None for r in halos))
+        return product(blk, b)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("one process took the message route")
+
+    monkeypatch.setattr(dist_halo, "_block_product", watch)
+    monkeypatch.setattr(dist_halo, "_permute", refuse)
+    with torch.no_grad():
+        got = torch.cat(dist_halo.dist_aggregate_halo(mat, dist.shard(h, ring)))
+    assert alive == [1] * parts * (parts - 1)
+    np.testing.assert_allclose(got.numpy(), a.to_scipy().toarray() @ h, rtol=1e-5, atol=1e-6)
+
+
 def test_halo_product_is_differentiable_through_the_exchange():
     """On the COO engine autograd runs back through the index gather and
     the copies: the gradient of <C, G> in H is Aᵀ G."""

@@ -90,7 +90,7 @@ def test_dist_sage_gradients_equal_the_single_card_step(kind):
     pair = _pairs(m, sparse.transpose(m), parts, kind, ring)
     dloss, dacc, dgrads = dist.dist_sage_loss_and_grad([params] * parts, dist.sage_aggregation(kind, pair),
                                                         dist.shard(x, ring), dist.shard(y.astype(np.int64), ring),
-                                                        config, n)
+                                                        config, n, mesh=ring)
     np.testing.assert_allclose(float(dloss), float(loss), rtol=1e-5)
     assert float(dacc) == float(acc)
     for layer, ref in zip(dgrads, grads):

@@ -86,8 +86,9 @@ def test_cli_infer_refusals_match_jax(tmp_path, capsys, args):
 def test_cli_infer_names_later_items(capsys, monkeypatch):
     assert cli.main(["--device", "cpu", "--impl", "halo", "--load", "x", "infer", GOLDEN, "1", "8"]) == 2
     assert "--impl halo is a distributed mode; use -P <num> -R 1" in capsys.readouterr().err
+    monkeypatch.delenv("MG_GCN_COORDINATOR", raising=False)
     assert cli.main(["--multihost", "--device", "cpu", "--load", "x", "infer", GOLDEN, "1", "8"]) == 2
-    assert "ROADMAP queue 1 item 9g" in capsys.readouterr().err
+    assert "no coordinator: set MG_GCN_COORDINATOR" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["--load", "x", "infer", GOLDEN, "1", "8"]) == 2
     assert "no CUDA device" in capsys.readouterr().err

@@ -257,8 +257,9 @@ def test_cli_pagerank_matches_jax_cli(tmp_path, capsys, parts):
 def test_cli_pagerank_refusals(capsys, monkeypatch):
     assert cli.main(["--device", "cpu", "pagerank"]) == 2
     assert "pagerank requires: <data_dir>" in capsys.readouterr().err
+    monkeypatch.delenv("MG_GCN_COORDINATOR", raising=False)
     assert cli.main(["--multihost", "--device", "cpu", "pagerank", GOLDEN]) == 2
-    assert "ROADMAP queue 1 item 9g" in capsys.readouterr().err
+    assert "no coordinator: set MG_GCN_COORDINATOR" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["pagerank", GOLDEN]) == 2
     assert "no CUDA device" in capsys.readouterr().err

@@ -384,17 +384,21 @@ def test_cli_sage_refusals_match_jax(args, capsys):
     assert got == want[-1:]
 
 
-def test_cli_sage_at_p_above_1_names_its_item(capsys):
+def test_cli_sage_at_p_above_1_names_its_item(capsys, tmp_path):
     """SAGE at -P 2 trains (``parallel.dist.make_dist_sage_train_step``);
-    the JAX CLI's refusal there exits 2 with its message, and what the port
-    does not carry yet, streaming SAGE's feature shards from a memmap
-    (``--mmap``), exits 2 naming its ROADMAP item."""
+    the JAX CLI's refusal there exits 2 with its message, and SAGE's
+    feature shards streamed from a memmap (``--mmap``) train as read ones
+    do, epoch line for epoch line."""
     argv = ["--device", "cpu,cpu", "-P", "2", "-R", "1", "--model", "sage", "--optimizer", "sgd", "train", GOLDEN,
             "1", "8"]
     assert cli.main(argv) == 2
     got = capsys.readouterr().err.splitlines()
     assert jcli.cmd_train(jcli.build_parser().parse_args(argv[2:])) == 2
     assert got == capsys.readouterr().err.splitlines()[-1:]
-    assert cli.main(["-P", "2", "-R", "1", "--device", "cpu,cpu", "--model", "sage", "--mmap", "train", GOLDEN, "1",
-                     "8"]) == 2
-    assert "ROADMAP queue 1 item 9g" in capsys.readouterr().err
+    runs = []
+    for mmap in (["--mmap"], []):
+        assert cli.main(["-P", "2", "-R", "1", "--device", "cpu,cpu", "--model", "sage", "-E", "2", "--csv-dir",
+                         str(tmp_path), *mmap, "train", GOLDEN, "1", "8"]) == 0
+        runs.append([line.split()[:3] for line in capsys.readouterr().err.splitlines()
+                     if line[:1].isdigit() and len(line.split()) == 4])
+    assert runs[0] == runs[1] and len(runs[0]) == 2

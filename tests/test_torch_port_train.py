@@ -358,10 +358,23 @@ def test_cli_save_load_resumes(tmp_path, capsys):
     ],
     ids=lambda a: " ".join(a),
 )
-def test_cli_later_slices_exit_2(args, capsys):
+def test_cli_later_slices_exit_2(args, capsys, tmp_path, monkeypatch):
+    """The flags these cases once refused: ``--mmap`` now trains with the
+    epoch lines of the run without it, and ``--multihost`` with no
+    coordinator (no ``MG_GCN_COORDINATOR``) exits 2 with initialize's
+    message, for every command."""
+    monkeypatch.delenv("MG_GCN_COORDINATOR", raising=False)
     tail = [GOLDEN, "1", "8"] if args[-1] == "train" else [GOLDEN]
-    assert cli.main(["--device", "cpu", *args, *tail]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    argv = ["--device", "cpu", "-E", "2", "--csv-dir", str(tmp_path), *args, *tail]
+    if "--multihost" in args:
+        assert cli.main(argv) == 2
+        assert "no coordinator: set MG_GCN_COORDINATOR" in capsys.readouterr().err
+        return
+    assert cli.main(argv) == 0
+    mapped = [line.split()[:3] for line in capsys.readouterr().err.splitlines() if line[:1].isdigit()]
+    assert cli.main([a for a in argv if a != "--mmap"]) == 0
+    read = [line.split()[:3] for line in capsys.readouterr().err.splitlines() if line[:1].isdigit()]
+    assert mapped == read and len(mapped) == 3  # the header line, then two epochs
 
 
 @pytest.mark.parametrize(
