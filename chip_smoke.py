@@ -310,7 +310,8 @@ the result line:
    128 128 --save CK``: their epoch lines equal the library's steps on the
    same inputs (GAT within rtol 1e-5; the column path within rtol 1e-4, its
    COO sums in another order each run), the column checkpoint the full
-   rounded arrays.
+   rounded arrays. The CLI processes run six at a time, each with a CSV
+   directory of its own, their checks in this order.
 
 19. multi-process halo — BASELINE config 3's widths at -P 2 across two
    processes, both on cuda:0 (MG_GCN_LOCAL_DEVICE_IDS=0): a papers100M-like
@@ -318,7 +319,7 @@ the result line:
    draws a row, about 126M entries; 128 features, 172 labels) drawn on the
    card and written in the reference formats under chiprun_out/ (removed
    after the phase), graph_t.bin by ``ensure_pigo_transpose``; two
-   processes of ``cli --multihost -P 2 -R 1 --impl halo --mmap -E 3 train
+   processes of ``cli --multihost -P 2 -R 1 --impl halo --mmap -E 2 train
    <dir> 3 128 128 128`` (each reading its row slabs of graph.bin and
    graph_t.bin) and the same command in one process at -P 2: both workers
    exit 0, each prints the route line "staged through host over gloo" and
@@ -335,6 +336,30 @@ the result line:
    process, and a world of one process on the NCCL route (one all-gather,
    one hop to itself).
 
+20. the paths whose exchanges carry gradients, across the same two
+   processes on cuda:0 (staged route): the main graph written under
+   chiprun_out/ after phase 13a (removed after the phase) as two datasets
+   sharing one graph.bin, GAT's 64 planted features and the main path's
+   608. GAT: ``cli --multihost -P 2 -R 1 --model gat --heads 2 -E 3 train
+   <dir> 1 64`` (phase 12's model, the last width rounded to 42; 2 x 2
+   bfloat16 ring blocks of 116,484²) in two processes and at -P 2 in one:
+   both exit 0 with the route line, their (loss, acc) columns equal the
+   one process's bit for bit (or, only where a second one-process run
+   differs from the first, within rtol 1e-5, said so on the line), and
+   each process launches exactly phase 12a's count for its blocks an
+   epoch; process 0 then checks ``sddmm``, ``edge`` and ``edge_t`` at its
+   diagonal and round-1 blocks as phase 13a does (rows of the kernels
+   line, with its launches over its run). The column path: ``cli
+   --multihost -P 2 -R 0 -E 3 --save CK train <dir> 2 128 128`` (sizes
+   (608, 128, 128, 42)) in two processes and in one, all under PyTorch's
+   deterministic algorithms (the COO engine's index_add_ in a fixed
+   order): the columns bit for bit, no kernel of the port launched, process
+   0's checkpoint (the full rounded arrays) equal to the one process's and
+   none from process 1. Logged for each beside the card's name and power
+   limit: epoch and set-up seconds, two processes and one, each process's
+   peak card memory and host RSS, the bytes sent to the other process an
+   epoch and the exchange helpers' share of the epochs.
+
 Then, each on its own line: the ``{"kernels": [...]}`` JSON, the
 nvidia-smi name and power limit, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -343,6 +368,7 @@ nvidia-smi name and power limit, and last
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -462,6 +488,13 @@ FALLBACK_LINE = "no device trace; falling back to un-fused phase replay"
 MH_N, MH_DEG, MH_BAND, MH_FAR = 8_388_608, 15, 2000, 0.2
 MH_FEATURES, MH_CLASSES, MH_HIDDEN, MH_PARTS, MH_EPOCHS = 128, 172, (128, 128, 128), 2, 3
 MH_KERNEL_D, MH_SAGE_N, MH_SAGE_DEG, MH_TIMEOUT_S = 128, 262_144, 16, 600
+# phase 20: the paths whose exchanges carry gradients, across the same two
+# processes on cuda:0: phase 12's GAT model (the last width rounds up to 42
+# at -P 2) and phase 6a's column path at -P 2, sizes (608, 128, 128, 42), on
+# the main graph (232,968 = 2 x 116,484), 3 epochs each
+MH2_EPOCHS = 3
+MH2_GAT_SIZES = (GAT_SIZES[0], GAT_SIZES[1], -(-CLASSES // MH_PARTS) * MH_PARTS)
+MH2_COL_SIZES = tuple(-(-s // MH_PARTS) * MH_PARTS for s in (FEATURES, *HIDDEN, CLASSES))
 
 
 def log(*args):
@@ -1102,7 +1135,7 @@ def phase_kernels_main(ds, launches: dict) -> tuple[list[dict], tuple]:
                 extra = repeat_and_geometry(label, got, lambda: kernel(fwd.pack, b), geometry, keep)
                 del got
                 ms = cuda_ms(lambda: kernel(fwd.pack, b), 5)
-                plain_ms = cuda_ms(lambda: plain(fwd.pack, b), 2)
+                plain_ms = cuda_ms(lambda: plain(fwd.pack, b), 1)
                 library_ms = None
                 if dtype == "float32":
                     bl = b[:n, :d].contiguous()
@@ -1630,7 +1663,7 @@ def phase_ring_kernels(ds, pair, launches: dict) -> list[dict]:
                 check, ms, plain_ms = check_and_time(
                     label, lambda: kernel(pack, slots),
                     lambda: plain(pack, slots, None if dtype == "int8" else torch.float64), dtype, 5,
-                    lambda: plain(pack, slots), 2)
+                    lambda: plain(pack, slots), 1)
                 library_ms = None
                 if dtype == "float32":
                     bl = slots.reshape(P * m, -1)[:, :d].contiguous()
@@ -1684,9 +1717,9 @@ def phase_col_path(ds) -> dict:
     del x
     shards = dist_col.shard_col_params(params, mesh)
     with deterministic():
-        loss, acc, grads = dist_col.col_loss_and_grad(shards, mats, xs, ys, config, n)
+        loss, acc, grads = dist_col.col_loss_and_grad(shards, mats, xs, ys, config, n, mesh)
     torch.cuda.synchronize()
-    compare_steps(f"column -P {P} -R 0", (loss, acc, dist_col.gather_col_params(grads)), ref,
+    compare_steps(f"column -P {P} -R 0", (loss, acc, dist_col.gather_col_params(grads, mesh)), ref,
                   "single-card exact COO")
     del grads, ref
     torch.cuda.empty_cache()
@@ -1708,7 +1741,7 @@ def phase_col_path(ds) -> dict:
         raise AssertionError(f"column losses {out['losses']}: not finite")
     steady = sorted(out["epoch_seconds"][1:])
     out["epoch_s_median"] = steady[len(steady) // 2]
-    full = dist_col.gather_col_params(shards)
+    full = dist_col.gather_col_params(shards, mesh)
     if [tuple(layer["W"].shape) for layer in full] != [(a, b) for a, b in zip(COL_SIZES, COL_SIZES[1:])]:
         raise AssertionError(f"gathered column parameters {[tuple(la['W'].shape) for la in full]}")
     log(f"  column -P {P} -R 0: sizes {COL_SIZES}, Âᵀ {mat_gb:.2f} GB held once on {dev}; f32 epoch median"
@@ -2278,7 +2311,7 @@ def phase_edge_main(fwd, launches: dict) -> list[dict]:
             b = operand(fwd.n_in, d, dtype, seed=d)
             label = f"{name} {dtype} d={d} (path A shape)"
             check, ms, plain_ms = time_against_plain(label, kernel, plain,
-                                                     (fwd.indptr, fwd.indices, weights[dtype], b), dtype, 5, 2,
+                                                     (fwd.indptr, fwd.indices, weights[dtype], b), dtype, 5, 1,
                                                      repeat=True)
             extra = walk_geometry(label, se.edge_geometry(name, fwd.n_out, b.shape[1], b.dtype))
             library_ms = None
@@ -2341,7 +2374,7 @@ def phase_gather_main(fwd, launches: dict) -> list[dict]:
         b = operand(fwd.n_in, d, dtype, seed=d)
         label = f"gather {dtype} d={d} (path B shape)"
         check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain,
-                                                 (fwd.indptr, fwd.indices, None, b), dtype, 5, 2, repeat=True)
+                                                 (fwd.indptr, fwd.indices, None, b), dtype, 5, 1, repeat=True)
         extra = walk_geometry(label, sg.gather_geometry(fwd.n_out, b.shape[1], b.dtype, False))
         library_ms = None
         if dtype == "float32":
@@ -2599,7 +2632,7 @@ def phase_halo_gather_kernels(pair, launches: dict) -> list[dict]:
             b = operand(blk.n_in, d, "float32", seed=d)
             label = f"gather float32 d={d} (-P {DIST_PARTS} halo {where}, {blk.n_out} x {blk.n_in})"
             check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain,
-                                                     (blk.indptr, blk.indices, blk.w, b), "float32", 5, 2, repeat=True)
+                                                     (blk.indptr, blk.indices, blk.w, b), "float32", 5, 1, repeat=True)
             extra = walk_geometry(label, sg.gather_geometry(blk.n_out, b.shape[1], b.dtype, True))
             bl = b[:, :d].contiguous()
             library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
@@ -2900,7 +2933,7 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                                       lambda bb: (kernel(fwd, bb), plain(fwd, bb), plain(fwd, bb, torch.float64)))
                     del got, want
                     torch.cuda.empty_cache()
-                    ms, plain_ms = cuda_ms(lambda: kernel(fwd, b), 5), cuda_ms(lambda: plain(fwd, b), 2)
+                    ms, plain_ms = cuda_ms(lambda: kernel(fwd, b), 5), cuda_ms(lambda: plain(fwd, b), 1)
                     datapath = (3, "bfloat16") if dtype == "float32" else (1, dtype)
                     dense_ops = datapath[0] * 2.0 * live_planes * 128 * fwd.tile_r * b.shape[1]
                     extra |= {"live_planes": live_planes, "dense_ops": dense_ops}
@@ -2915,7 +2948,7 @@ def phase_block_kernels_main(ds, fwd, launches: dict) -> list[dict]:
                     extra = repeat_and_geometry(label, got, lambda: kernel(fwd, b), geometry, BWD_ROW_KEYS)
                     del got
                     torch.cuda.empty_cache()
-                    ms, plain_ms = cuda_ms(lambda: kernel(fwd, b), 5), cuda_ms(lambda: plain(fwd, b), 2)
+                    ms, plain_ms = cuda_ms(lambda: kernel(fwd, b), 5), cuda_ms(lambda: plain(fwd, b), 1)
                     note = f"; L2 gather {nnz * b.shape[1] * elt_size(b) / 1e9:.3f} GB, computed"
                 library_ms = None
                 if dtype == "float32":
@@ -3001,7 +3034,7 @@ def phase_ell_path(ds_main) -> list[dict]:
         check = check_close(label, got, tpl.tiled_plain(fwd, b, torch.float64), "float32")
         extra = repeat_and_geometry(label, got, lambda: tpl.tiled(fwd, b), tpl.tiled_geometry(fwd, d))
         del got
-        ms, plain_ms = cuda_ms(lambda: tpl.tiled(fwd, b), 5), cuda_ms(lambda: tpl.tiled_plain(fwd, b), 2)
+        ms, plain_ms = cuda_ms(lambda: tpl.tiled(fwd, b), 5), cuda_ms(lambda: tpl.tiled_plain(fwd, b), 1)
         bl = b[: fwd.n_cols].contiguous()
         library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
         used = int(fwd.nsteps.sum()) * fwd.br  # the slots the kernel reads: k < nsteps
@@ -3341,7 +3374,7 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
     for dtype in DTYPES:
         for d in GAT_WIDTHS + SDDMM_EXTRA_WIDTHS:
             label = f"sddmm {dtype} d={d} (GAT shape)"
-            args, check, ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 5, 2)
+            args, check, ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 5, 1)
             a, b = args[2], args[3]
             extra = sddmm_geometry_row(label, n, a) | {"sum_bound_used": bound_use}
             # each entry reads a B row from the L2: computed, logged beside the bound
@@ -3369,7 +3402,7 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
         b = operand(n_in, d, "bfloat16", seed=d)
         label = f"edge bfloat16 d={d} (GAT shape)"
         check, ms, plain_ms = time_against_plain(label, se.edge, se.edge_plain, (mat.indptr, mat.indices, w16, b),
-                                                 "bfloat16", 5, 2, repeat=True)
+                                                 "bfloat16", 5, 1, repeat=True)
         extra = walk_geometry(label, se.edge_geometry("edge", n, b.shape[1], b.dtype))
         moved = 8 * (n + 1) + 4 * nnz + 2 * nnz + n_in * d * 2 + n * d * 4
         keep(kernel_row("edge", "bfloat16", d, n, nnz, launches["edge"].get(("bfloat16", b.shape[1]), 0),
@@ -3381,7 +3414,7 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
         w = w32.to(se.DTYPES[dtype])
         for d in GAT_WIDTHS + ATT_EXTRA_WIDTHS:
             label = f"edge_t {dtype} d={d} (GAT shape)"
-            a, check, ms, plain_ms = check_edge_t(label, mat, t, w, d, dtype, 5, 2, repeat=True)
+            a, check, ms, plain_ms = check_edge_t(label, mat, t, w, d, dtype, 5, 1, repeat=True)
             extra = walk_geometry(label, se.edge_geometry("edge_t", n_in, a.shape[1], a.dtype))
             library_ms = None
             if dtype == "float32":
@@ -3496,16 +3529,19 @@ def phase_dist_gat_path(ds) -> dict:
     return out
 
 
-def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
+def phase_dist_gat_kernels(graph, launches: dict, counted: str | None = None, epochs: int = EPOCHS,
+                           empty_block: bool = True) -> list[dict]:
     """sddmm (bfloat16, float32) at d = 1, 2, 41, 64, edge (bfloat16) at 1,
-    41, 64 and edge_t (bfloat16, float32) at 2, 41, 64 on partition 0's
-    diagonal and round-1 blocks of phase 12a's graph, each against its plain
-    version (two launches equal bit for bit), timed beside its bound and
-    (float32) torch.sparse.sampled_addmm / torch.sparse.mm on the same
-    block. ``launches`` is the kernel's counter at that width over phase
-    12a's epochs (every block of the 4 partitions); ``block_launches_an_epoch``
-    this block's own. Then one empty block through the three ops: zeros,
-    no launch."""
+    41, 64 and edge_t (bfloat16, float32) at 2, 41, 64 on the first local
+    partition's diagonal and round-1 blocks of a dist GAT graph (phase
+    12a's, or phase 20's process 0's), each against its plain version (two
+    launches equal bit for bit), timed beside its bound and (float32)
+    torch.sparse.sampled_addmm / torch.sparse.mm on the same block.
+    ``launches`` is the kernel's counter at that width over ``epochs``
+    epochs (``counted`` says whose: phase 12a's, every block of the 4
+    partitions); ``block_launches_an_epoch`` this block's own. Then, with
+    ``empty_block``, one empty block through the three ops: zeros, no
+    launch."""
     from mg_gcn_tpu_torch.models import gat
     from mg_gcn_tpu_torch.ops import edge_attention as ea
     from mg_gcn_tpu_torch.ops import spmm_edges as se
@@ -3513,13 +3549,14 @@ def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
 
     config = gat.GATConfig(sizes=GAT_SIZES, heads=GAT_HEADS)
     one_block = dist_gat_launches_per_epoch(config, dataclasses.replace(graph, blocks=[[graph.blocks[0][0]]]))
-    counted = f"every block of the {DIST_PARTS} partitions over phase 12a's {EPOCHS} bfloat16 epochs"
+    counted = counted or f"every block of the {DIST_PARTS} partitions over phase 12a's {EPOCHS} bfloat16 epochs"
+    shape = f"dist GAT -P {graph.parts}" if graph.ring.world == 1 else f"two-process GAT -P {graph.parts}"
     rows = []
 
     def keep(row: dict, where: str, n: int, n_in: int) -> None:
         key = (row["name"], row["dtype"], sp_pad(row["d"]))
-        row |= {"shape": f"dist GAT partition 0 {where} block {n} x {n_in}", "launches_counted": counted,
-                "launches_an_epoch": row["launches"] / EPOCHS, "block_launches_an_epoch": one_block.get(key, 0)}
+        row |= {"shape": f"{shape} partition 0 {where} block {n} x {n_in}", "launches_counted": counted,
+                "launches_an_epoch": row["launches"] / epochs, "block_launches_an_epoch": one_block.get(key, 0)}
         log_row(row, f"; this block {row['block_launches_an_epoch']} an epoch")
         rows.append(row)
 
@@ -3531,7 +3568,7 @@ def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
         for dtype in ("bfloat16", "float32"):
             for d in DIST_GAT_SDDMM_WIDTHS:
                 label = f"sddmm {dtype} d={d} (dist GAT {where} block)"
-                args, check, ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 5, 2)
+                args, check, ms, plain_ms, bound_use = check_sddmm(label, mat, d, dtype, 5, 1)
                 a, b = args[2], args[3]
                 extra = sddmm_geometry_row(label, n, a) | {"sum_bound_used": bound_use}
                 library_ms = None
@@ -3552,7 +3589,7 @@ def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
             b = operand(n_in, d, "bfloat16", seed=d)
             label = f"edge bfloat16 d={d} (dist GAT {where} block)"
             check, ms, plain_ms = time_against_plain(label, se.edge, se.edge_plain,
-                                                     (mat.indptr, mat.indices, w16, b), "bfloat16", 5, 2, repeat=True)
+                                                     (mat.indptr, mat.indices, w16, b), "bfloat16", 5, 1, repeat=True)
             extra = walk_geometry(label, se.edge_geometry("edge", n, b.shape[1], b.dtype))
             bl = b[:, :d].float()
             library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
@@ -3566,7 +3603,7 @@ def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
             w = w32.to(se.DTYPES[dtype])
             for d in DIST_GAT_EDGE_T_WIDTHS:
                 label = f"edge_t {dtype} d={d} (dist GAT {where} block)"
-                a, check, ms, plain_ms = check_edge_t(label, mat, t, w, d, dtype, 5, 2, repeat=True)
+                a, check, ms, plain_ms = check_edge_t(label, mat, t, w, d, dtype, 5, 1, repeat=True)
                 extra = walk_geometry(label, se.edge_geometry("edge_t", n_in, a.shape[1], a.dtype))
                 library_ms = None
                 if dtype == "float32":
@@ -3580,6 +3617,8 @@ def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
         del transposed, w32
         torch.cuda.empty_cache()
 
+    if not empty_block:
+        return rows
     m = graph.m_loc
     none = torch.zeros(0, dtype=torch.int64, device="cuda")
     mat, t = dist_gat.attention_block(none, none, m, m, "bfloat16")
@@ -3597,28 +3636,40 @@ def phase_dist_gat_kernels(graph, launches: dict) -> list[dict]:
     return rows
 
 
-def run_module(tmp: str, module: str, args: list[str]) -> str:
-    """``python -m <module> <args>`` from the checkout; exit code 0; its stdout."""
+def module_run(module: str, args: list[str], cwd: str = ROOT, after=None) -> subprocess.CompletedProcess:
+    """``python -m <module> <args>`` from the checkout (output captured, 300
+    s limit), once the future ``after`` (if any) has its result."""
+    if after is not None:
+        after.result()
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, "-m", module, *args], cwd=tmp, env=env, capture_output=True, text=True,
-                       timeout=300)
-    if r.returncode != 0:
-        raise AssertionError(f"{module} {args} exited {r.returncode}:\n{r.stderr}")
-    return r.stdout
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=300)
 
 
-def run_cli(tmp: str, ds, args: list[str], csv_name: str, phases: set[str] | None = None) -> list[str]:
-    """``python -m mg_gcn_tpu_torch.cli -E 3 ... train <toy> ...``: exit code
-    0, the JAX CLI's three header lines, three ``epoch loss acc seconds``
+def start_module(module: str, args: list[str], pool, cwd: str = ROOT):
+    """:func:`module_run` in ``pool`` (phase 18's thread pool): a future of
+    its CompletedProcess."""
+    return pool.submit(module_run, module, args, cwd)
+
+
+def start_cli(tmp: str, args: list[str], pool):
+    """``python -m mg_gcn_tpu_torch.cli -E 3 --csv-dir <a directory of its
+    own> <args>``, started in ``pool``: (future, the CSV directory), for
+    :func:`run_cli`."""
+    csv_dir = tempfile.mkdtemp(prefix="csvs", dir=tmp)
+    return start_module("mg_gcn_tpu_torch.cli", ["-E", "3", "--csv-dir", csv_dir, *args], pool), csv_dir
+
+
+def run_cli(ds, args: list[str], csv_name: str, started, phases: set[str] | None = None) -> list[str]:
+    """The run of ``python -m mg_gcn_tpu_torch.cli -E 3 ... <args>`` that
+    :func:`start_cli` ``started``: exit code 0,
+    the JAX CLI's three header lines, three ``epoch loss acc seconds``
     lines with finite losses and the timer CSV's keys, then ``phase_`` and
     each of ``phases`` (``--time-phases``: from the device trace, so no
     fallback line; an ``unattributed`` row may follow); returns the stderr
     lines."""
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run(
-        [sys.executable, "-m", "mg_gcn_tpu_torch.cli", "-E", "3", "--csv-dir", os.path.join(tmp, "csvs"), *args],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-    )
+    future, csv_dir = started
+    r = future.result()
     if r.returncode != 0:
         raise AssertionError(f"CLI {args} exited {r.returncode}:\n{r.stderr}")
     lines = r.stderr.splitlines()
@@ -3628,7 +3679,7 @@ def run_cli(tmp: str, ds, args: list[str], csv_name: str, phases: set[str] | Non
     epochs = [line.split() for line in lines if re.fullmatch(r"\d+ \S+ \S+ \S+", line)]
     if [int(e[0]) for e in epochs] != [0, 1, 2] or not all(math.isfinite(float(e[1])) for e in epochs):
         raise AssertionError(f"CLI {args}: epoch lines {epochs}")
-    keys = [line.split(":")[0] for line in open(os.path.join(tmp, "csvs", csv_name)).read().splitlines()]
+    keys = [line.split(":")[0] for line in open(os.path.join(csv_dir, csv_name)).read().splitlines()]
     extra = set(keys[4:]) - {"phase_unattributed"}
     if keys[:4] != ["0_preprocess", "0_0_epoch", "1_0_epoch", "2_0_epoch"] or extra != {
             f"phase_{k}" for k in phases or ()}:
@@ -3639,12 +3690,11 @@ def run_cli(tmp: str, ds, args: list[str], csv_name: str, phases: set[str] | Non
     return lines
 
 
-def run_command(args: list[str]) -> list[str]:
-    """``python -m mg_gcn_tpu_torch.cli <args>`` (infer, pagerank) from the
-    checkout: exit code 0; returns and logs its stderr lines."""
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, "-m", "mg_gcn_tpu_torch.cli", *args], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+def run_command(args: list[str], started) -> list[str]:
+    """The run of ``python -m mg_gcn_tpu_torch.cli <args>`` (infer,
+    pagerank) that :func:`start_module` ``started``: exit code 0; returns
+    and logs its stderr lines."""
+    r = started.result()
     if r.returncode != 0:
         raise AssertionError(f"CLI {args} exited {r.returncode}:\n{r.stderr}")
     lines = r.stderr.splitlines()
@@ -3652,7 +3702,7 @@ def run_command(args: list[str]) -> list[str]:
     return lines
 
 
-def phase_cli_sage_pagerank(tmp: str, toy: str) -> None:
+def phase_cli_sage_pagerank(tmp: str, toy: str, runs: dict) -> None:
     """``--model sage -E 3 train <toy> 1 16 --save CK``, then ``--model sage
     infer <toy> 1 16 --load CK``: predictions.bin equal to the library's
     forward from that checkpoint (``build_sage_pair`` impl="auto" bfloat16,
@@ -3669,10 +3719,12 @@ def phase_cli_sage_pagerank(tmp: str, toy: str) -> None:
 
     ds = Dataset.load(toy)
     ck, preds = os.path.join(tmp, "sage.npz"), os.path.join(tmp, "predictions.bin")
-    lines = run_cli(tmp, ds, ["--model", "sage", "--save", ck, "train", toy, "1", "16"], "toy_32_16_7_1.csv")
+    lines = run_cli(ds, ["--model", "sage", "--save", ck, "train", toy, "1", "16"], "toy_32_16_7_1.csv",
+                    started=runs["sage"])
     if not any(line.startswith("aggregation engine: pattern") for line in lines):
         raise AssertionError("CLI --model sage: no pattern engine line")
-    lines = run_command(["--model", "sage", "--load", ck, "--save", preds, "infer", toy, "1", "16"])
+    lines = run_command(["--model", "sage", "--load", ck, "--save", preds, "infer", toy, "1", "16"],
+                        started=runs["infer"])
     if not lines[-2].startswith(f"inference: n={ds.num_nodes} acc="):
         raise AssertionError(f"CLI infer: stderr {lines}")
     config = sage.SAGEConfig(sizes=(ds.num_features, 16, ds.num_labels))
@@ -3686,40 +3738,37 @@ def phase_cli_sage_pagerank(tmp: str, toy: str) -> None:
         raise AssertionError("CLI infer: predictions.bin differs from the library's forward")
 
     out1, out4 = os.path.join(tmp, "pagerank.bin"), os.path.join(tmp, "pagerank4.bin")
-    lines = run_command(["--save", out1, "pagerank", toy])
+    lines = run_command(["--save", out1, "pagerank", toy], started=runs["pagerank"])
     if not lines[-2].startswith(f"pagerank n={ds.num_nodes} sum=") or lines[-1] != f"wrote {out1}":
         raise AssertionError(f"CLI pagerank: stderr {lines}")
     want = pagerank(ds.graph, device="cuda").cpu().numpy()
     if not np.array_equal(read_dense(out1)[:, 0], want):
         raise AssertionError("CLI pagerank: pagerank.bin differs from the library's pagerank")
     ring = ",".join(["cuda:0"] * DIST_PARTS)
-    run_command(["-P", str(DIST_PARTS), "--device", ring, "--save", out4, "pagerank", toy])
+    run_command(["-P", str(DIST_PARTS), "--device", ring, "--save", out4, "pagerank", toy], started=runs["pagerank4"])
     want4 = pagerank_dist(ds.graph, dist.make_mesh(DIST_PARTS, ring.split(",")))
     compare_pagerank(f"CLI pagerank -P {DIST_PARTS}", torch.from_numpy(read_dense(out4)[:, 0]), want4.cpu(),
                      "the library's pagerank_dist")
     log("  CLI infer and pagerank files equal the library's results")
 
 
-def phase_cli_dist_halo_gather(tmp: str, toy: str) -> None:
+def phase_cli_dist_halo_gather(tmp: str, toy: str, runs: dict) -> None:
     """``-P 4 -R 1`` on one card past the pattern pair: ``train`` of a
     weighted copy of the toy graph under ``auto`` (the halo pair, the JAX
     CLI's stderr lines: the local engine by ``train.halo_engine`` and the
     moved rows of the library's build), ``--impl gather`` (the serial-gather
     ring) and ``--model sage --impl halo`` on the toy graph."""
     from mg_gcn_tpu_torch import sparse
-    from mg_gcn_tpu_torch.formats import CSRData, Dataset
+    from mg_gcn_tpu_torch.formats import Dataset
     from mg_gcn_tpu_torch.parallel import dist, dist_halo
     from mg_gcn_tpu_torch.train import halo_engine
 
     ds = Dataset.load(toy)
-    g = ds.graph
     toyw = os.path.join(tmp, "toyw")
-    Dataset(graph=CSRData(g.indptr, g.indices, np.random.default_rng(9).random(g.nnz, np.float32) + 0.5, g.shape),
-            features=ds.features, labels=ds.labels, sets=ds.sets).save(toyw)
     dsw = Dataset.load(toyw)
     ring = ",".join(["cuda:0"] * DIST_PARTS)
-    lines = run_cli(tmp, dsw, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "train", toyw, "2", "128", "128"],
-                    "toyw_32_128_128_8_4.csv")
+    lines = run_cli(dsw, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "train", toyw, "2", "128", "128"],
+                    "toyw_32_128_128_8_4.csv", started=runs["halo"])
     mat = dist_halo.DistHaloMat.from_csr(sparse.transpose(sparse.normalize(dsw.graph, axis=True)),
                                          dist.make_mesh(DIST_PARTS, ring.split(",")))
     want = [f"halo exchange: {DIST_PARTS * sum(mat.round_widths)} rows/SpMM fwd moved ({mat.halo_total} useful;"
@@ -3730,10 +3779,10 @@ def phase_cli_dist_halo_gather(tmp: str, toy: str) -> None:
             line.startswith("aggregation engine: halo") for line in lines):
         raise AssertionError(f"CLI -P {DIST_PARTS} on a weighted graph: no halo pair, or not the lines {want}")
     del mat
-    run_cli(tmp, ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--impl", "gather", "train", toy, "2", "128",
-                      "128"], "toy_32_128_128_8_4.csv")
-    run_cli(tmp, ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--model", "sage", "--impl", "halo", "train",
-                      toy, "1", "16"], "toy_32_16_8_4.csv")
+    run_cli(ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--impl", "gather", "train", toy, "2", "128",
+                      "128"], "toy_32_128_128_8_4.csv", started=runs["gather4"])
+    run_cli(ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--model", "sage", "--impl", "halo", "train",
+                      toy, "1", "16"], "toy_32_16_8_4.csv", started=runs["sage_halo4"])
 
 
 def epoch_numbers(lines: list[str]) -> list[tuple[float, float]]:
@@ -3742,7 +3791,7 @@ def epoch_numbers(lines: list[str]) -> list[tuple[float, float]]:
                                                                                                  line))]
 
 
-def phase_cli_dist_gat_col(tmp: str, toy: str) -> None:
+def phase_cli_dist_gat_col(tmp: str, toy: str, runs: dict) -> None:
     """``-P 4 -R 1 --model gat --heads 2 train <toy> 1 16`` and ``-P 4 -R 0
     train <toy> 2 128 128 --save CK``, four partitions on one card: the
     epoch lines equal the library's steps on the same inputs (GAT: losses
@@ -3762,8 +3811,8 @@ def phase_cli_dist_gat_col(tmp: str, toy: str) -> None:
     ring = ",".join(["cuda:0"] * DIST_PARTS)
     mesh = dist.make_mesh(DIST_PARTS, ring.split(","))
     labels = -(-ds.num_labels // DIST_PARTS) * DIST_PARTS
-    lines = run_cli(tmp, ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--model", "gat", "--heads", "2",
-                              "train", toy, "1", "16"], f"toy_32_16_{labels}_{DIST_PARTS}.csv")
+    lines = run_cli(ds, ["-P", str(DIST_PARTS), "-R", "1", "--device", ring, "--model", "gat", "--heads", "2",
+                              "train", toy, "1", "16"], f"toy_32_16_{labels}_{DIST_PARTS}.csv", started=runs["gat4"])
     config = gat.GATConfig(sizes=(ds.num_features, 16, labels), heads=2)
     start = gat.init_params(config, None, device="cuda:0")
     graph = dist_gat.build_dist_gat_graph(ds.graph, mesh, dtype="bfloat16")
@@ -3781,8 +3830,8 @@ def phase_cli_dist_gat_col(tmp: str, toy: str) -> None:
 
     ck = os.path.join(tmp, "col.npz")
     sizes = tuple(-(-s // DIST_PARTS) * DIST_PARTS for s in (ds.num_features, 128, 128, ds.num_labels))
-    lines = run_cli(tmp, ds, ["-P", str(DIST_PARTS), "-R", "0", "--device", ring, "--save", ck, "train", toy, "2",
-                              "128", "128"], f"toy_{'_'.join(map(str, sizes))}_{DIST_PARTS}.csv")
+    lines = run_cli(ds, ["-P", str(DIST_PARTS), "-R", "0", "--device", ring, "--save", ck, "train", toy, "2",
+                              "128", "128"], f"toy_{'_'.join(map(str, sizes))}_{DIST_PARTS}.csv", started=runs["col4"])
     if not any(line.startswith("note: column path uses exact autodiff gradients") for line in lines):
         raise AssertionError("CLI -R 0: no parity note")
     config = GCNConfig(sizes=sizes, parity=False)
@@ -3812,7 +3861,7 @@ def phase_cli_dist_gat_col(tmp: str, toy: str) -> None:
     log(f"  CLI -P {DIST_PARTS} -R 0: epochs {got} (the library's {want}); checkpoint leaves {shapes}")
 
 
-def phase_cli_phases_f64(tmp: str, toy: str) -> None:
+def phase_cli_phases_f64(tmp: str, toy: str, runs: dict) -> None:
     """``--time-phases``, ``--profile DIR`` and ``--f64`` on the toy dataset:
     the ``phase_`` rows of the JAX package's scopes from the device trace
     (no fallback line), a non-empty Chrome trace that names the pattern
@@ -3822,18 +3871,77 @@ def phase_cli_phases_f64(tmp: str, toy: str) -> None:
 
     ds = Dataset.load(toy)
     config = GCNConfig(sizes=(ds.num_features, 128, 128, ds.num_labels))
-    run_cli(tmp, ds, ["--time-phases", "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv",
-            phases=gcn_phase_keys(config))
+    run_cli(ds, ["--time-phases", "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv",
+            phases=gcn_phase_keys(config), started=runs["phases"])
     prof = os.path.join(tmp, "prof")
-    run_cli(tmp, ds, ["--profile", prof, "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv")
+    run_cli(ds, ["--profile", prof, "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv",
+            started=runs["profile"])
     trace = open(os.path.join(prof, "trace.json")).read()
     if "pattern_fwd_kernel" not in trace or "PackArgs" not in trace:
         raise AssertionError("CLI --profile: the trace names no pattern kernel")
     log(f"  --profile: trace.json {len(trace)} bytes, pattern_fwd / pattern_bwd events"
         f" {trace.count('pattern_fwd_kernel')} / {trace.count('PackArgs')}")
-    lines = run_cli(tmp, ds, ["--f64", "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv")
+    lines = run_cli(ds, ["--f64", "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv", started=runs["f64"])
     if any(line.startswith("aggregation engine") for line in lines):
         raise AssertionError("CLI --f64: not on the COO engine")
+
+
+CLI_CONCURRENCY = 6  # phase 18's CLI processes run this many at a time
+
+
+def start_cli_runs(tmp: str, toy: str, pool) -> dict:
+    """Every CLI process of phase 18, started in ``pool`` in the order the
+    checks read them (a run that needs another's files starts when that
+    one has ended): name -> :func:`start_cli`'s (future, CSV directory), or
+    a future of the CompletedProcess for ``infer``, ``pagerank`` and
+    ``prep``."""
+    ring, P = ",".join(["cuda:0"] * DIST_PARTS), str(DIST_PARTS)
+    runs = {}
+
+    def after(first: str, module: str, args: list[str], cwd: str = ROOT):
+        dep = runs[first][0] if isinstance(runs[first], tuple) else runs[first]
+        return pool.submit(module_run, module, args, cwd, dep)
+
+    def cli_after(first: str, args: list[str]):
+        csv_dir = tempfile.mkdtemp(prefix="csvs", dir=tmp)
+        return after(first, "mg_gcn_tpu_torch.cli", ["-E", "3", "--csv-dir", csv_dir, *args]), csv_dir
+
+    for name, args in (
+            ("gcn", ["train", toy, "2", "128", "128"]),
+            ("gat", ["--model", "gat", "--heads", "2", "train", toy, "1", "16"]),
+            ("p4", ["-P", "4", "-R", "1", "--device", ring, "train", toy, "2", "128", "128"]),
+            ("sage", ["--model", "sage", "--save", os.path.join(tmp, "sage.npz"), "train", toy, "1", "16"])):
+        runs[name] = start_cli(tmp, args, pool)
+    runs["infer"] = after("sage", "mg_gcn_tpu_torch.cli", [
+        "--model", "sage", "--load", os.path.join(tmp, "sage.npz"), "--save", os.path.join(tmp, "predictions.bin"),
+        "infer", toy, "1", "16"])
+    runs["pagerank"] = start_module("mg_gcn_tpu_torch.cli", ["--save", os.path.join(tmp, "pagerank.bin"), "pagerank",
+                                                             toy], pool)
+    runs["pagerank4"] = start_module("mg_gcn_tpu_torch.cli", ["-P", P, "--device", ring, "--save",
+                                                              os.path.join(tmp, "pagerank4.bin"), "pagerank", toy],
+                                     pool)
+    toyw = os.path.join(tmp, "toyw")
+    for name, args in (
+            ("halo", ["-P", P, "-R", "1", "--device", ring, "train", toyw, "2", "128", "128"]),
+            ("gather4", ["-P", P, "-R", "1", "--device", ring, "--impl", "gather", "train", toy, "2", "128", "128"]),
+            ("sage_halo4", ["-P", P, "-R", "1", "--device", ring, "--model", "sage", "--impl", "halo", "train", toy,
+                            "1", "16"]),
+            ("gat4", ["-P", P, "-R", "1", "--device", ring, "--model", "gat", "--heads", "2", "train", toy, "1", "16"]),
+            ("col4", ["-P", P, "-R", "0", "--device", ring, "--save", os.path.join(tmp, "col.npz"), "train", toy, "2",
+                      "128", "128"]),
+            ("phases", ["--time-phases", "train", toy, "2", "128", "128"]),
+            ("profile", ["--profile", os.path.join(tmp, "prof"), "train", toy, "2", "128", "128"]),
+            ("f64", ["--f64", "train", toy, "2", "128", "128"])):
+        runs[name] = start_cli(tmp, args, pool)
+    runs["synthetic"] = start_module("mg_gcn_tpu_torch.data.prep", ["synthetic", "-n", "20000", "--deg", "16", "--feat",
+                                                                    "32", "--labels", "7", "-o", tmp], pool,
+                                     cwd=tmp)
+    runs["cluster"] = after("synthetic", "mg_gcn_tpu_torch.data.prep", ["cluster", os.path.join(tmp, "synthetic")],
+                            cwd=tmp)
+    clustered = os.path.join(tmp, "synthetic_clustered")
+    for impl in ("block", "pallas"):
+        runs[impl] = cli_after("cluster", ["--impl", impl, "train", clustered, "1", "16"])
+    return runs
 
 
 def phase_cli() -> None:
@@ -3844,45 +3952,52 @@ def phase_cli() -> None:
     infer and PageRank at -P 1 and 4 (:func:`phase_cli_sage_pagerank`);
     then ``data.prep synthetic`` and ``prep cluster`` (RCM) write a dataset
     and its clustered copy, and GCN trains on the copy with ``--impl block``
-    and ``--impl pallas``."""
+    and ``--impl pallas``. The CLI processes run CLI_CONCURRENCY at a time
+    (:func:`start_cli_runs`), each with a CSV directory of its own; their
+    checks read them in this order."""
     from mg_gcn_tpu_torch import sparse
     from mg_gcn_tpu_torch.cli import _csv_name
-    from mg_gcn_tpu_torch.formats import Dataset
+    from mg_gcn_tpu_torch.formats import CSRData, Dataset
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(CLI_CONCURRENCY) as pool:
         rng = np.random.default_rng(5)
         n = 50_000
         toy = os.path.join(tmp, "toy")
-        Dataset(
-            graph=sparse.random_graph(n, 20, seed=5),
-            features=rng.standard_normal((n, 32)).astype(np.float32),
-            labels=rng.integers(0, 7, (n, 1)).astype(np.int32),
-            sets=np.zeros((n, 1), np.int32),
-        ).save(toy)
+        g = sparse.random_graph(n, 20, seed=5)
+        features = rng.standard_normal((n, 32)).astype(np.float32)
+        labels = rng.integers(0, 7, (n, 1)).astype(np.int32)
+        Dataset(graph=g, features=features, labels=labels, sets=np.zeros((n, 1), np.int32)).save(toy)
+        # a weighted copy for the halo pair (phase_cli_dist_halo_gather)
+        Dataset(graph=CSRData(g.indptr, g.indices, np.random.default_rng(9).random(g.nnz, np.float32) + 0.5, g.shape),
+                features=features, labels=labels, sets=np.zeros((n, 1), np.int32)).save(os.path.join(tmp, "toyw"))
+        runs = start_cli_runs(tmp, toy, pool)
         ds = Dataset.load(toy)
-        lines = run_cli(tmp, ds, ["train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv")
+        lines = run_cli(ds, ["train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv", started=runs["gcn"])
         if not any(line.startswith("aggregation engine: pattern") for line in lines):
             raise AssertionError("CLI: no pattern engine line")
-        run_cli(tmp, ds, ["--model", "gat", "--heads", "2", "train", toy, "1", "16"], "toy_32_16_7_1.csv")
+        run_cli(ds, ["--model", "gat", "--heads", "2", "train", toy, "1", "16"], "toy_32_16_7_1.csv",
+                started=runs["gat"])
         # -P 4 -R 1, the four partitions on one card; 7 labels round up to 8
-        lines = run_cli(tmp, ds, ["-P", "4", "-R", "1", "--device", ",".join(["cuda:0"] * 4), "train", toy, "2",
-                                  "128", "128"], "toy_32_128_128_8_4.csv")
+        lines = run_cli(ds, ["-P", "4", "-R", "1", "--device", ",".join(["cuda:0"] * 4), "train", toy, "2",
+                                  "128", "128"], "toy_32_128_128_8_4.csv", started=runs["p4"])
         if "exchange: fused ring (auto)" not in lines or not any(
                 line.startswith("aggregation engine: pattern") for line in lines):
             raise AssertionError("CLI -P 4: no pattern pair or no fused exchange")
-        phase_cli_sage_pagerank(tmp, toy)
-        phase_cli_dist_halo_gather(tmp, toy)
-        phase_cli_dist_gat_col(tmp, toy)
-        phase_cli_phases_f64(tmp, toy)
+        phase_cli_sage_pagerank(tmp, toy, runs)
+        phase_cli_dist_halo_gather(tmp, toy, runs)
+        phase_cli_dist_gat_col(tmp, toy, runs)
+        phase_cli_phases_f64(tmp, toy, runs)
 
-        log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["synthetic", "-n", "20000", "--deg", "16",
-                                                                  "--feat", "32", "--labels", "7", "-o", tmp]).strip())
-        log("  " + run_module(tmp, "mg_gcn_tpu_torch.data.prep", ["cluster", os.path.join(tmp, "synthetic")]).strip())
+        for name in ("synthetic", "cluster"):
+            r = runs[name].result()
+            if r.returncode != 0:
+                raise AssertionError(f"data.prep {name} exited {r.returncode}:\n{r.stderr}")
+            log("  " + r.stdout.strip())
         clustered = os.path.join(tmp, "synthetic_clustered")
         ds = Dataset.load(clustered)
         csv = _csv_name(clustered, [ds.num_features, 16, ds.num_labels], 1)
         for impl in ("block", "pallas"):
-            run_cli(tmp, ds, ["--impl", impl, "train", clustered, "1", "16"], csv)
+            run_cli(ds, ["--impl", impl, "train", clustered, "1", "16"], csv, started=runs[impl])
 
 
 def write_papers_like(directory: str, n: int, draws: int, features: int, classes: int, seed: int) -> dict:
@@ -3945,25 +4060,36 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# a worker starts from a small launcher process of its own, in a process
+# group of its own: a process started by fork and exec carries its parent's
+# memory at the fork into getrusage's peak RSS (ru_maxrss), so a worker
+# forked from this script would report this script's RSS as its own
+WORKER_LAUNCHER = "import subprocess, sys; sys.exit(subprocess.call(sys.argv[1:]))"
+
+
 def launch_workers(label: str, specs: list[dict], world: bool) -> list[dict]:
-    """Run ``python chip_smoke.py --multihost-worker <spec>`` once a spec,
-    as the ranks of one run when ``world`` (else one process alone). Every
-    worker must exit 0 within MH_TIMEOUT_S; all are killed otherwise, and a
-    failure raises. Returns each worker's result (its last stdout line)
-    with its stderr lines."""
+    """Run ``python chip_smoke.py --multihost-worker <spec>`` once a spec
+    (each through WORKER_LAUNCHER), as the ranks of one run when ``world``
+    (else one process alone). Every worker must exit 0 within MH_TIMEOUT_S;
+    all are killed otherwise (each launcher's process group), and a failure
+    raises. Returns each worker's result (its last stdout line) with its
+    stdout's other lines and its stderr lines."""
+    import signal
+
     port = free_port()
     procs = []
     try:
         for rank, spec in enumerate(specs):
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--multihost-worker", json.dumps(spec)],
+                [sys.executable, "-c", WORKER_LAUNCHER, sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--multihost-worker", json.dumps(spec)],
                 cwd=ROOT, env=mh_env(rank if world else None, port), stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
+                stderr=subprocess.PIPE, text=True, process_group=0))
         outs = [p.communicate(timeout=MH_TIMEOUT_S) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
-                p.kill()
+                os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
     results = []
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
@@ -3971,6 +4097,7 @@ def launch_workers(label: str, specs: list[dict], world: bool) -> list[dict]:
             raise AssertionError(f"{label}: worker {rank} exited {p.returncode}:\n{err[-6000:]}\n{out[-2000:]}")
         result = json.loads(out.strip().splitlines()[-1])
         result["stderr"] = err.splitlines()
+        result["stdout"] = out.strip().splitlines()[:-1]
         results.append(result)
     return results
 
@@ -3983,22 +4110,27 @@ def epoch_lines(lines: list[str]) -> list[tuple[str, str, float]]:
 
 
 def multihost_worker(spec: dict) -> int:
-    """One worker of phase 19: ``mg_gcn_tpu_torch.cli.main(spec["argv"])``
-    with the run's halo pair kept (``DistHaloPair.from_pigo`` /
-    ``from_csr_pair`` wrapped) and the exchange helpers
+    """One worker of phases 19 and 20: ``mg_gcn_tpu_torch.cli.main(spec["argv"])``
+    with the run's operator kept (``DistHaloPair.from_pigo`` /
+    ``from_csr_pair``, ``dist_gat.build_dist_gat_graph`` or
+    ``dist_col.replicate_coo`` wrapped) and the exchange helpers
     (``multihost.exchange`` / ``all_gather``) wrapped to add up their wall
     seconds and the bytes they send to other processes (an all-gather's
-    once for each peer) from the pair's build on. Prints one JSON line: the
-    gather launches by width over the run, peak card memory and host RSS,
-    the exchange's bytes and seconds, the pair's moved and useful halo
-    rows, and with ``spec["kernels"]`` the gather kernel's rows at this
-    process's first partition's diagonal and round-0 blocks of Âᵀ at d =
-    MH_KERNEL_D."""
+    once for each peer) from the operator's build on; under
+    ``spec["deterministic"]`` with PyTorch's deterministic algorithms on
+    (the COO engine's index_add_ in a fixed order). Prints one JSON line:
+    every kernel's launches by width over the run, peak card memory and host
+    RSS, the exchange's bytes and seconds, the halo pair's moved and useful
+    rows or the GAT blocks' entries, and with ``spec["kernels"]`` the
+    kernels' rows at this process's first partition's blocks: ``gather``
+    at the halo pair's diagonal and round-0 blocks of Âᵀ at d =
+    MH_KERNEL_D, or the attention kernels at the GAT graph's diagonal and
+    round-1 blocks (:func:`phase_dist_gat_kernels`)."""
     import resource
 
     sys.path.insert(0, ROOT)
     from mg_gcn_tpu_torch import cli
-    from mg_gcn_tpu_torch.parallel import dist_halo, multihost
+    from mg_gcn_tpu_torch.parallel import dist_col, dist_gat, dist_halo, multihost
 
     kept, spent = {}, {"exchange_s": 0.0, "bytes": 0}
 
@@ -4009,7 +4141,7 @@ def multihost_worker(spec: dict) -> int:
             kept.update(pair=pair, built=time.perf_counter())
             spent.update(exchange_s=0.0, bytes=0)
             return pair
-        return staticmethod(wrapped)
+        return wrapped
 
     def timed(fn, sent):
         def wrapped(*a, **k):
@@ -4025,26 +4157,38 @@ def multihost_worker(spec: dict) -> int:
         return t.numel() * t.element_size()
 
     H = dist_halo.DistHaloPair
-    H.from_pigo, H.from_csr_pair = keep(H.from_pigo), keep(H.from_csr_pair)
+    H.from_pigo, H.from_csr_pair = staticmethod(keep(H.from_pigo)), staticmethod(keep(H.from_csr_pair))
+    dist_gat.build_dist_gat_graph = keep(dist_gat.build_dist_gat_graph)
+    dist_col.replicate_coo = keep(dist_col.replicate_coo)
     multihost.exchange = timed(multihost.exchange, lambda sends, recvs: sum(nbytes(t) for t, _, _ in sends))
     multihost.all_gather = timed(multihost.all_gather, lambda t: nbytes(t) * (multihost.process_count() - 1))
+    if spec.get("deterministic"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        warnings.simplefilter("ignore", UserWarning)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     code = cli.main(spec["argv"])
     torch.cuda.synchronize()
-    out = {"code": code, "wall_s": time.perf_counter() - t0, "launches": [[dt, d, v] for (dt, d), v in
-                                                                          counts()["gather"].items()],
+    launched = counts()
+    out = {"code": code, "wall_s": time.perf_counter() - t0,
+           "launches": {name: [[dt, d, v] for (dt, d), v in per.items()] for name, per in launched.items() if per},
            "peak_card_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+           "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
            "bytes_after_build": spent["bytes"],
            "exchange_s": spent["exchange_s"], "epochs_s": time.perf_counter() - kept.get("built", t0)}
     pair = kept.get("pair")
-    if pair is not None:
+    if isinstance(pair, H):
         out.update(moved=pair.fwd.parts * sum(pair.fwd.round_widths), useful=pair.fwd.halo_total,
                    round_widths=list(pair.fwd.round_widths), engine=type(pair.fwd).__name__)
+    elif isinstance(pair, dist_gat.DistGatGraph):
+        out.update(block_nnz=pair.block_nnz, m_loc=pair.m_loc)
     if spec.get("kernels") and code == 0:
-        out["rows"] = multihost_kernel_rows(pair, counts()["gather"])
+        if isinstance(pair, H):
+            out["rows"] = multihost_kernel_rows(pair, launched["gather"])
+        else:
+            counted = f"process 0's {spec['epochs']} bfloat16 epochs, every block of its partition"
+            out["rows"] = phase_dist_gat_kernels(pair, launched, counted, spec["epochs"], empty_block=False)
     print(json.dumps(out))
     multihost.shutdown()
     return 0 if code == 0 else 1
@@ -4063,7 +4207,7 @@ def multihost_kernel_rows(pair, launches: dict) -> list[dict]:
         b = operand(blk.n_in, d, "float32", seed=d)
         label = f"gather float32 d={d} (two-process halo {where}, {blk.n_out} x {blk.n_in})"
         check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain,
-                                                 (blk.indptr, blk.indices, blk.w, b), "float32", 5, 2, repeat=True)
+                                                 (blk.indptr, blk.indices, blk.w, b), "float32", 5, 1, repeat=True)
         extra = walk_geometry(label, sg.gather_geometry(blk.n_out, b.shape[1], b.dtype, True))
         lib, bl = csr_library(blk.indptr, blk.indices, blk.w, (blk.n_out, blk.n_in)), b[:, :d].contiguous()
         library_ms = cuda_ms(lambda: torch.sparse.mm(lib, bl), 5)
@@ -4144,18 +4288,18 @@ def phase_multihost(smi: str) -> list[dict]:
         log(f"  losses (both processes and one process, bit for bit): {[e[0] for e in want]}")
         for tag, w, ep in [(f"process {r}", w, lines[r]) for r, w in enumerate(two)] + [("one process", one, want)]:
             epoch_s = [e[2] for e in ep]
-            log(f"  {tag}: epoch seconds {epoch_s} (median of 1-{MH_EPOCHS - 1}"
+            log(f"  {tag}: epoch seconds {epoch_s} (median of epochs 1 on"
                 f" {float(np.median(epoch_s[1:])):.3f} s); run {w['wall_s']:.1f} s, of which set-up (start to the"
                 f" pair built) {w['wall_s'] - w['epochs_s']:.1f} s; peak card memory {w['peak_card_gb']:.2f} GB,"
                 f" peak host RSS {w['peak_rss_gb']:.2f} GB; halo rows moved {w.get('moved')} a product"
                 f" ({w.get('useful')} useful, round widths {w.get('round_widths')}); gather launches"
-                f" {sorted(map(tuple, w['launches']))}; [{smi}]")
+                f" {sorted(map(tuple, w['launches'].get('gather', [])))}; [{smi}]")
         for r, w in enumerate(two):
             per_epoch = w["bytes_after_build"] / MH_EPOCHS
             log(f"  process {r}: {per_epoch / 1e9:.3f} GB sent to the other process an epoch; exchange helpers"
                 f" {w['exchange_s']:.2f} s of its {w['epochs_s']:.2f} s of epochs"
                 f" ({w['exchange_s'] / w['epochs_s']:.3f}, host wall clock, waits included) [{smi}]")
-        launches = {(dt, d): v for dt, d, v in two[0]["launches"]}
+        launches = {(dt, d): v for dt, d, v in two[0]["launches"].get("gather", [])}
         if not launches or min(launches.values()) < 1:
             raise AssertionError(f"process 0 launched no gather kernel: {launches}")
         rows = two[0]["rows"]
@@ -4195,6 +4339,152 @@ def phase_multihost(smi: str) -> list[dict]:
         return rows
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def write_main_datasets(ds, root: str) -> dict:
+    """Phase 20's two datasets in the reference formats under ``root``:
+    ``gat`` (the GAT path's 64 planted features, :func:`gat_features`) and
+    ``col`` (the main path's 608 features), with the main path's labels and
+    graph; ``col/graph.bin`` is a link to ``gat/graph.bin``. Returns the
+    directories and the seconds taken. The directories go at the script's
+    exit if phase 20 has not removed them (chiprun_out/ must stay small)."""
+    import atexit
+    import shutil
+
+    from mg_gcn_tpu_torch.formats import write_dense, write_pigo_csr
+
+    t0 = time.perf_counter()
+    dirs = {"root": root, "gat": os.path.join(root, "gat"), "col": os.path.join(root, "col")}
+    atexit.register(shutil.rmtree, root, True)
+    for d in ("gat", "col"):
+        os.makedirs(dirs[d], exist_ok=True)
+    write_pigo_csr(os.path.join(dirs["gat"], "graph.bin"), ds.graph)
+    os.symlink(os.path.join("..", "gat", "graph.bin"), os.path.join(dirs["col"], "graph.bin"))
+    labels = ds.labels.reshape(-1, 1)
+    for d, x in (("gat", gat_features(labels.reshape(-1))), ("col", ds.features)):
+        write_dense(os.path.join(dirs[d], "features.bin"), x, np.float32)
+        write_dense(os.path.join(dirs[d], "labels.bin"), labels, np.uint32)
+        write_dense(os.path.join(dirs[d], "sets.bin"), np.zeros_like(labels), np.uint32)
+    dirs["seconds"] = time.perf_counter() - t0
+    return dirs
+
+
+def log_workers(label: str, two: list[dict], one: dict, smi: str) -> None:
+    """Phase 20's lines for one path: each process's and the one process's
+    epoch and set-up seconds, peak card memory and host RSS; each process's
+    bytes sent to the other an epoch and its exchange helpers' share of its
+    epochs."""
+    for tag, w in [(f"process {r}", w) for r, w in enumerate(two)] + [("one process", one)]:
+        epoch_s = [e[2] for e in epoch_lines(w["stderr"])]
+        log(f"  {label} {tag}: epoch seconds {epoch_s} (median of 1-{MH2_EPOCHS - 1}"
+            f" {float(np.median(epoch_s[1:])):.4f} s); run {w['wall_s']:.1f} s, of which set-up (start to the"
+            f" operator built) {w['wall_s'] - w['epochs_s']:.1f} s; peak card memory {w['peak_card_gb']:.2f} GB,"
+            f" peak host RSS {w['peak_rss_gb']:.2f} GB [{smi}]")
+    for r, w in enumerate(two):
+        log(f"  {label} process {r}: {w['bytes_after_build'] / MH2_EPOCHS / 1e9:.4f} GB sent to the other process"
+            f" an epoch; exchange helpers {w['exchange_s']:.2f} s of its {w['epochs_s']:.2f} s of epochs"
+            f" ({w['exchange_s'] / w['epochs_s']:.3f}, host wall clock, waits included) [{smi}]")
+
+
+def staged_route(label: str, two: list[dict]) -> str:
+    for r, w in enumerate(two):
+        if not any("exchange route: card tensors staged through host over gloo" in x for x in w["stderr"]):
+            raise AssertionError(f"{label} worker {r}: no staged route line:\n" + "\n".join(w["stderr"][:20]))
+    return [x for x in two[0]["stderr"] if "exchange route" in x][0]
+
+
+def phase_multihost_gat_col(smi: str, dirs: dict) -> list[dict]:
+    """Phase 20 (see the module docstring). Returns the attention kernels'
+    rows at process 0's blocks."""
+    import shutil
+    import types
+
+    from mg_gcn_tpu_torch.models import gat
+
+    try:
+        csv = lambda tag: ["--csv-dir", os.path.join(dirs["root"], f"csv_{tag}")]  # noqa: E731
+        cols = lambda lines: [e[:2] for e in lines]  # noqa: E731
+        log(f"  datasets written in {dirs['seconds']:.1f} s (graph.bin once, linked)")
+
+        # 20: GAT across two processes
+        args = ["-P", str(MH_PARTS), "-R", "1", "--model", "gat", "--heads", str(GAT_HEADS), "-E", str(MH2_EPOCHS),
+                "train", dirs["gat"], "1", str(GAT_SIZES[1])]
+        two = launch_workers("GAT two processes", [
+            {"argv": ["--multihost", *csv(f"gat{r}"), *args], "kernels": r == 0, "epochs": MH2_EPOCHS}
+            for r in range(MH_PARTS)], world=True)
+        one = launch_workers("GAT one process", [{"argv": ["--device", ",".join(["cuda:0"] * MH_PARTS),
+                                                           *csv("gat_one"), *args]}], world=False)[0]
+        route = staged_route("GAT", two)
+        want = epoch_lines(one["stderr"])
+        if len(want) != MH2_EPOCHS or not all(math.isfinite(float(e[0])) for e in want):
+            raise AssertionError(f"GAT one process: epoch lines {want}")
+        lines = [epoch_lines(w["stderr"]) for w in two]
+        how = "bit for bit with one process"
+        if any(cols(got) != cols(want) for got in lines):
+            again = epoch_lines(launch_workers("GAT one process, again", [{"argv": [
+                "--device", ",".join(["cuda:0"] * MH_PARTS), *csv("gat_again"), *args]}], world=False)[0]["stderr"])
+            if cols(again) == cols(want):
+                raise AssertionError(f"GAT: two processes {[cols(x) for x in lines]} != one process {cols(want)},"
+                                     " which repeats itself bit for bit")
+            for r, got in enumerate(lines):
+                np.testing.assert_allclose(np.array(cols(got), np.float64), np.array(cols(want), np.float64),
+                                           rtol=1e-5, err_msg=f"GAT worker {r}")
+            how = (f"within rtol 1e-5 of one process (two one-process runs differ: {cols(want)} and"
+                   f" {cols(again)})")
+        config = gat.GATConfig(sizes=MH2_GAT_SIZES, heads=GAT_HEADS)
+        for tag, w in [(f"process {r}", w) for r, w in enumerate(two)] + [("one process", one)]:
+            per_epoch = dist_gat_launches_per_epoch(config, types.SimpleNamespace(block_nnz=w["block_nnz"]))
+            got = {(name, dt, d): v for name, per in w["launches"].items() for dt, d, v in per if v}
+            if got != {k: v * MH2_EPOCHS for k, v in per_epoch.items()}:
+                raise AssertionError(f"GAT {tag}: launches {got}, want {per_epoch} an epoch x {MH2_EPOCHS}")
+            log(f"  GAT {tag}: entries per block [partition][round] {w['block_nnz']} (m_loc {w['m_loc']});"
+                f" launches an epoch {per_epoch} ({sum(per_epoch.values())} in all)")
+        log(f"  {route}")
+        log(f"  GAT -P {MH_PARTS} (sizes {MH2_GAT_SIZES}, {GAT_HEADS} heads, bfloat16 blocks): losses"
+            f" {[e[0] for e in want]}, both processes {how}")
+        log_workers("GAT", two, one, smi)
+        for line in two[0]["stdout"]:
+            log(f"  [process 0] {line.strip()}")
+        rows = two[0]["rows"]
+        for r in rows:
+            log_row(r, f"; {r['shape']}; this block {r['block_launches_an_epoch']} an epoch")
+
+        # 20a: the column path across two processes, deterministic sums
+        args = ["-P", str(MH_PARTS), "-R", "0", "-E", str(MH2_EPOCHS), "train", dirs["col"], str(len(HIDDEN)),
+                *map(str, HIDDEN)]
+        ck = lambda tag: ["--save", os.path.join(dirs["root"], f"ck_{tag}.npz")]  # noqa: E731
+        two = launch_workers("column two processes", [
+            {"argv": ["--multihost", *csv(f"col{r}"), *ck(f"col{r}"), *args], "deterministic": True}
+            for r in range(MH_PARTS)], world=True)
+        one = launch_workers("column one process", [
+            {"argv": ["--device", ",".join(["cuda:0"] * MH_PARTS), *csv("col_one"), *ck("col_one"), *args],
+             "deterministic": True}], world=False)[0]
+        route = staged_route("column", two)
+        want = epoch_lines(one["stderr"])
+        if len(want) != MH2_EPOCHS or not all(math.isfinite(float(e[0])) for e in want):
+            raise AssertionError(f"column one process: epoch lines {want}")
+        for r, w in enumerate(two):
+            if cols(epoch_lines(w["stderr"])) != cols(want):
+                raise AssertionError(f"column worker {r}: {cols(epoch_lines(w['stderr']))} != one process's"
+                                     f" {cols(want)} (both under deterministic algorithms)")
+            if any(w["launches"].values()):
+                raise AssertionError(f"column worker {r} launched a kernel of the port: {w['launches']}")
+        got, ref = (np.load(os.path.join(dirs["root"], f"ck_{t}.npz")) for t in ("col0", "col_one"))
+        shapes = [got[k].shape for k in got.files if got[k].ndim == 2 and got[k].shape[0] > 1][:3]
+        if got.files != ref.files or not all(np.array_equal(got[k], ref[k]) for k in got.files):
+            raise AssertionError("column: process 0's checkpoint differs from the one-process run's")
+        if shapes != list(zip(MH2_COL_SIZES, MH2_COL_SIZES[1:])):
+            raise AssertionError(f"column checkpoint W shapes {shapes}, want the full rounded arrays")
+        if os.path.exists(os.path.join(dirs["root"], "ck_col1.npz")):
+            raise AssertionError("column: process 1 wrote a checkpoint")
+        log(f"  {route}")
+        log(f"  column -P {MH_PARTS} -R 0 (sizes {MH2_COL_SIZES}, COO engine, deterministic index_add_): losses"
+            f" {[e[0] for e in want]}, both processes bit for bit with one process; process 0's checkpoint equal"
+            f" to the one process's, W {shapes}")
+        log_workers("column", two, one, smi)
+        return rows
+    finally:
+        shutil.rmtree(dirs["root"], ignore_errors=True)
 
 
 def main() -> int:
@@ -4339,6 +4629,7 @@ def main() -> int:
     phase("[13a] attention kernels at the -P 4 GAT path's ring blocks")
     kernels += phase_dist_gat_kernels(dist_gat_path.pop("graph"), dist_gat_path["launches"])
     torch.cuda.empty_cache()
+    mh_dirs = write_main_datasets(ds, os.path.join(ROOT, "chiprun_out", "multihost_gat_col"))  # for phase 20
 
     phase("[14] path A: weighted Reddit on the edge engine")
     from mg_gcn_tpu_torch.ops.spmm_edges import expected_fill
@@ -4386,6 +4677,10 @@ def main() -> int:
     phase(f"[19] multi-process halo: BASELINE config 3's widths at -P {MH_PARTS} across {MH_PARTS} processes on"
           f" cuda:0, n = {MH_N}")
     kernels += phase_multihost(smi)
+
+    phase(f"[20] GAT (-R 1) and the column path (-R 0) at -P {MH_PARTS} across {MH_PARTS} processes on cuda:0,"
+          f" n = {N_MAIN}")
+    kernels += phase_multihost_gat_col(smi, mh_dirs)
     phase("done")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -1,16 +1,17 @@
 """Command-line interface, the port of ``mg_gcn_tpu/cli.py`` (reference
 main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE) and
 ``--model gat [--heads H] [--edge-weighted]`` on one card, with ``-P N -R 1``
-GCN, SAGE and GAT row-partitioned over N partitions driven by this one
+GCN, SAGE and GAT row-partitioned over N partitions driven by this
 process (``parallel/dist.py``, ``parallel/dist_halo.py``,
 ``parallel/dist_gat.py``), and with ``-P N -R 0`` GCN column-parallel
 (``parallel/dist_col.py``); ``infer``
 loads a checkpoint and writes the forward pass's predictions; ``pagerank``
 runs the power iteration. ``--multihost`` joins a run of several processes
 (``parallel/multihost.py``, from the ``MG_GCN_*`` variables): ``-P N -R 1``
-GCN and SAGE split their partitions over the processes, each process
-reading only its row slabs of the graph under ``--impl halo`` / ``auto``;
-``--mmap`` maps ``features.bin`` instead of reading it whole:
+GCN, SAGE and GAT and ``-P N -R 0`` split their partitions over the
+processes, GCN and SAGE reading only each process's row slabs of the graph
+under ``--impl halo`` / ``auto``; ``--mmap`` maps ``features.bin`` instead
+of reading it whole:
 
     python -m mg_gcn_tpu_torch.cli [-E epochs] [options] train <data_dir> <L> <d1> ... <dL>
     python -m mg_gcn_tpu_torch.cli [options] --load CK infer <data_dir> <L> <d1> ... <dL>
@@ -26,7 +27,8 @@ times of GCN's step to that CSV (``diagnostics.py``), ``--profile DIR``
 writes a torch.profiler Chrome trace of the run into DIR, and ``--f64`` runs
 single-card GCN in float64 on the COO engine. Across processes every process
 prints its epoch lines and process 0 alone writes the CSV and checkpoints;
-the paths of a later slice exit with code 2 and name their ROADMAP item.
+``pagerank`` and ``infer`` exit with code 2 there, as the JAX CLI fails
+there too.
 """
 
 from __future__ import annotations
@@ -115,21 +117,19 @@ def _csv_name(data_dir: str, sizes, P: int) -> str:
     return f"{name}_{P}.csv"
 
 
-def _not_ported(opts, processes: int) -> str | None:
-    """The first path of a later slice that ``opts`` asks for across
-    ``processes``, with its ROADMAP item, or None."""
+def _one_process_only(opts, processes: int) -> str | None:
+    """Why ``opts`` cannot run across ``processes``, or None: ``pagerank``
+    and ``infer`` gather a jax.Array that spans other processes' devices in
+    the JAX CLI, which raises there, so the port has no multi-process form
+    to hold them against."""
     if processes == 1:
         return None
-    later = [
-        (opts.command == "infer", "infer across processes"),
-        (opts.command == "pagerank", "pagerank across processes"),
-        (opts.command == "train" and opts.P > 1 and opts.model == "gat", "--model gat across processes"),
-        (opts.command == "train" and opts.P > 1 and not opts.R, "-R 0 across processes"),
-    ]
-    for asked, what in later:
-        if asked:
-            return f"{what}: ROADMAP queue 1 item 9i"
-    return None
+    where = {"pagerank": "mg_gcn_tpu/models/pagerank.py:209", "infer": "mg_gcn_tpu/cli.py:925"}.get(opts.command)
+    if where is None:
+        return None
+    return (f"{opts.command} across processes is not supported: the JAX package fails there too ({where} raises"
+            " RuntimeError: Fetching value for jax.Array that spans non-addressable (non process local) devices"
+            " is not possible)")
 
 
 def _features(ds, dtype=np.float32) -> torch.Tensor:
@@ -300,7 +300,8 @@ def _partition_ring(spec: str, P: int):
 
 def _run_epochs(opts, step, args, params, opt_state, timers, save_view=lambda p, o: (p, o)):
     """The epoch loop: ``epoch loss acc seconds`` on stderr, a timer per
-    epoch, and ``--save-every`` checkpoints of ``save_view(params, state)``."""
+    epoch, and ``--save-every`` checkpoints of ``save_view(params, state)``
+    (called on every process, written by process 0)."""
     from .checkpoint import save_checkpoint
 
     for e in range(opts.E):
@@ -310,8 +311,10 @@ def _run_epochs(opts, step, args, params, opt_state, timers, save_view=lambda p,
         dt = time.perf_counter() - t0
         timers.record(f"{e}_0_epoch", dt * 1e3)
         print(f"{e} {loss} {acc} {dt}", file=sys.stderr)
-        if opts.save_every and opts.save and (e + 1) % opts.save_every == 0 and _main_process():
-            save_checkpoint(opts.save, save_view(params, opt_state))
+        if opts.save_every and opts.save and (e + 1) % opts.save_every == 0:
+            view = save_view(params, opt_state)  # on every process: it may gather
+            if _main_process():
+                save_checkpoint(opts.save, view)
     return params, opt_state
 
 
@@ -541,7 +544,9 @@ def _train_dist_gat(opts, ds, config, hparams, params, opt_state, timers, mesh):
     """``--model gat -P N -R 1`` (``mg_gcn_tpu/cli.py:797-838``): the ring
     attention blocks of ``parallel/dist_gat.py``, bfloat16 when
     ``--pattern-dtype int8`` asks (the attention weights are dynamic).
-    Returns (params, opt_state, exit code)."""
+    Across processes each reads the whole graph, as the JAX CLI does, and
+    builds its own partitions' blocks. Returns (params, opt_state, exit
+    code)."""
     from .parallel import dist, dist_gat
 
     P, n = mesh.parts, ds.num_nodes
@@ -562,8 +567,9 @@ def _train_col(opts, ds, config, hparams, params, opt_state, timers, mesh):
     """``-P N -R 0`` (``mg_gcn_tpu/cli.py:431-484``): column-parallel GCN
     (``parallel/dist_col.py``) on the COO engine, Âᵀ held once a device,
     exact gradients; every width rounded to a multiple of P, the features
-    zero-padded to it. Checkpoints hold the full (rounded) arrays. Returns
-    (params, opt_state, exit code)."""
+    zero-padded to it. Across processes each holds Âᵀ on its cards and its
+    partitions' column shards. Checkpoints hold the full (rounded) arrays,
+    gathered on every process. Returns (params, opt_state, exit code)."""
     from dataclasses import replace
 
     from . import sparse
@@ -593,8 +599,8 @@ def _train_col(opts, ds, config, hparams, params, opt_state, timers, mesh):
     params, opt_state = _run_epochs(
         opts, step, (mats, xs, ys), dist_col.shard_col_params(params, mesh),
         dist_col.shard_col_state(opt_state, mesh), timers,
-        save_view=lambda p, o: (dist_col.gather_col_params(p), dist_col.gather_col_state(o)))
-    return dist_col.gather_col_params(params), dist_col.gather_col_state(opt_state), 0
+        save_view=lambda p, o: (dist_col.gather_col_params(p, mesh), dist_col.gather_col_state(o, mesh)))
+    return dist_col.gather_col_params(params, mesh), dist_col.gather_col_state(opt_state, mesh), 0
 
 
 def cmd_infer(opts) -> int:
@@ -719,9 +725,9 @@ def main(argv=None) -> int:
             print(f"error: {exc}", file=sys.stderr)
             return 2
     try:
-        missing = _not_ported(opts, multihost.process_count())
-        if missing:
-            print(f"not ported yet: {missing}", file=sys.stderr)
+        refused = _one_process_only(opts, multihost.process_count())
+        if refused:
+            print(refused, file=sys.stderr)
             return 2
         commands = {"train": cmd_train, "infer": cmd_infer, "pagerank": cmd_pagerank}
         if opts.command in commands:

@@ -156,7 +156,10 @@ def pagerank_dist(
     partition's device, rescaled by the total to mean 1."""
     from ..parallel import dist
 
-    dist.require_one_process(mesh, "pagerank -P N")
+    if mesh.world > 1:  # the JAX package's pagerank fails there too: nothing to hold a port against
+        raise NotImplementedError("pagerank -P N across processes: the JAX package fails there too"
+                                  " (mg_gcn_tpu/models/pagerank.py:209 raises RuntimeError on a jax.Array that spans"
+                                  " non-addressable devices)")
     p, _ = power_iterate_dist(dist_pagerank_mat(graph, mesh), damping, eps, max_iters, strategy)
     total = dist.reduce_parts([torch.sum(x) for x in p], torch.add, mesh)
     out = p[0].device

@@ -17,12 +17,19 @@ with one process it drives all P. The mapping:
   tensors, each on its device (:func:`shard`);
 * ``lax.ppermute`` -> a copy of the neighbour's block into a buffer on this
   partition's device (a peer copy when the two lie on different cards), or a
-  message when another process owns the neighbour (:func:`_permute`);
+  message when another process owns the neighbour (:func:`_permute`); where
+  autograd differentiates through it across processes, :class:`_Hop`,
+  whose backward is the reverse hop's messages;
+* ``lax.all_to_all`` / ``psum_scatter`` -> :func:`all_to_all` (the column
+  path), its backward the transposed all-to-all;
 * ``lax.psum`` / ``lax.pmax`` -> every partition's tensor gathered to every
   process and folded in partition order (:func:`reduce_parts`), so that a
   run repeats bit for bit whatever the number of processes;
 * replicated parameters and optimizer state -> one copy per distinct device
-  (:func:`replicate`), each updated from the same summed gradients.
+  (:func:`replicate`), each updated from the same summed gradients;
+* a value every process computes alike from every partition's pieces (the
+  column path's loss) -> :func:`gather_replicated`, whose backward keeps
+  each process's own pieces' gradients and sums nothing over processes.
 
 Every loop over partitions visits this process's partitions only; the
 process boundary lives in :class:`Ring` and these helpers.
@@ -215,7 +222,7 @@ def shard_dataset(ds, mesh: Ring, n_rows: int | None = None, mask_train: bool = 
 def fold(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
     """``op`` folded over ``xs`` in order, on ``xs[0]``'s device: tensors
     all of one process. :func:`reduce_parts` folds a ring's partitions; the
-    column path, which runs in one process only, folds its shards here."""
+    column path folds the blocks it gathered here."""
     out = xs[0]
     for x in xs[1:]:
         out = op(out, x.to(out.device))
@@ -246,25 +253,39 @@ def _psum_trees(trees: Sequence, mesh: Ring) -> list[dict]:
     return [{k: leaves[(i, k)] for k in layer} for i, layer in enumerate(trees[0])]
 
 
-def require_one_process(mesh: Ring, what: str) -> None:
-    """Refuse ``what`` on a ring that spans processes: those paths hold every
-    partition in one process (ROADMAP queue 1 item 9i)."""
-    if mesh.world > 1:
-        raise NotImplementedError(f"not ported yet: {what} across processes: ROADMAP queue 1 item 9i")
-
-
 def _copy_to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A copy of ``x`` in a new buffer on ``device`` (a peer copy across cards)."""
     return torch.empty_like(x, device=device).copy_(x)
 
 
-def _permute(blocks: Sequence[torch.Tensor], shift: int, mesh: Ring, copy: bool = True) -> list[torch.Tensor]:
+# messages between processes are tagged by their exchange's position: the
+# count of exchanges this process has made (every process makes the same
+# ones in the same order), wrapped, with a bit for the backward's messages
+_POSITION = [0]
+_POSITION_WRAP = 1 << 12
+
+
+def _next_position() -> int:
+    _POSITION[0] = (_POSITION[0] + 1) % _POSITION_WRAP
+    return _POSITION[0]
+
+
+def _tag(position: int, back: bool, src: int, dst: int, parts: int) -> int:
+    """The tag of the message from partition ``src`` to partition ``dst``
+    in the exchange at ``position`` (its backward's when ``back``): under
+    2^31 for up to 256 partitions."""
+    return ((position * 2 + back) * parts + src) * parts + dst
+
+
+def _permute(blocks: Sequence[torch.Tensor], shift: int, mesh: Ring, copy: bool = True,
+             position: int | None = None, back: bool = False) -> list[torch.Tensor]:
     """Local partition j receives the block partition (j + shift) % P holds
     (``lax.ppermute`` with perm (i, (i - shift) % P)); every block has the
     same shape. A block of this process is copied onto j's device (with
     ``copy=False`` one already there is used as it is); a block of another
     process arrives in one batch of sends and receives with the rest of the
-    hop's messages (``multihost.exchange``)."""
+    hop's messages (``multihost.exchange``), tagged by the hop's
+    ``position`` (the next one when None) and ``back``."""
     def local_block(b, device):
         return b if not copy and b.device == device else _copy_to(b, device)
 
@@ -272,6 +293,7 @@ def _permute(blocks: Sequence[torch.Tensor], shift: int, mesh: Ring, copy: bool 
         p = len(blocks)
         return [local_block(blocks[(j + shift) % p], blocks[j].device) for j in range(p)]
     P, first = mesh.parts, mesh.first
+    position = _next_position() if position is None else position
     out: list = [None] * len(blocks)
     sends, recvs, into = [], [], []
     for jl, j in enumerate(mesh.local):
@@ -279,21 +301,137 @@ def _permute(blocks: Sequence[torch.Tensor], shift: int, mesh: Ring, copy: bool 
         if mesh.owner(src) == mesh.rank:
             out[jl] = local_block(blocks[src - first], blocks[jl].device)
         else:
-            recvs.append((torch.empty_like(blocks[jl]), mesh.owner(src), src * P + j))
+            recvs.append((torch.empty_like(blocks[jl]), mesh.owner(src), _tag(position, back, src, j, P)))
             into.append(jl)
     for kl, k in enumerate(mesh.local):
         dst = (k - shift) % P
         if mesh.owner(dst) != mesh.rank:
-            sends.append((blocks[kl], mesh.owner(dst), k * P + dst))
+            sends.append((blocks[kl], mesh.owner(dst), _tag(position, back, k, dst, P)))
     for jl, got in zip(into, multihost.exchange(sends, recvs)):
         out[jl] = got
     return out
 
 
+class _Hop(torch.autograd.Function):
+    """A hop across processes that carries gradients: the forward is
+    :func:`_permute` by ``shift``, the backward :func:`_permute` of the
+    outputs' gradients by ``-shift`` (JAX's transpose of ``ppermute``),
+    tagged by the forward's position. Each batch of messages blocks until
+    its peer posts the matching batch, so every process's autograd engine
+    must reach the backward hops in the same order, as it does when the
+    processes build the same graph: engines that took different orders
+    would hang, not pair up, and the gradients' sums would fold in another
+    order. Every output must feed the loss on every process (a hop whose
+    outputs no process uses is never reached and its peer waits)."""
+
+    @staticmethod
+    def forward(ctx, shift, mesh, *blocks):
+        ctx.shift, ctx.mesh, ctx.position = shift, mesh, _next_position()
+        return tuple(_permute(blocks, shift, mesh, position=ctx.position))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_permute(grads, -ctx.shift, ctx.mesh, position=ctx.position, back=True))
+
+
 def _ppermute(blocks: Sequence[torch.Tensor], mesh: Ring) -> list[torch.Tensor]:
     """One ring hop (JAX's ``_ring_perm``, dist.py:318-321): partition j
-    receives the block partition j+1 held."""
-    return _permute(blocks, 1, mesh)
+    receives the block partition j+1 held. In one process a differentiable
+    copy; across processes :class:`_Hop`, whose backward sends the
+    gradients back round the ring."""
+    if mesh.world == 1:
+        return _permute(blocks, 1, mesh)
+    return list(_Hop.apply(1, mesh, *blocks))
+
+
+def _all_to_all(pieces: Sequence[Sequence[torch.Tensor]], mesh: Ring, position: int | None = None,
+                back: bool = False) -> list[list[torch.Tensor]]:
+    """Every partition sends one block to every partition (``lax.all_to_all``):
+    ``pieces[i][k]`` is this process's i-th partition's block for partition
+    k; returns ``out[i][j]``, partition j's block for this process's i-th
+    partition, on its device. Blocks between this process's partitions are
+    copies; the others travel in one batch (``multihost.exchange``), tagged
+    as :func:`_permute`'s."""
+    P, local = mesh.parts, list(mesh.local)
+    devs = [pieces[i][k].device for i, k in enumerate(local)]
+    if mesh.world == 1:
+        return [[_copy_to(pieces[j][k], devs[k]) for j in range(P)] for k in range(P)]
+    position = _next_position() if position is None else position
+    out = [[None] * P for _ in local]
+    sends, recvs, into = [], [], []
+    for i, j in enumerate(local):
+        for k in range(P):
+            if mesh.owner(k) == mesh.rank:
+                out[k - mesh.first][j] = _copy_to(pieces[i][k], devs[k - mesh.first])
+            else:
+                sends.append((pieces[i][k], mesh.owner(k), _tag(position, back, j, k, P)))
+    for i, k in enumerate(local):
+        for j in range(P):
+            if mesh.owner(j) != mesh.rank:
+                like = pieces[i][j]  # every block partition j sends to k has the shape k sends to j
+                recvs.append((torch.empty_like(like, device=devs[i]), mesh.owner(j), _tag(position, back, j, k, P)))
+                into.append((i, j))
+    for (i, j), got in zip(into, multihost.exchange(sends, recvs)):
+        out[i][j] = got
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all` that carries gradients: the backward is the
+    all-to-all of the outputs' gradients back to their senders (its own
+    transpose), tagged by the forward's position."""
+
+    @staticmethod
+    def forward(ctx, mesh, *flat):
+        ctx.mesh, ctx.position = mesh, _next_position()
+        out = _all_to_all(_rows(flat, mesh), mesh, ctx.position)
+        return tuple(t for row in out for t in row)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = _all_to_all(_rows(grads, ctx.mesh), ctx.mesh, ctx.position, back=True)
+        return (None, *(g for row in back for g in row))
+
+
+def _rows(flat: Sequence, mesh: Ring) -> list:
+    """``flat`` (P blocks for each of this process's partitions, in turn)
+    as one list of P blocks a partition."""
+    P = mesh.parts
+    return [list(flat[i * P : (i + 1) * P]) for i in range(len(mesh.devices))]
+
+
+def all_to_all(pieces: Sequence[Sequence[torch.Tensor]], mesh: Ring) -> list[list[torch.Tensor]]:
+    """:func:`_all_to_all`, differentiable: in one process copies that
+    autograd differentiates; across processes :class:`_AllToAll`."""
+    if mesh.world == 1:
+        return _all_to_all(pieces, mesh)
+    return _rows(_AllToAll.apply(mesh, *(t for row in pieces for t in row)), mesh)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Every partition's tensor on every process, for a consumer that every
+    process computes alike (a replicated loss): the backward hands each
+    input this process's own gradient of its copy and never sums the
+    copies' gradients over processes, which would scale them by the number
+    of processes (the JAX column step's fault)."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(multihost.all_gather_parts(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        return (None, *(grads[j].to(dev) for j, dev in zip(mesh.local, mesh.devices)))
+
+
+def gather_replicated(xs: Sequence[torch.Tensor], mesh: Ring) -> list[torch.Tensor]:
+    """Every partition's tensor in partition order, on ``xs[0]``'s device,
+    differentiable, for a consumer every process computes alike: in one
+    process the tensors themselves, across processes
+    :class:`_GatherReplicated`."""
+    return list(xs) if mesh.world == 1 else list(_GatherReplicated.apply(mesh, *xs))
 
 
 def _all_parts(blocks: Sequence[torch.Tensor], mesh: Ring) -> list:

@@ -3,38 +3,46 @@
 Port of ``mg_gcn_tpu/parallel/dist_col.py`` (the CLI's ``-P N -R 0``, the
 reference's dormant column path: ``dist_dn_matrix``, dist_matrix.hpp:262-392;
 ``dist_linear``, gcn.hpp:298-409; ``dist_softmax``, gcn.hpp:680-721) for P
-partitions driven by one process (``parallel/dist.py``'s
-:class:`~.dist.Ring`; several partitions may share a card):
+partitions driven by one process or split over several
+(``parallel/dist.py``'s :class:`~.dist.Ring`; several partitions may share
+a card; a process holds and runs its own partitions only):
 
 * activations are P column shards, partition k's (n, d/P) on its device;
 * the adjacency is replicated: one COO matrix (Âᵀ) for each distinct device
-  of the ring, which every partition on that device reads; each partition
+  of a process, which every partition on that device reads; each partition
   aggregates its own feature columns (the column path's SpMM is
   embarrassingly parallel, cuda_utils.hpp:35-45) on the COO engine, as the
   JAX package does (``dist_col.py:33``: XLA, no Pallas kernel); the
   gradient multiplies by Â, the same entries with rows and columns swapped;
 * a linear layer is tensor parallel (:func:`_tp_linear`): W by input rows,
   each partition's partial product h_k W_k, output column block k the sum
-  of the partitions' partial blocks in partition order (``psum_scatter``),
-  plus bias block k;
+  of the partitions' partial blocks in partition order (``psum_scatter``:
+  an all-to-all of the blocks, ``dist.all_to_all``, then the sum on
+  partition k), plus bias block k;
 * the loss is the sharded softmax cross-entropy
   (:func:`_dist_col_softmax_xent`): the row max and the denominator over
-  the partitions, the label's probability from its owning shard, the first
+  the partitions, the label's exponential from its owning shard, the first
   shard holding the row's max for the prediction.
 
-**Gradients are the true ones.** The step builds one autograd graph over
-all partitions, ending in the one loss, so each shard's leaves (W by input
-rows, b by output columns) get ∂loss/∂leaf. The JAX step differentiates
-the replicated loss inside ``shard_map``, where ``psum_scatter`` and
-``psum`` transpose to sums over all devices, and its gradients come out P
-times the true ones (Adam's coupled decay then acts at wd/P, SGD steps at
-P·lr); the port keeps the module's contract, the single-chip exact
-gradient (tests/test_torch_port_dist_col.py pins both).
+**Gradients are the true ones.** The loss is one number: in one process
+one autograd graph over all partitions ends in it; across processes every
+process computes it alike from every partition's row sums and label picks
+(``dist.gather_replicated``, whose backward hands each process only its own
+pieces' gradients), and the all-to-all's backward sends each output
+block's gradient back to its senders. So each shard's leaves (W by input
+rows, b by output columns) get ∂loss/∂leaf, bit for bit the one-process
+run's. The JAX step differentiates the replicated loss inside
+``shard_map``, where ``psum_scatter`` and ``psum`` transpose to sums over
+all devices, and its gradients come out P times the true ones (Adam's
+coupled decay then acts at wd/P, SGD steps at P·lr); the port keeps the
+module's contract, the single-chip exact gradient
+(tests/test_torch_port_dist_col.py pins both).
 
 Parameters and Adam's moments are sharded like their leaves
 (:func:`shard_col_params`, :func:`shard_col_state`; back with
 :func:`gather_col_params`, :func:`gather_col_state`, which checkpoints and
-tests use); Adam's step count is replicated.
+tests use); Adam's step count is replicated. Every function takes
+the ring: the shards it is given are this process's partitions' only.
 """
 
 from __future__ import annotations
@@ -47,116 +55,124 @@ from ..models.gcn import GCNConfig
 from ..nn import adam
 from ..ops import elementwise as ew
 from ..ops.spmm import AggPair, COOMat, aggregate
-from .dist import Ring, _copy_to, fold, make_mesh, require_one_process
+from . import multihost
+from .dist import Ring, all_to_all, fold, gather_replicated, make_mesh, reduce_parts
 
 
 def make_col_mesh(num_devices: int | None = None, devices=None) -> Ring:
     """The ring of column partitions (``mg_gcn_tpu/parallel/dist_col.py:38``):
-    :func:`~.dist.make_mesh`'s rules; one process only."""
-    mesh = make_mesh(num_devices, devices)
-    require_one_process(mesh, "-R 0")
-    return mesh
+    :func:`~.dist.make_mesh`'s rules, across processes too."""
+    return make_mesh(num_devices, devices)
 
 
-def dist_transpose(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def dist_transpose(xs: Sequence[torch.Tensor], mesh: Ring) -> list[torch.Tensor]:
     """Distributed dense transpose (``mg_gcn_tpu/parallel/dist_col.py:45-68``,
     the reference's ``dist_dn_matrix::transpose``): the column shards ``xs``
     of an (n, d) matrix, partition k's (n, d/P), become the column shards of
-    its (d, n) transpose, partition k's xᵀ[:, k·n/P : (k+1)·n/P]. The
-    all-to-all is P copies into each partition's row slab."""
-    parts, n = len(xs), xs[0].shape[0]
+    its (d, n) transpose, partition k's xᵀ[:, k·n/P : (k+1)·n/P]. One
+    all-to-all of row blocks into each partition's row slab."""
+    parts, n = mesh.parts, xs[0].shape[0]
     if n % parts:
         raise ValueError(f"rows ({n}) must be divisible by the mesh size ({parts})")
     m = n // parts
-    out = []
-    for k, xk in enumerate(xs):
-        slab = torch.cat([_copy_to(x[k * m : (k + 1) * m], xk.device) for x in xs], dim=1)  # x[my rows, :]
-        out.append(slab.T.contiguous())
-    return out
+    got = all_to_all([[x[k * m : (k + 1) * m] for k in range(parts)] for x in xs], mesh)
+    return [torch.cat(row, dim=1).T.contiguous() for row in got]  # x[my rows, :], transposed
 
 
 def make_dist_transpose(mesh: Ring, parts: int):
-    """``xs -> dist_transpose(xs)`` for the column shards on ``mesh``
-    (``mg_gcn_tpu/parallel/dist_col.py:71-81``)."""
+    """``xs -> dist_transpose(xs)`` for this process's column shards on
+    ``mesh`` (``mg_gcn_tpu/parallel/dist_col.py:71-81``)."""
     if parts != mesh.parts:
         raise ValueError(f"{parts} parts on a ring of {mesh.parts}")
 
     def transpose(xs):
-        if len(xs) != parts:
-            raise ValueError(f"{len(xs)} shards for {parts} partitions")
-        return dist_transpose(xs)
+        if len(xs) != len(mesh.devices):
+            raise ValueError(f"{len(xs)} shards for {len(mesh.devices)} partitions")
+        return dist_transpose(xs, mesh)
 
     return transpose
 
 
-def _tp_linear(hs, ws, bs) -> list[torch.Tensor]:
+def _tp_linear(hs, ws, bs, mesh: Ring) -> list[torch.Tensor]:
     """Tensor-parallel ``XW + b`` (``mg_gcn_tpu/parallel/dist_col.py:84-91``):
     partition k's h (n, in/P) @ w (in/P, out) is a partial (n, out); output
-    column block k is the partials' block k summed in partition order, on
-    partition k's device, plus bias block k."""
+    column block k is every partition's partial block k, summed in
+    partition order on partition k's device, plus bias block k. In one
+    process the blocks are read where they lie; across processes they
+    travel by one all-to-all (a reduce-scatter), whose backward sends each
+    output block's gradient back to every partition."""
     partials = [h @ w for h, w in zip(hs, ws)]
-    c = partials[0].shape[1] // len(hs)
-    return [fold([p[:, k * c : (k + 1) * c].to(b.device) for p in partials], torch.add) + b
-            for k, b in enumerate(bs)]
+    c = partials[0].shape[1] // mesh.parts
+    blocks = [[p[:, k * c : (k + 1) * c] for k in range(mesh.parts)] for p in partials]
+    if mesh.world == 1:
+        return [fold([row[k].to(b.device) for row in blocks], torch.add) + b for k, b in enumerate(bs)]
+    return [fold(got, torch.add) + b for got, b in zip(all_to_all(blocks, mesh), bs)]
 
 
-def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Tensor], n_total: int):
+def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Tensor], n_total: int,
+                           mesh: Ring):
     """Column-sharded softmax cross-entropy (``mg_gcn_tpu/parallel/
-    dist_col.py:94-139``; gcn.hpp:690-721): ``logits[k]`` partition k's (n,
-    c/P) shard, ``ys[k]`` the labels on its device. The row max (no
-    gradient) and the denominator over the partitions; the label's
-    probability from its owning shard; the prediction the first shard's
-    column holding the row's max (cuda_utils.cu:120-133). Returns (loss,
-    acc) on the first partition's device."""
+    dist_col.py:94-139``; gcn.hpp:690-721): ``logits[i]`` this process's
+    i-th partition k's (n, c/P) shard, ``ys[i]`` the labels on its device.
+    The row max (no gradient) over the partitions; each partition's row
+    sums of exp(logit − max) and its pick of the label's term (zero where
+    another shard owns the label); the denominator and the label's term
+    the sums of every partition's, in partition order, their quotient the
+    label's probability; the prediction the first shard's column holding
+    the row's max (cuda_utils.cu:120-133). Returns (loss, acc) on the first
+    partition's device, the same on every process."""
     c_loc = logits[0].shape[1]
     devs = [lg.device for lg in logits]
-    row_max = fold([torch.amax(lg.detach(), dim=1) for lg in logits], torch.maximum)
+    row_max = reduce_parts([torch.amax(lg.detach(), dim=1) for lg in logits], torch.maximum, mesh)
     es = [torch.exp(lg - row_max.to(d)[:, None]) for lg, d in zip(logits, devs)]
-    denom = fold([torch.sum(e, dim=1) for e in es], torch.add)
-    os_ = [e / denom.to(d)[:, None] for e, d in zip(es, devs)]
-    picks = []
-    for k, (o, y) in enumerate(zip(os_, ys)):
+    sums, picks = [], []
+    for k, e, y in zip(mesh.local, es, ys):
         local = y.long() - k * c_loc
         in_shard = (local >= 0) & (local < c_loc)
-        p = torch.gather(o, 1, torch.clamp(local, 0, c_loc - 1)[:, None])[:, 0]
+        p = torch.gather(e, 1, torch.clamp(local, 0, c_loc - 1)[:, None])[:, 0]
+        sums.append(torch.sum(e, dim=1))
         picks.append(torch.where(in_shard, p, torch.zeros_like(p)))
-    p_label = fold(picks, torch.add)
+    denom = fold(gather_replicated(sums, mesh), torch.add)
+    p_label = fold(gather_replicated(picks, mesh), torch.add) / denom
     logp = torch.log(torch.clamp(p_label, min=torch.finfo(p_label.dtype).tiny))
 
     # accuracy only: the first shard holding the row's max wins
-    local_max = [torch.amax(o.detach(), dim=1) for o in os_]
-    gmax = fold(local_max, torch.maximum)
-    cands = [torch.where(lm == gmax.to(d), torch.argmax(o.detach(), dim=1) + k * c_loc, 2**30)
-             for k, (o, lm, d) in enumerate(zip(os_, local_max, devs))]
-    pred = fold(cands, torch.minimum)
+    os_ = [e.detach() / denom.detach().to(d)[:, None] for e, d in zip(es, devs)]
+    local_max = [torch.amax(o, dim=1) for o in os_]
+    gmax = reduce_parts(local_max, torch.maximum, mesh)
+    cands = [torch.where(lm == gmax.to(d), torch.argmax(o, dim=1) + k * c_loc, 2**30)
+             for k, o, lm, d in zip(mesh.local, os_, local_max, devs)]
+    pred = reduce_parts(cands, torch.minimum, mesh)
     correct = (pred == ys[0].long().to(pred.device)).to(logp.dtype)
     return -torch.sum(logp) / n_total, torch.sum(correct) / n_total
 
 
-def col_loss_fn(params, mats: Sequence[AggPair], xs, ys, config: GCNConfig, n_total: int):
-    """Forward and loss over the partitions (``mg_gcn_tpu/parallel/
-    dist_col.py:142-160``), differentiable: ``params[k]`` partition k's
-    shards, ``mats[k]`` the (Âᵀ, Â) COO pair on its device. Each layer in
-    ``layer_meta``'s order, LeakyReLU between layers."""
+def col_loss_fn(params, mats: Sequence[AggPair], xs, ys, config: GCNConfig, n_total: int, mesh: Ring):
+    """Forward and loss over this process's partitions (``mg_gcn_tpu/
+    parallel/dist_col.py:142-160``), differentiable: ``params[i]`` its i-th
+    partition's shards, ``mats[i]`` the (Âᵀ, Â) COO pair on its device.
+    Each layer in ``layer_meta``'s order, LeakyReLU between layers."""
     hs = list(xs)
     for i in range(config.num_layers):
         meta = config.layer_meta(i)
         ws, bs = [p[i]["W"] for p in params], [p[i]["b"] for p in params]
         if meta["lin_first"]:
-            hs = [aggregate(mat, hw) for mat, hw in zip(mats, _tp_linear(hs, ws, bs))]
+            hs = [aggregate(mat, hw) for mat, hw in zip(mats, _tp_linear(hs, ws, bs, mesh))]
         else:
-            hs = _tp_linear([aggregate(mat, h) for mat, h in zip(mats, hs)], ws, bs)
+            hs = _tp_linear([aggregate(mat, h) for mat, h in zip(mats, hs)], ws, bs, mesh)
         if meta["activation"]:
             hs = [ew.leaky_relu(h, config.leaky_slope) for h in hs]
-    return _dist_col_softmax_xent(hs, ys, n_total)
+    return _dist_col_softmax_xent(hs, ys, n_total, mesh)
 
 
-def col_loss_and_grad(params, mats, xs, ys, config: GCNConfig, n_total: int):
+def col_loss_and_grad(params, mats, xs, ys, config: GCNConfig, n_total: int, mesh: Ring):
     """(loss, acc, grads): one backward pass from the one loss through every
-    partition; ``grads[k]`` is the gradient of partition k's shards."""
+    partition (across processes, each process's from its copy of the loss,
+    the all-to-alls' backwards meeting between them); ``grads[i]`` is the
+    gradient of this process's i-th partition's shards."""
     leaves = [[{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in p] for p in params]
     with torch.enable_grad():
-        loss, acc = col_loss_fn(leaves, mats, xs, ys, config, n_total)
+        loss, acc = col_loss_fn(leaves, mats, xs, ys, config, n_total, mesh)
         flat = [v for p in leaves for layer in p for v in layer.values()]
         flat_grads = iter(torch.autograd.grad(loss, flat))
     grads = [[{k: next(flat_grads) for k in layer} for layer in p] for p in leaves]
@@ -176,10 +192,10 @@ def make_col_train_step(
         step(params, opt_state, mats, xs, ys) -> (params, opt_state, loss, acc)
 
     ``params`` / ``opt_state`` are :func:`shard_col_params` /
-    :func:`shard_col_state`'s lists, one per partition, returned updated;
-    ``mats`` is :func:`replicate_coo`'s list; ``xs`` the feature column
-    shards (:func:`shard_columns`); ``ys`` the labels, one copy per
-    partition. Every width must divide by P (the reference rounds the last
+    :func:`shard_col_state`'s lists, one per partition of this process,
+    returned updated; ``mats`` is :func:`replicate_coo`'s list; ``xs`` the
+    feature column shards (:func:`shard_columns`); ``ys`` the labels, one
+    copy per partition of this process. Every width must divide by P (the reference rounds the last
     width up for the same reason, main.cpp:135). Exact gradients, the true
     ones (see the module docstring); loss and acc lie on the first
     partition's device."""
@@ -195,7 +211,6 @@ def make_col_train_step(
         )
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    require_one_process(mesh, "-R 0")
     hp = dict(adam.DEFAULT_HPARAMS)
     if hparams:
         hp.update(hparams)
@@ -205,7 +220,7 @@ def make_col_train_step(
             raise ValueError(f"column-parallel needs widths divisible by P; got {s} % {parts}")
 
     def step(params, opt_state, mats, xs, ys):
-        loss, acc, grads = col_loss_and_grad(params, mats, xs, ys, config, n_total)
+        loss, acc, grads = col_loss_and_grad(params, mats, xs, ys, config, n_total, mesh)
         new_params, new_state = [], []
         with torch.no_grad():
             for p, st, g in zip(params, opt_state, grads):
@@ -226,26 +241,26 @@ def make_col_train_step(
 
 def replicate_coo(mat: COOMat, mesh: Ring) -> list[AggPair]:
     """The COO matrix Âᵀ as the (Âᵀ, Â) aggregation pair, held once for
-    each distinct device of ``mesh`` (Â is Âᵀ's entries with rows and
-    columns swapped: the COO engine needs no sorted rows); returns one pair
-    a partition, partitions on one device sharing it."""
+    each distinct device of this process's partitions (Â is Âᵀ's entries
+    with rows and columns swapped: the COO engine needs no sorted rows);
+    returns one pair a partition, partitions on one device sharing it."""
     pairs = []
     for dev in mesh.replica_devices:
         fwd = COOMat(rows=mat.rows.to(dev), cols=mat.cols.to(dev), vals=mat.vals.to(dev), n_rows=mat.n_rows,
                      n_cols=mat.n_cols, nnz=mat.nnz)
         pairs.append(AggPair(fwd=fwd, bwd=COOMat(rows=fwd.cols, cols=fwd.rows, vals=fwd.vals, n_rows=mat.n_cols,
                                                  n_cols=mat.n_rows, nnz=mat.nnz)))
-    return [pairs[mesh.replica_of(j)] for j in range(mesh.parts)]
+    return [pairs[mesh.replica_of(i)] for i in range(len(mesh.devices))]
 
 
 def shard_columns(x, mesh: Ring) -> list[torch.Tensor]:
     """Split the last axis of ``x`` (numpy array or tensor) into P equal
-    column blocks, partition k's on its device."""
+    column blocks: this process's partitions' blocks, each on its device."""
     t = torch.as_tensor(x)
     if t.shape[-1] % mesh.parts:
         raise ValueError(f"{t.shape[-1]} columns do not split into {mesh.parts} equal partitions")
     c = t.shape[-1] // mesh.parts
-    return [t[..., k * c : (k + 1) * c].contiguous().to(dev) for k, dev in enumerate(mesh.devices)]
+    return [t[..., k * c : (k + 1) * c].contiguous().to(dev) for k, dev in zip(mesh.local, mesh.devices)]
 
 
 def _shard_axis(key: str) -> int:
@@ -254,33 +269,43 @@ def _shard_axis(key: str) -> int:
 
 
 def shard_col_params(params, mesh: Ring) -> list[list[dict]]:
-    """Full parameter tree -> one tree of shards a partition, on its device."""
-    shards = [[{} for _ in params] for _ in range(mesh.parts)]
+    """Full parameter tree -> one tree of shards for each of this process's
+    partitions, on its device."""
+    shards = [[{} for _ in params] for _ in mesh.devices]
     for i, layer in enumerate(params):
         for key, t in layer.items():
             if t.shape[_shard_axis(key)] % mesh.parts:
                 raise ValueError(f"layer {i} {key} {tuple(t.shape)} does not split into {mesh.parts} shards")
-            for k, part in enumerate(torch.chunk(t, mesh.parts, dim=_shard_axis(key))):
-                shards[k][i][key] = part.contiguous().to(mesh.devices[k])
+            parts = torch.chunk(t, mesh.parts, dim=_shard_axis(key))
+            for s, k, dev in zip(shards, mesh.local, mesh.devices):
+                s[i][key] = parts[k].contiguous().to(dev)
     return shards
 
 
-def gather_col_params(shards) -> list[dict]:
+def gather_col_params(shards, mesh: Ring) -> list[dict]:
     """:func:`shard_col_params`'s shards -> the full tree, on the first
-    partition's device."""
+    partition's device. Across processes every process gathers every
+    partition's shards (one gather a leaf, the same calls on every
+    process) and gets the full tree."""
     dev = next(iter(shards[0][0].values())).device
-    return [{key: torch.cat([s[i][key].to(dev) for s in shards], dim=_shard_axis(key)) for key in layer}
+
+    def every(leaves):
+        return multihost.all_gather_parts(leaves) if mesh.world > 1 else [t.to(dev) for t in leaves]
+
+    return [{key: torch.cat(every([s[i][key] for s in shards]), dim=_shard_axis(key)) for key in layer}
             for i, layer in enumerate(shards[0])]
 
 
 def shard_col_state(state: adam.AdamState, mesh: Ring) -> list[adam.AdamState]:
-    """An AdamState of full trees -> one a partition: moments sharded like
-    their leaves, the step count replicated."""
+    """An AdamState of full trees -> one for each of this process's
+    partitions: moments sharded like their leaves, the step count
+    replicated."""
     ms, vs = shard_col_params(state.m, mesh), shard_col_params(state.v, mesh)
     return [adam.AdamState(step=state.step.to(dev), m=m, v=v) for dev, m, v in zip(mesh.devices, ms, vs)]
 
 
-def gather_col_state(states: Sequence[adam.AdamState]) -> adam.AdamState:
-    """:func:`shard_col_state`'s states -> one AdamState of full trees."""
-    return adam.AdamState(step=states[0].step, m=gather_col_params([s.m for s in states]),
-                          v=gather_col_params([s.v for s in states]))
+def gather_col_state(states: Sequence[adam.AdamState], mesh: Ring) -> adam.AdamState:
+    """:func:`shard_col_state`'s states -> one AdamState of full trees (across
+    processes on every process, as :func:`gather_col_params`)."""
+    return adam.AdamState(step=states[0].step, m=gather_col_params([s.m for s in states], mesh),
+                          v=gather_col_params([s.v for s in states], mesh))

@@ -1,10 +1,11 @@
 """Row-partitioned multi-head graph attention (GAT) over P partitions.
 
 Port of ``mg_gcn_tpu/parallel/dist_gat.py`` (the CLI's ``--model gat -P N
--R 1``) for P partitions driven by one process (``parallel/dist.py``'s
-:class:`~.dist.Ring`; several partitions may share a card). Partition j
-owns row slab j of the adjacency as its P ring blocks, its activation rows
-and its labels. A GAT layer runs, per head, the JAX package's two ring
+-R 1``) for P partitions driven by one process or split over several
+(``parallel/dist.py``'s :class:`~.dist.Ring`; several partitions may share
+a card). Partition j owns row slab j of the adjacency as its P ring blocks,
+its activation rows and its labels; a process builds and runs its own
+partitions only. A GAT layer runs, per head, the JAX package's two ring
 passes (``dist_gat.py:196-258``), pass for pass:
 
 1. **scores** — the source terms ``e_src`` go round the ring; in round s
@@ -22,11 +23,12 @@ passes (``dist_gat.py:196-258``), pass for pass:
    d = 1 SDDMM.
 
 The ring hop is :func:`~.dist._ppermute` (partition j receives partition
-j+1's block): a copy into a new buffer, which autograd differentiates as
-the reverse hop, so the gradients of ``e_src`` and ``z`` travel the ring
-back. Gradients are exact autograd through the attention ops
-(``ops/edge_attention.py``), the partitions' local loss shares summed by
-``dist._exact_loss_and_grad``.
+j+1's block): in one process a copy into a new buffer, which autograd
+differentiates as the reverse hop; across processes ``dist._Hop``, whose
+backward sends the gradients back round the ring as messages. Either way
+the gradients of ``e_src`` and ``z`` travel the ring back. Gradients are
+exact autograd through the attention ops (``ops/edge_attention.py``), the
+partitions' local loss shares summed by ``dist._exact_loss_and_grad``.
 
 Each block is the port's attention pair ``(EdgeTileMat, TSched)``, built on
 its partition's device: row-sorted CSR of the block's real entries, every
@@ -53,17 +55,16 @@ from ..nn import adam
 from ..ops import elementwise as ew
 from ..ops.edge_attention import sddmm, spmm_attn
 from ..ops.spmm_edges import DTYPES, EdgeTileMat, TSched, transposed_schedule
-from .dist import (Ring, _exact_loss_and_grad, _ppermute, _update_replicas, column_blocks, reduce_parts,
-                   require_one_process, row_slab)
+from .dist import Ring, _exact_loss_and_grad, _ppermute, _update_replicas, column_blocks, reduce_parts, row_slab
 
 
 @dataclass(frozen=True)
 class DistGatGraph:
     """Row-partitioned adjacency as P×P ring-ordered attention blocks.
 
-    ``blocks[j][s]`` is the (EdgeTileMat, TSched) pair of block A[j, (j+s)
-    % P] (m_loc × m_loc, rows local to slab j, columns local to column slab
-    (j+s) % P) on partition j's device. Edge values are not read: attention
+    ``blocks[i][s]`` is the (EdgeTileMat, TSched) pair of block A[j, (j+s)
+    % P] of this process's i-th partition j (m_loc × m_loc, rows local to
+    slab j, columns local to column slab (j+s) % P) on its device. Edge values are not read: attention
     recomputes its entry weights every layer. ``ring`` is the ring it was
     built for."""
 
@@ -77,7 +78,7 @@ class DistGatGraph:
 
     @property
     def block_nnz(self) -> list[list[int]]:
-        """Entries of each block, [j][s]."""
+        """Entries of each of this process's blocks, [i][s]."""
         return [[mat.nnz for mat, _ in row] for row in self.blocks]
 
 
@@ -95,10 +96,11 @@ def attention_block(rows: torch.Tensor, cols: torch.Tensor, n_out: int, n_in: in
 
 
 def build_dist_gat_graph(csr: CSRData, mesh: Ring, dtype: str = "bfloat16") -> DistGatGraph:
-    """Partition j's P ring blocks, built on its device from its row slab
-    (``mg_gcn_tpu/parallel/dist_gat.py:97-165``). Self-loops should be
+    """This process's partitions' P ring blocks, each built on its device
+    from its row slab of the whole ``csr`` (``mg_gcn_tpu/parallel/
+    dist_gat.py:97-165``; every process holds the whole graph, as the JAX
+    CLI loads it, ``mg_gcn_tpu/cli.py:811-817``). Self-loops should be
     present (prep adds them), so that every node attends to itself."""
-    require_one_process(mesh, "--model gat -P N")
     n, parts = csr.nrows, mesh.parts
     if n % parts:
         raise ValueError(
@@ -109,7 +111,7 @@ def build_dist_gat_graph(csr: CSRData, mesh: Ring, dtype: str = "bfloat16") -> D
         raise ValueError(f"unsupported edge dtype {dtype!r} (expected {'/'.join(DTYPES)})")
     m = n // parts
     blocks = []
-    for j, dev in enumerate(mesh.devices):
+    for j, dev in zip(mesh.local, mesh.devices):
         split = column_blocks(row_slab(csr, j, m), parts, dev)
         blocks.append([attention_block(*split[(j + s) % parts][:2], m, m, dtype) for s in range(parts)])
         del split
@@ -131,21 +133,21 @@ def _global_max(scores: Sequence[Sequence[torch.Tensor]], ring: Ring) -> list[to
 
 
 def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list[torch.Tensor]:
-    """Two-pass ring attention of one head over every partition
+    """Two-pass ring attention of one head over this process's partitions
     (``mg_gcn_tpu/parallel/dist_gat.py:196-258``): ``zs``, ``e_dsts`` and
-    ``e_srcs`` are the partitions' (m_loc, out) and (m_loc, 1) blocks;
-    returns the partitions' aggregated (m_loc, out) blocks."""
-    P = g.parts
+    ``e_srcs`` are their (m_loc, out) and (m_loc, 1) blocks; returns their
+    aggregated (m_loc, out) blocks."""
+    P, L = g.parts, len(g.ring.devices)
     ones = [torch.ones((z.shape[0], 1), dtype=torch.float32, device=z.device) for z in zs]
 
     # pass 1: raw scores a round (kept), the source terms on the ring
     vis = list(e_srcs)
-    scores = [[None] * P for _ in range(P)]
+    scores = [[None] * P for _ in range(L)]
     for s in range(P):
-        for j in range(P):
-            mat, sched = g.blocks[j][s]
-            sc = sddmm(mat, sched, torch.cat([e_dsts[j], ones[j]], dim=1), torch.cat([ones[j], vis[j]], dim=1))
-            scores[j][s] = ew.leaky_relu(sc, slope)
+        for i in range(L):
+            mat, sched = g.blocks[i][s]
+            sc = sddmm(mat, sched, torch.cat([e_dsts[i], ones[i]], dim=1), torch.cat([ones[i], vis[i]], dim=1))
+            scores[i][s] = ew.leaky_relu(sc, slope)
         if s + 1 < P:
             vis = _ppermute(vis, g.ring)
 
@@ -154,45 +156,46 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
     # shifts by that per-row constant
     smax = _global_max(scores, g.ring)
     lse1 = []
-    for j in range(P):
+    for i in range(L):
         with torch.no_grad():
             rs1 = None
             for s in range(P):
-                mat, sched = g.blocks[j][s]
-                e1 = torch.exp(torch.clamp(scores[j][s].detach() - smax[j], -80.0, 0.0))
-                prod = spmm_attn(mat, sched, e1, ones[j])
+                mat, sched = g.blocks[i][s]
+                e1 = torch.exp(torch.clamp(scores[i][s].detach() - smax[i], -80.0, 0.0))
+                prod = spmm_attn(mat, sched, e1, ones[i])
                 rs1 = prod if rs1 is None else rs1 + prod
-            lse1.append(smax[j] + torch.log(torch.clamp(rs1, min=1e-30)))
+            lse1.append(smax[i] + torch.log(torch.clamp(rs1, min=1e-30)))
 
     log_rs = []
-    for j in range(P):
+    for i in range(L):
         rowsum = None
         for s in range(P):
-            mat, sched = g.blocks[j][s]
-            shift = sddmm(mat, sched, lse1[j], ones[j]).detach()
-            prod = spmm_attn(mat, sched, torch.exp(scores[j][s] - shift), ones[j])
+            mat, sched = g.blocks[i][s]
+            shift = sddmm(mat, sched, lse1[i], ones[i]).detach()
+            prod = spmm_attn(mat, sched, torch.exp(scores[i][s] - shift), ones[i])
             rowsum = prod if rowsum is None else rowsum + prod
         log_rs.append(torch.log(torch.clamp(rowsum, min=1e-30)))
 
     # pass 2: alpha-weighted aggregation, the projected features on the ring
     vis_z = list(zs)
-    out: list = [None] * P
+    out: list = [None] * L
     for s in range(P):
-        for j in range(P):
-            mat, sched = g.blocks[j][s]
-            shift = sddmm(mat, sched, lse1[j], ones[j]).detach()
-            slot_lrs = sddmm(mat, sched, log_rs[j], ones[j])
-            prod = spmm_attn(mat, sched, torch.exp(scores[j][s] - shift - slot_lrs), vis_z[j])
-            out[j] = prod if out[j] is None else out[j] + prod
+        for i in range(L):
+            mat, sched = g.blocks[i][s]
+            shift = sddmm(mat, sched, lse1[i], ones[i]).detach()
+            slot_lrs = sddmm(mat, sched, log_rs[i], ones[i])
+            prod = spmm_attn(mat, sched, torch.exp(scores[i][s] - shift - slot_lrs), vis_z[i])
+            out[i] = prod if out[i] is None else out[i] + prod
         if s + 1 < P:
             vis_z = _ppermute(vis_z, g.ring)
     return out
 
 
 def dist_gat_forward(params, g: DistGatGraph, xs, config: GATConfig) -> list[torch.Tensor]:
-    """The partitions' logits (``mg_gcn_tpu/parallel/dist_gat.py:261-282``):
-    ``params[j]`` is the parameter tree partition j computes with; heads
-    concatenate on hidden layers and average on the output layer."""
+    """This process's partitions' logits (``mg_gcn_tpu/parallel/
+    dist_gat.py:261-282``): ``params[i]`` is the parameter tree its i-th
+    partition computes with; heads concatenate on hidden layers and average
+    on the output layer."""
     hs = list(xs)
     H = config.heads
     for i in range(config.num_layers):
@@ -215,8 +218,8 @@ def dist_gat_forward(params, g: DistGatGraph, xs, config: GATConfig) -> list[tor
 
 def dist_gat_loss_and_grad(params, g: DistGatGraph, xs, ys, config: GATConfig, masks=None):
     """(loss, acc, grads) of the partitions' summed local loss shares by one
-    backward pass; the gradients summed over the partitions in partition
-    order, on the first partition's device."""
+    backward pass; the gradients summed over every partition in partition
+    order, on this process's first partition's device."""
     return _exact_loss_and_grad(params, lambda leaves: dist_gat_forward(leaves, g, xs, config), ys, g.n, masks,
                                 g.ring)
 
@@ -253,7 +256,7 @@ def make_dist_gat_train_step(
         hp.update(hparams)
 
     def step(params, opt_state, graph, xs, ys, masks=None):
-        per_part = [params[mesh.replica_of(j)] for j in range(mesh.parts)]
+        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
         loss, acc, grads = dist_gat_loss_and_grad(per_part, graph, xs, ys, config, masks)
         return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
 

@@ -17,8 +17,9 @@ processes through the helpers here, which ``parallel/dist.py``'s
 * :func:`all_gather_parts` and :func:`exchange` are the two transfers the
   ring needs: every partition's tensor on every process (``psum`` and
   ``pmax``, folded in partition order by the caller) and one batch of
-  point-to-point messages (``ppermute``), posted together so that a ring of
-  sends and receives cannot deadlock.
+  point-to-point messages (``ppermute``, and the column path's
+  ``all_to_all``), posted together so that a ring of sends and receives
+  cannot deadlock.
 
 The JAX package's put helpers (``replicate_put``, ``shard_put``,
 ``tree_shard_put``, ``load_row_sharded``) are ``dist.replicate`` and
@@ -234,23 +235,30 @@ def all_gather_parts(xs: list[torch.Tensor]) -> list[torch.Tensor]:
 def exchange(sends: list, recvs: list) -> list[torch.Tensor]:
     """One batch of messages between processes: ``sends`` are (tensor,
     destination process, tag), ``recvs`` (buffer, source process, tag);
-    every message is posted before any is waited for. Returns the received
-    tensors, each on its buffer's device."""
+    every message is posted before any is waited for. Sends and receives
+    are posted in (peer, tag) order: NCCL ignores tags and pairs a peer's
+    messages in the order they were posted, so a sender's order and its
+    receiver's must agree. Returns the received tensors in ``recvs``'
+    order, each on its buffer's device."""
     if not sends and not recvs:
         return []
     import torch.distributed as tdist
 
+    def by_peer_and_tag(message):
+        return message[1], message[2]
+
     ops, staged = [], []
-    for t, dst, tag in sends:
+    for t, dst, tag in sorted(sends, key=by_peer_and_tag):
         t = t.contiguous()
         if t.is_cuda and not _on_nccl(t):
             t = _to_host(t)
         ops.append(tdist.P2POp(tdist.isend, t, dst, group=_WORLD.nccl_group if _on_nccl(t) else None, tag=tag))
-    for buf, src, tag in recvs:
+    for buf, _, _ in recvs:
         target = buf
         if buf.is_cuda and not _on_nccl(buf):
             target = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
         staged.append((target, buf))
+    for (target, buf), (_, src, tag) in sorted(zip(staged, recvs), key=lambda e: by_peer_and_tag(e[1])):
         ops.append(tdist.P2POp(tdist.irecv, target, src, group=_WORLD.nccl_group if _on_nccl(buf) else None,
                                tag=tag))
     for work in tdist.batch_isend_irecv(ops):

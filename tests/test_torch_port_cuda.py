@@ -1597,7 +1597,8 @@ def test_column_step_on_card_matches_cpu():
         mats = dist_col.replicate_coo(COOMat.from_csr(a_t, device=dev), mesh)
         xs, ys = dist_col.shard_columns(ds.features, mesh), [y.to(dev)] * 4
         params = dist_col.shard_col_params(init_params(config, device=dev), mesh)
-        out[dev] = dist_col.col_loss_and_grad(params, mats, xs, ys, config, ds.num_nodes)
+        out[dev] = dist_col.col_loss_and_grad(params, mats, xs, ys, config, ds.num_nodes, mesh)
+        out[dev + " mesh"] = mesh
         state = dist_col.shard_col_state(adam.adam_init(init_params(config, device=dev)), mesh)
         step, losses = dist_col.make_col_train_step(config, mesh, ds.num_nodes), []
         for _ in range(3):
@@ -1605,7 +1606,7 @@ def test_column_step_on_card_matches_cpu():
             losses.append(float(loss))
         out[dev + " losses"] = losses
     np.testing.assert_allclose(out["cuda:0 losses"], out["cpu losses"], rtol=1e-5)
-    gg, gc = (dist_col.gather_col_params(out[d][2]) for d in ("cuda:0", "cpu"))
+    gg, gc = (dist_col.gather_col_params(out[d][2], out[d + " mesh"]) for d in ("cuda:0", "cpu"))
     for layer_g, layer_c in zip(gg, gc):
         for k in layer_c:
             assert torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k]) <= 1e-4 * torch.linalg.vector_norm(
@@ -1894,6 +1895,18 @@ def test_scan_capture_failure_names_the_operation(monkeypatch):
 
 
 MP_CASES = ("gcn:halo_gather:2", "gcn:gather:2", "sage:halo_gather:2", "gcn:halo_gather:4")
+MP_GAT_CASES = ("gat:2", "gat:4")
+
+
+def _mp_worker():
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    # by path: a card machine may have another top-level package named tests
+    spec = importlib.util.spec_from_file_location("torch_port_mp_worker", os.path.join(here, "torch_port_mp_worker.py"))
+    mp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mp)
+    return mp
 
 
 def test_two_processes_on_one_card_bit_equal_one_process(tmp_path):
@@ -1903,13 +1916,7 @@ def test_two_processes_on_one_card_bit_equal_one_process(tmp_path):
     the gather kernel (deterministic), at -P 2 and -P 4, equal the
     one-process run on the card bit for bit: losses, accuracies and final
     parameters, on both processes (``tests/torch_port_mp_worker.py``)."""
-    import importlib.util
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    # by path: a card machine may have another top-level package named tests
-    spec = importlib.util.spec_from_file_location("torch_port_mp_worker", os.path.join(here, "torch_port_mp_worker.py"))
-    mp = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mp)
+    mp = _mp_worker()
     n, rng = 4096, np.random.default_rng(3)
     d = str(tmp_path / "ds")
     Dataset(graph=sparse.random_graph(n, 12, seed=3, weights="random"),
@@ -1934,3 +1941,38 @@ def test_two_processes_on_one_card_bit_equal_one_process(tmp_path):
         assert sorted(got.files) == sorted(want.files)
         for k in want.files:
             assert np.array_equal(got[k], want[k]), (path, k)
+
+
+def test_gat_two_processes_on_one_card_against_one_process(tmp_path):
+    """GAT (two heads, bfloat16 ring blocks) at -P 2 and -P 4 across two
+    processes on cuda:0, the ring hops' gradients crossing the staged
+    route: losses, accuracies, final parameters and Adam moments on both
+    processes equal the one-process run on the card bit for bit, or, where
+    two one-process runs already differ, within rtol 1e-5
+    (``tests/torch_port_mp_worker.py``)."""
+    mp = _mp_worker()
+    n, rng = 4096, np.random.default_rng(5)
+    d = str(tmp_path / "ds")
+    Dataset(graph=sparse.random_graph(n, 12, seed=5), features=rng.standard_normal((n, 24)).astype(np.float32),
+            labels=rng.integers(0, 6, (n, 1)).astype(np.int32),
+            sets=rng.integers(0, 3, (n, 1)).astype(np.int32)).save(d)
+    worker = [mp.WORKER, d]
+    runs = [str(tmp_path / f"one{i}.npz") for i in range(2)]
+    assert mp.launch([[*worker, runs[0], "cuda:0", *MP_GAT_CASES]], [str(tmp_path / "one0.log")], timeout=300) == [0]
+    ranks, logs = [str(tmp_path / f"rank{r}.npz") for r in range(2)], [str(tmp_path / f"rank{r}.log") for r in range(2)]
+    codes = mp.launch([[*worker, path, "cuda:0", *MP_GAT_CASES] for path in ranks], logs, world=2, device_ids="0",
+                      timeout=300)
+    assert codes == [0, 0], [open(log).read()[-3000:] for log in logs]
+    for log in logs:
+        assert "exchange route: card tensors staged through host over gloo" in open(log).read()
+    want = np.load(runs[0])
+    assert all(np.isfinite(want[f"{c}/losses"]).all() for c in MP_GAT_CASES)
+    got = [np.load(path) for path in ranks]
+    if all(np.array_equal(g[k], want[k]) for g in got for k in want.files):
+        return
+    assert mp.launch([[*worker, runs[1], "cuda:0", *MP_GAT_CASES]], [str(tmp_path / "one1.log")], timeout=300) == [0]
+    again = np.load(runs[1])
+    assert not all(np.array_equal(again[k], want[k]) for k in want.files), "one process repeats itself bit for bit"
+    for g in got:
+        for k in want.files:
+            np.testing.assert_allclose(g[k], want[k], rtol=1e-5, err_msg=k)

@@ -65,8 +65,8 @@ def port_step(parts, a_t, x, y, config, params):
     mats = dist_col.replicate_coo(COOMat.from_csr(a_t, device="cpu"), ring)
     loss, acc, grads = dist_col.col_loss_and_grad(dist_col.shard_col_params(params, ring), mats,
                                                   dist_col.shard_columns(x, ring), [torch.from_numpy(y)] * parts,
-                                                  config, N)
-    return loss, acc, dist_col.gather_col_params(grads)
+                                                  config, N, ring)
+    return loss, acc, dist_col.gather_col_params(grads, ring)
 
 
 def jax_col_grads(parts, a_t, x, y, config, params):
@@ -128,7 +128,7 @@ def test_dist_transpose_equals_x_t_and_jax(parts):
     want = np.asarray(jcol.make_dist_transpose(jcol.make_col_mesh(parts), parts)(jnp.asarray(x)))
     assert np.array_equal(torch.cat(got, dim=1).numpy(), want)
     with pytest.raises(ValueError) as err:
-        dist_col.dist_transpose(dist_col.shard_columns(x[:31], ring))
+        dist_col.dist_transpose(dist_col.shard_columns(x[:31], ring), ring)
     assert str(err.value) == f"rows (31) must be divisible by the mesh size ({parts})"
 
 
@@ -144,7 +144,7 @@ def test_tp_linear_equals_jax_under_shard_map():
     ring = cpu_ring(parts)
     shards = dist_col.shard_col_params([{"W": torch.from_numpy(w), "b": torch.from_numpy(b)}], ring)
     got = dist_col._tp_linear(dist_col.shard_columns(h, ring), [s[0]["W"] for s in shards],
-                              [s[0]["b"] for s in shards])
+                              [s[0]["b"] for s in shards], ring)
     col = PartitionSpec(None, FEAT)
     want = jax_shard_map(jcol._tp_linear, parts, (col, PartitionSpec(FEAT), col), col)(h, w, b)
     np.testing.assert_allclose(torch.cat(got, dim=1).numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
@@ -163,7 +163,8 @@ def test_sharded_softmax_xent_equals_jax_under_shard_map():
     y = rng.integers(0, c, n).astype(np.int64)
     y[:3] = 6  # the tie's second column: wrong under the first-shard rule
     ring = cpu_ring(parts)
-    loss, acc = dist_col._dist_col_softmax_xent(dist_col.shard_columns(logits, ring), [torch.from_numpy(y)] * parts, n)
+    loss, acc = dist_col._dist_col_softmax_xent(dist_col.shard_columns(logits, ring), [torch.from_numpy(y)] * parts, n,
+                                              ring)
     run = jax_shard_map(lambda lg, yy: jcol._dist_col_softmax_xent(lg, yy, n, parts), parts,
                         (PartitionSpec(None, FEAT), PartitionSpec()), (PartitionSpec(), PartitionSpec()))
     jl, ja = run(logits, y.astype(np.int32))
@@ -243,7 +244,7 @@ def test_three_adam_steps_equal_the_single_card_exact_steps():
         np.testing.assert_allclose(float(loss), float(l1), rtol=1e-5)
         assert float(acc) == float(a1)
     assert [int(s.step) for s in o] == [3] * parts
-    for got, want in ((dist_col.gather_col_params(p), p1), (dist_col.gather_col_state(o).m, o1.m)):
+    for got, want in ((dist_col.gather_col_params(p, ring), p1), (dist_col.gather_col_state(o, ring).m, o1.m)):
         for gl, wl in zip(convert.params_to_numpy(got), convert.params_to_numpy(want)):
             for k in wl:
                 np.testing.assert_allclose(gl[k], wl[k], rtol=1e-5, atol=1e-6, err_msg=k)
@@ -263,9 +264,9 @@ def test_operands_placement():
     assert [tuple(s[0]["W"].shape) for s in shards] == [(4, 8)] * 4
     assert [tuple(s[1]["b"].shape) for s in shards] == [(1, 1)] * 4
     state = adam.adam_init(params)._replace(step=torch.tensor(7, dtype=torch.int32))
-    back = dist_col.gather_col_state(dist_col.shard_col_state(state, ring))
+    back = dist_col.gather_col_state(dist_col.shard_col_state(state, ring), ring)
     assert int(back.step) == 7
-    for got, want in zip(dist_col.gather_col_params(shards), params):
+    for got, want in zip(dist_col.gather_col_params(shards, ring), params):
         assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="does not split"):
         dist_col.shard_col_params([{"W": torch.zeros(6, 8), "b": torch.zeros(1, 8)}], ring)

@@ -194,3 +194,55 @@ def test_ring_ownership_one_process():
     two = dist.Ring((torch.device("cpu"),) * 2, world=2, rank=1)
     assert (two.parts, list(two.local), [two.owner(j) for j in range(4)]) == (4, [2, 3], [0, 0, 1, 1])
     assert jax.process_count() == 1
+
+
+class _Posted:
+    """A ``P2POp`` that only records what it would post."""
+
+    def __init__(self, op, tensor, peer, group=None, tag=0):
+        self.op, self.tensor, self.peer, self.tag = op, tensor, peer, tag
+
+
+def _deliver_as_nccl(monkeypatch, run):
+    """``run(ring)`` on each process of a two-process ring of 4 partitions,
+    every message recorded in the order its process posts it, then
+    delivered as NCCL pairs messages: a process's k-th send to a peer fills
+    that peer's k-th receive from it, tags unread (the tags must agree all
+    the same). Returns both processes' results."""
+    import torch.distributed as tdist
+
+    monkeypatch.setattr(tdist, "P2POp", _Posted)
+    posted, outs = {}, []
+    for rank in (0, 1):
+        ops = posted[rank] = []
+        monkeypatch.setattr(tdist, "batch_isend_irecv", lambda batch, ops=ops: ops.extend(batch) or [])
+        outs.append(run(dist.Ring((torch.device("cpu"),) * 2, world=2, rank=rank)))
+    for src, dst in ((0, 1), (1, 0)):
+        sends = [o for o in posted[src] if o.op is tdist.isend and o.peer == dst]
+        recvs = [o for o in posted[dst] if o.op is tdist.irecv and o.peer == src]
+        assert [o.tag for o in sends] == [o.tag for o in recvs], (src, dst)
+        for s, r in zip(sends, recvs):
+            r.tensor.copy_(s.tensor)
+    return outs
+
+
+@pytest.mark.parametrize("back", [False, True])
+def test_exchanges_post_a_peers_messages_in_the_order_it_receives_them(monkeypatch, back):
+    """At P = 4 over two processes, ``dist._all_to_all`` and
+    ``dist._permute`` (shifts 1, -1, 2, 3), forward and backward, post
+    each peer's sends in the tag order in which that peer posts the
+    matching receives, so that NCCL, which pairs them by posting order and
+    ignores tags, delivers every block where it belongs: each partition
+    gets what a one-process exchange gives it."""
+    pieces = [[torch.full((2, 3), float(10 * j + k)) for k in range(4)] for j in range(4)]
+    one = dist._all_to_all(pieces, cpu_ring(4))
+    two = _deliver_as_nccl(monkeypatch, lambda ring: dist._all_to_all([pieces[j] for j in ring.local], ring,
+                                                                         position=5, back=back))
+    for k in range(4):
+        assert [float(t[0, 0]) for t in two[k // 2][k % 2]] == [float(t[0, 0]) for t in one[k]], k
+    blocks = [torch.full((2, 3), float(j)) for j in range(4)]
+    for shift in (1, -1, 2, 3):
+        one = dist._permute(blocks, shift, cpu_ring(4))
+        two = _deliver_as_nccl(monkeypatch, lambda ring: dist._permute([blocks[j] for j in ring.local], shift, ring,
+                                                                          position=7, back=back))
+        assert [float(two[j // 2][j % 2][0, 0]) for j in range(4)] == [float(t[0, 0]) for t in one], shift
