@@ -42,6 +42,12 @@ pattern pair (:func:`make_dist_sage_train_step`).
 
 The exchange runs on the partitions' current streams, before the products
 that read it; overlapping the two is later work (ROADMAP queue 1 item 9h).
+
+Traced (``timers``), the GCN step opens the one-card step's phase scopes,
+each around the loop over the partitions; every move between partitions
+opens an ``exchange`` span, every fold a ``psum`` span, and the bytes that
+land in another partition count to ``timers.EXCHANGE_BYTES`` under the
+partition they land in (:func:`_landed`).
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import resolve_device, sparse
+from .. import resolve_device, sparse, timers
 from . import multihost
 from ..formats import CSRData
 from ..models.gcn import GCNConfig
@@ -64,6 +70,7 @@ from ..ops.softmax_xent import softmax
 from ..ops.spmm import COOMat, spmm
 from ..ops.spmm_gather import GatherMat, spmm_gather
 from ..ops.spmm_pattern_ring import ring_pattern_bwd, ring_pattern_fwd
+from ..timers import scope
 
 STRATEGIES = {"coo": ("ring", "all_gather"), "pattern": ("ring", "all_gather", "fused"), "gather": ("ring",),
               "halo": ("ring",), "halo_gather": ("ring",)}
@@ -229,6 +236,22 @@ def fold(xs: Sequence[torch.Tensor], op: Callable) -> torch.Tensor:
     return out
 
 
+def _landed(j: int, blocks: Sequence[torch.Tensor], times: int = 1) -> None:
+    """Count ``times`` the bytes of ``blocks`` as landing in partition
+    ``j`` (``timers.EXCHANGE_BYTES``), while a profiler runs: the flag is
+    read before any size is."""
+    if timers.counting():
+        timers.count(timers.EXCHANGE_BYTES, times * sum(b.numel() * b.element_size() for b in blocks), j)
+
+
+def _gather(xs: Sequence[torch.Tensor], mesh: Ring) -> list[torch.Tensor]:
+    """``multihost.all_gather_parts`` in an ``exchange`` span: every other
+    partition's tensor lands in this process's first partition."""
+    with scope("exchange"):
+        _landed(mesh.first, xs[:1], mesh.parts - 1)
+        return multihost.all_gather_parts(list(xs))
+
+
 def reduce_parts(xs: Sequence[torch.Tensor], op: Callable, mesh: Ring) -> torch.Tensor:
     """``op`` folded over every partition of ``mesh`` in partition order, on
     the first local partition's device (psum with torch.add, pmax with
@@ -236,20 +259,35 @@ def reduce_parts(xs: Sequence[torch.Tensor], op: Callable, mesh: Ring) -> torch.
     processes (``mesh.world > 1``) every partition's is gathered first, so
     each process folds the same tensors in the same order as one process
     would, never in a library's all-reduce order."""
-    return fold(multihost.all_gather_parts(list(xs)) if mesh.world > 1 else xs, op)
+    with scope("psum"):
+        if mesh.world > 1:
+            return fold(_gather(xs, mesh), op)
+        _landed(mesh.first, xs[:1], mesh.parts - 1)
+        return fold(xs, op)
+
+
+def to_parts(x: torch.Tensor, mesh: Ring) -> list[torch.Tensor]:
+    """``x``, held by this process's first partition (a fold's result), on
+    each of its partitions' devices, in an ``exchange`` span."""
+    with scope("exchange"):
+        for j in mesh.local[1:]:
+            _landed(j, [x])
+        return [x.to(dev) for dev in mesh.devices]
 
 
 def _psum_trees(trees: Sequence, mesh: Ring) -> list[dict]:
     """The per-partition gradient trees summed leaf by leaf (psum), in
     partition order. Across processes every leaf travels in one gather."""
     keys = [(i, k) for i, layer in enumerate(trees[0]) for k in layer]
-    if mesh.world == 1:
-        leaves = {key: fold([t[key[0]][key[1]] for t in trees], torch.add) for key in keys}
-    else:
-        flat = multihost.all_gather_parts([torch.cat([t[i][k].reshape(-1) for i, k in keys]) for t in trees])
-        pieces = [torch.split(f, [trees[0][i][k].numel() for i, k in keys]) for f in flat]
-        leaves = {key: fold([p[e] for p in pieces], torch.add).reshape(trees[0][key[0]][key[1]].shape)
-                  for e, key in enumerate(keys)}
+    with scope("psum"):
+        if mesh.world == 1:
+            _landed(mesh.first, [trees[0][i][k] for i, k in keys], mesh.parts - 1)
+            leaves = {key: fold([t[key[0]][key[1]] for t in trees], torch.add) for key in keys}
+        else:
+            flat = _gather([torch.cat([t[i][k].reshape(-1) for i, k in keys]) for t in trees], mesh)
+            pieces = [torch.split(f, [trees[0][i][k].numel() for i, k in keys]) for f in flat]
+            leaves = {key: fold([p[e] for p in pieces], torch.add).reshape(trees[0][key[0]][key[1]].shape)
+                      for e, key in enumerate(keys)}
     return [{k: leaves[(i, k)] for k in layer} for i, layer in enumerate(trees[0])]
 
 
@@ -289,27 +327,30 @@ def _permute(blocks: Sequence[torch.Tensor], shift: int, mesh: Ring, copy: bool 
     def local_block(b, device):
         return b if not copy and b.device == device else _copy_to(b, device)
 
-    if mesh.world == 1:
-        p = len(blocks)
-        return [local_block(blocks[(j + shift) % p], blocks[j].device) for j in range(p)]
     P, first = mesh.parts, mesh.first
-    position = _next_position() if position is None else position
-    out: list = [None] * len(blocks)
-    sends, recvs, into = [], [], []
-    for jl, j in enumerate(mesh.local):
-        src = (j + shift) % P
-        if mesh.owner(src) == mesh.rank:
-            out[jl] = local_block(blocks[src - first], blocks[jl].device)
-        else:
-            recvs.append((torch.empty_like(blocks[jl]), mesh.owner(src), _tag(position, back, src, j, P)))
-            into.append(jl)
-    for kl, k in enumerate(mesh.local):
-        dst = (k - shift) % P
-        if mesh.owner(dst) != mesh.rank:
-            sends.append((blocks[kl], mesh.owner(dst), _tag(position, back, k, dst, P)))
-    for jl, got in zip(into, multihost.exchange(sends, recvs)):
-        out[jl] = got
-    return out
+    with scope("exchange"):
+        if shift % P:
+            for jl, j in enumerate(mesh.local):
+                _landed(j, blocks[jl : jl + 1])  # every block has the shape
+        if mesh.world == 1:
+            return [local_block(blocks[(j + shift) % P], blocks[j].device) for j in range(P)]
+        position = _next_position() if position is None else position
+        out: list = [None] * len(blocks)
+        sends, recvs, into = [], [], []
+        for jl, j in enumerate(mesh.local):
+            src = (j + shift) % P
+            if mesh.owner(src) == mesh.rank:
+                out[jl] = local_block(blocks[src - first], blocks[jl].device)
+            else:
+                recvs.append((torch.empty_like(blocks[jl]), mesh.owner(src), _tag(position, back, src, j, P)))
+                into.append(jl)
+        for kl, k in enumerate(mesh.local):
+            dst = (k - shift) % P
+            if mesh.owner(dst) != mesh.rank:
+                sends.append((blocks[kl], mesh.owner(dst), _tag(position, back, k, dst, P)))
+        for jl, got in zip(into, multihost.exchange(sends, recvs)):
+            out[jl] = got
+        return out
 
 
 class _Hop(torch.autograd.Function):
@@ -354,26 +395,31 @@ def _all_to_all(pieces: Sequence[Sequence[torch.Tensor]], mesh: Ring, position: 
     as :func:`_permute`'s."""
     P, local = mesh.parts, list(mesh.local)
     devs = [pieces[i][k].device for i, k in enumerate(local)]
-    if mesh.world == 1:
-        return [[_copy_to(pieces[j][k], devs[k]) for j in range(P)] for k in range(P)]
-    position = _next_position() if position is None else position
-    out = [[None] * P for _ in local]
-    sends, recvs, into = [], [], []
-    for i, j in enumerate(local):
-        for k in range(P):
-            if mesh.owner(k) == mesh.rank:
-                out[k - mesh.first][j] = _copy_to(pieces[i][k], devs[k - mesh.first])
-            else:
-                sends.append((pieces[i][k], mesh.owner(k), _tag(position, back, j, k, P)))
-    for i, k in enumerate(local):
-        for j in range(P):
-            if mesh.owner(j) != mesh.rank:
-                like = pieces[i][j]  # every block partition j sends to k has the shape k sends to j
-                recvs.append((torch.empty_like(like, device=devs[i]), mesh.owner(j), _tag(position, back, j, k, P)))
-                into.append((i, j))
-    for (i, j), got in zip(into, multihost.exchange(sends, recvs)):
-        out[i][j] = got
-    return out
+    with scope("exchange"):
+        for i, k in enumerate(local):
+            # every block partition j sends to k has the shape k sends to j
+            _landed(k, [pieces[i][j] for j in range(P) if j != k])
+        if mesh.world == 1:
+            return [[_copy_to(pieces[j][k], devs[k]) for j in range(P)] for k in range(P)]
+        position = _next_position() if position is None else position
+        out = [[None] * P for _ in local]
+        sends, recvs, into = [], [], []
+        for i, j in enumerate(local):
+            for k in range(P):
+                if mesh.owner(k) == mesh.rank:
+                    out[k - mesh.first][j] = _copy_to(pieces[i][k], devs[k - mesh.first])
+                else:
+                    sends.append((pieces[i][k], mesh.owner(k), _tag(position, back, j, k, P)))
+        for i, k in enumerate(local):
+            for j in range(P):
+                if mesh.owner(j) != mesh.rank:
+                    like = pieces[i][j]
+                    recvs.append((torch.empty_like(like, device=devs[i]), mesh.owner(j),
+                                  _tag(position, back, j, k, P)))
+                    into.append((i, j))
+        for (i, j), got in zip(into, multihost.exchange(sends, recvs)):
+            out[i][j] = got
+        return out
 
 
 class _AllToAll(torch.autograd.Function):
@@ -418,7 +464,7 @@ class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, *xs):
         ctx.mesh = mesh
-        return tuple(multihost.all_gather_parts(list(xs)))
+        return tuple(_gather(xs, mesh))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -439,7 +485,7 @@ def _all_parts(blocks: Sequence[torch.Tensor], mesh: Ring) -> list:
     they are, the others' gathered (the all_gather exchange)."""
     if mesh.world == 1:
         return list(blocks)
-    out = multihost.all_gather_parts(list(blocks))
+    out = _gather(blocks, mesh)
     for jl, j in enumerate(mesh.local):
         out[j] = blocks[jl]
     return out
@@ -447,12 +493,14 @@ def _all_parts(blocks: Sequence[torch.Tensor], mesh: Ring) -> list:
 
 def _slots(blocks: Sequence[torch.Tensor], j: int, order) -> torch.Tensor:
     """Partition j's (len(order), *block) buffer: slot s the copy of block
-    ``order[s]`` (its own block copied too); ``blocks`` holds every
-    partition's block (:func:`_all_parts`)."""
+    ``order[s]`` (its own block copied too, and not counted); ``blocks``
+    holds every partition's block (:func:`_all_parts`)."""
     own = blocks[j]
-    out = torch.empty((len(order), *own.shape), dtype=own.dtype, device=own.device)
-    for s, k in enumerate(order):
-        out[s].copy_(blocks[k])
+    with scope("exchange"):
+        _landed(j, [blocks[k] for k in order if k != j])
+        out = torch.empty((len(order), *own.shape), dtype=own.dtype, device=own.device)
+        for s, k in enumerate(order):
+            out[s].copy_(blocks[k])
     return out
 
 
@@ -585,7 +633,9 @@ def dist_aggregate(mat: DistRowMat, hs: Sequence[torch.Tensor], strategy: str = 
         every = _all_parts(hs, ring)
         out = []
         for i, (j, h) in enumerate(zip(ring.local, hs)):
-            b_full = torch.cat([x.to(h.device) for x in every])  # (n, d), partition order
+            with scope("exchange"):
+                _landed(j, [x for k, x in enumerate(every) if k != j])
+                b_full = torch.cat([x.to(h.device) for x in every])  # (n, d), partition order
             block_ids = torch.remainder(j + torch.arange(parts, device=h.device), parts)
             cols = mat.cols[i].long() + block_ids[:, None] * m
             out.append(_block_spmm(mat.rows[i].reshape(-1), cols.reshape(-1), mat.vals[i].reshape(-1), b_full, m))
@@ -793,7 +843,7 @@ def dist_aggregate_pattern(
                            min=1e-30)
         # a tensor divisor: CUDA turns division by a Python scalar into a
         # multiply by its reciprocal (ROADMAP queue 3)
-        qscale = [q / torch.full_like(q, 127.0) for q in (amax.to(h.device) for h in hs)]
+        qscale = [q / torch.full_like(q, 127.0) for q in to_parts(amax, ring)]
     blocks = []
     for h, q in zip(hs, qscale):
         blk = torch.zeros((m, d_pad), dtype=op_dt, device=h.device)
@@ -836,43 +886,70 @@ def dist_aggregate_pattern(
 # the step
 
 
-def _dist_layer_forward(layers, meta: dict, agg_fwd, hs, slope: float):
+def _dist_layer_forward(layers, meta: dict, agg_fwd, hs, slope: float, tag: str = "L"):
     """One GCN layer on every partition; ``layers[j]`` is the layer's
-    parameters on partition j's device. Returns (outputs, cache)."""
+    parameters on partition j's device. Returns (outputs, cache). ``tag``
+    (the layer index) names the phase scopes, each around the loop over
+    the partitions, as ``models.gcn._layer_forward`` names them."""
     if meta["lin_first"]:
-        ahw = agg_fwd([h @ lp["W"] + lp["b"] for h, lp in zip(hs, layers)])
+        with scope(f"{tag}_0_matmul-gemm"):
+            hw = [h @ lp["W"] + lp["b"] for h, lp in zip(hs, layers)]
+        with scope(f"{tag}_0_matmul-spmm"):
+            ahw = agg_fwd(hw)
+        del hw
     else:
-        ahw = [a @ lp["W"] + lp["b"] for a, lp in zip(agg_fwd(hs), layers)]
+        with scope(f"{tag}_0_matmul-spmm"):
+            ah = agg_fwd(hs)
+        with scope(f"{tag}_0_matmul-gemm"):
+            ahw = [a @ lp["W"] + lp["b"] for a, lp in zip(ah, layers)]
+        del ah
     if meta["activation"]:
-        ahw = [ew.leaky_relu(a, slope) for a in ahw]
+        with scope(f"{tag}_0_activation"):
+            ahw = [ew.leaky_relu(a, slope) for a in ahw]
     if meta["res_proj"]:
-        ahw = [a + h @ lp["Wres"] + lp["bres"] for a, h, lp in zip(ahw, hs, layers)]
+        with scope(f"{tag}_0_residual"):
+            ahw = [a + h @ lp["Wres"] + lp["bres"] for a, h, lp in zip(ahw, hs, layers)]
     elif meta["res_identity"]:
-        ahw = [a + h for a, h in zip(ahw, hs)]
+        with scope(f"{tag}_0_residual"):
+            ahw = [a + h for a, h in zip(ahw, hs)]
     return ahw, dict(h=hs, post=ahw)
 
 
-def _dist_layer_backward(layers, meta: dict, agg_bwd, cache: dict, gs, slope: float, need_input_grad: bool):
+def _dist_layer_backward(layers, meta: dict, agg_bwd, cache: dict, gs, slope: float, need_input_grad: bool,
+                         tag: str = "L"):
     """Reference-parity backward of one layer on every partition
     (gcn.hpp:460-489): the partitions' local gradients (summed later) and
-    the input gradients."""
-    ts = [ew.leaky_relu_grad(p, g, slope) for p, g in zip(cache["post"], gs)] if meta["activation"] else gs
+    the input gradients; the phase scopes as
+    ``models.gcn._layer_backward``'s (layer 0's skipped product opens
+    none)."""
+    ts = gs
+    if meta["activation"]:
+        with scope(f"{tag}_1_activation"):
+            ts = [ew.leaky_relu_grad(p, g, slope) for p, g in zip(cache["post"], gs)]
     g_out = None
     if meta["lin_first"]:
-        src = agg_bwd(ts) if meta["backward_spmm"] else ts
-        if need_input_grad:
-            g_out = [x @ lp["W"].T for x, lp in zip(src, layers)]
+        src = ts
+        if meta["backward_spmm"]:
+            with scope(f"{tag}_1_matmul-spmm"):
+                src = agg_bwd(ts)
+        with scope(f"{tag}_1_matmul-gemm"):
+            grads = [dict(b=torch.sum(x, dim=0, keepdim=True), W=h.T @ x) for x, h in zip(src, cache["h"])]
+            if need_input_grad:
+                g_out = [x @ lp["W"].T for x, lp in zip(src, layers)]
     else:
-        src = ts  # the layer input, not ÂH (lin.setX(H), gcn.hpp:477)
-        if need_input_grad:
-            g_hw = [t @ lp["W"].T for t, lp in zip(ts, layers)]
-            g_out = agg_bwd(g_hw) if meta["backward_spmm"] else g_hw
-    grads = [dict(b=torch.sum(x, dim=0, keepdim=True), W=h.T @ x) for x, h in zip(src, cache["h"])]
+        with scope(f"{tag}_1_matmul-gemm"):
+            # the layer input, not ÂH (lin.setX(H), gcn.hpp:477)
+            grads = [dict(b=torch.sum(t, dim=0, keepdim=True), W=h.T @ t) for t, h in zip(ts, cache["h"])]
+            g_out = [t @ lp["W"].T for t, lp in zip(ts, layers)] if need_input_grad else None
+        if need_input_grad and meta["backward_spmm"]:
+            with scope(f"{tag}_1_matmul-spmm"):
+                g_out = agg_bwd(g_out)
     if meta["res_proj"]:
-        for gr, g, h in zip(grads, gs, cache["h"]):
-            gr["bres"], gr["Wres"] = torch.sum(g, dim=0, keepdim=True), h.T @ g
-        if g_out is not None:
-            g_out = [o + g @ lp["Wres"].T for o, g, lp in zip(g_out, gs, layers)]
+        with scope(f"{tag}_1_residual"):
+            for gr, g, h in zip(grads, gs, cache["h"]):
+                gr["bres"], gr["Wres"] = torch.sum(g, dim=0, keepdim=True), h.T @ g
+            if g_out is not None:
+                g_out = [o + g @ lp["Wres"].T for o, g, lp in zip(g_out, gs, layers)]
     elif meta["res_identity"] and g_out is not None:
         g_out = [o + g for o, g in zip(g_out, gs)]
     return grads, g_out
@@ -888,12 +965,11 @@ def _dist_softmax_xent(logits, ys, n_total: int, masks, mesh: Ring):
     else:
         ms = [mk.to(torch.float32) for mk in masks]
         denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add, mesh), min=1)
-    for j, (o, y) in enumerate(zip(probs, ys)):
+    for j, (o, y, dn) in enumerate(zip(probs, ys, to_parts(denom, mesh))):
         y = y.long()
         logp = torch.log(torch.clamp(torch.gather(o, 1, y[:, None])[:, 0], min=torch.finfo(o.dtype).tiny))
         correct = (torch.argmax(o, dim=-1) == y).to(o.dtype)
         g = o - F.one_hot(y, o.shape[1]).to(o.dtype)
-        dn = denom.to(o.device)
         if masks is None:
             terms.append((torch.sum(logp), torch.sum(correct)))
             grads.append(g / dn)
@@ -930,13 +1006,14 @@ def dist_loss_and_grad(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_to
         hs, caches = xs, []
         for i in range(config.num_layers):
             hs, cache = _dist_layer_forward([p[i] for p in params], config.layer_meta(i), agg_fwd, hs,
-                                            config.leaky_slope)
+                                            config.leaky_slope, tag=str(i))
             caches.append(cache)
-        loss, acc, gs = _dist_softmax_xent(hs, ys, n_total, masks, mesh)
+        with scope(f"{config.num_layers}_loss-layer"):
+            loss, acc, gs = _dist_softmax_xent(hs, ys, n_total, masks, mesh)
         local: list = [[None] * config.num_layers for _ in params]
         for i in reversed(range(config.num_layers)):
             grads, gs = _dist_layer_backward([p[i] for p in params], config.layer_meta(i), agg_bwd, caches[i], gs,
-                                             config.leaky_slope, need_input_grad=i > 0)
+                                             config.leaky_slope, need_input_grad=i > 0, tag=str(i))
             for j, g in enumerate(grads):
                 local[j][i] = g
     return loss, acc, _psum_trees(local, mesh)
@@ -970,7 +1047,8 @@ def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks, m
         ms = [mk.to(torch.float32) for mk in masks]
         denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add, mesh), min=1.0)
     with torch.enable_grad():
-        terms = [_local_xent_terms(h, y, m, denom.to(h.device)) for h, y, m in zip(logits_of(leaves), ys, ms)]
+        terms = [_local_xent_terms(h, y, m, dn)
+                 for h, y, m, dn in zip(logits_of(leaves), ys, ms, to_parts(denom, mesh))]
         flat = [v for p in leaves for layer in p for v in layer.values()]
         flat_grads = iter(torch.autograd.grad([t[0] for t in terms], flat))
     local = [[{k: next(flat_grads) for k in layer} for layer in p] for p in leaves]
@@ -990,7 +1068,8 @@ def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig
     def logits_of(leaves):
         hs = xs
         for i in range(config.num_layers):
-            hs, _ = _dist_layer_forward([p[i] for p in leaves], config.layer_meta(i), agg, hs, config.leaky_slope)
+            hs, _ = _dist_layer_forward([p[i] for p in leaves], config.layer_meta(i), agg, hs, config.leaky_slope,
+                                        tag=str(i))
         return hs
 
     return _exact_loss_and_grad(params, logits_of, ys, n_total, masks, mesh)
@@ -1067,17 +1146,25 @@ def build_pair(pair_kind: str, csr_fwd: CSRData, csr_bwd: CSRData, mesh: Ring):
 
 def _update_replicas(params, opt_state, grads, mesh: Ring, hp: dict, optimizer: str):
     """Every replica of the parameters updated from the same summed
-    gradients: (params, opt_state) lists."""
-    new_params, new_state = [], []
+    gradients: (params, opt_state) lists. The gradients go to every
+    replica's device first (``psum``), then each replica is updated
+    (``adam-update``)."""
+    leaves = [v for layer in grads for v in layer.values()]
     with torch.no_grad():
-        for p, st, dev in zip(params, opt_state, mesh.replica_devices):
-            g = _to(grads, dev)
-            if optimizer == "sgd":  # linear::update (gcn.hpp:141-144); the state rides unchanged
-                p = adam.sgd_update(p, g, hp["lr"], hp["weight_decay"])
-            else:
-                p, st = adam.adam_update(p, g, st, **hp)
-            new_params.append(p)
-            new_state.append(st)
+        with scope("psum"):
+            for dev in mesh.replica_devices:
+                if dev != leaves[0].device:
+                    _landed(mesh.first + mesh.devices.index(dev), leaves)
+            replica_grads = [_to(grads, dev) for dev in mesh.replica_devices]
+        new_params, new_state = [], []
+        with scope("adam-update"):
+            for p, st, g in zip(params, opt_state, replica_grads):
+                if optimizer == "sgd":  # linear::update (gcn.hpp:141-144); the state rides unchanged
+                    p = adam.sgd_update(p, g, hp["lr"], hp["weight_decay"])
+                else:
+                    p, st = adam.adam_update(p, g, st, **hp)
+                new_params.append(p)
+                new_state.append(st)
     return new_params, new_state
 
 
@@ -1115,10 +1202,11 @@ def make_dist_train_step(
     lag = dist_loss_and_grad if config.parity else dist_loss_and_grad_exact
 
     def step(params, opt_state, pair, xs, ys, masks=None):
-        agg_fwd, agg_bwd = _aggregations(pair_kind, pair, strategy, pattern_dtype)
-        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
-        loss, acc, grads = lag(per_part, agg_fwd, agg_bwd, xs, ys, config, n_total, masks, mesh=mesh)
-        return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
+        with scope("train-step"):
+            agg_fwd, agg_bwd = _aggregations(pair_kind, pair, strategy, pattern_dtype)
+            per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
+            loss, acc, grads = lag(per_part, agg_fwd, agg_bwd, xs, ys, config, n_total, masks, mesh=mesh)
+            return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
 
     return step
 
@@ -1162,10 +1250,11 @@ def make_dist_sage_train_step(
         hp.update(hparams)
 
     def step(params, opt_state, pair, xs, ys, masks=None):
-        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
-        loss, acc, grads = dist_sage_loss_and_grad(per_part, sage_aggregation(pair_kind, pair, strategy), xs, ys,
-                                                   config, n_total, masks, mesh=mesh)
-        return (*_update_replicas(params, opt_state, grads, mesh, hp, "adam"), loss, acc)
+        with scope("train-step"):
+            per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
+            loss, acc, grads = dist_sage_loss_and_grad(per_part, sage_aggregation(pair_kind, pair, strategy), xs,
+                                                       ys, config, n_total, masks, mesh=mesh)
+            return (*_update_replicas(params, opt_state, grads, mesh, hp, "adam"), loss, acc)
 
     return step
 
@@ -1183,7 +1272,8 @@ def make_dist_infer(config: GCNConfig, mesh: Ring, strategy: str = "ring"):
             hs = xs
             for i in range(config.num_layers):
                 hs, _ = _dist_layer_forward([p[i] for p in per_part], config.layer_meta(i),
-                                            lambda b: dist_aggregate(pair.fwd, b, strategy), hs, config.leaky_slope)
+                                            lambda b: dist_aggregate(pair.fwd, b, strategy), hs, config.leaky_slope,
+                                            tag=str(i))
         return hs
 
     return infer

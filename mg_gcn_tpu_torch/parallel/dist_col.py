@@ -55,8 +55,9 @@ from ..models.gcn import GCNConfig
 from ..nn import adam
 from ..ops import elementwise as ew
 from ..ops.spmm import AggPair, COOMat, aggregate
+from ..timers import scope
 from . import multihost
-from .dist import Ring, all_to_all, fold, gather_replicated, make_mesh, reduce_parts
+from .dist import Ring, _landed, all_to_all, fold, gather_replicated, make_mesh, reduce_parts, to_parts
 
 
 def make_col_mesh(num_devices: int | None = None, devices=None) -> Ring:
@@ -105,8 +106,13 @@ def _tp_linear(hs, ws, bs, mesh: Ring) -> list[torch.Tensor]:
     c = partials[0].shape[1] // mesh.parts
     blocks = [[p[:, k * c : (k + 1) * c] for k in range(mesh.parts)] for p in partials]
     if mesh.world == 1:
-        return [fold([row[k].to(b.device) for row in blocks], torch.add) + b for k, b in enumerate(bs)]
-    return [fold(got, torch.add) + b for got, b in zip(all_to_all(blocks, mesh), bs)]
+        with scope("exchange"):
+            for k in range(mesh.parts):
+                _landed(k, [row[k] for j, row in enumerate(blocks) if j != k])
+            got = [[row[k].to(b.device) for row in blocks] for k, b in enumerate(bs)]
+    else:
+        got = all_to_all(blocks, mesh)
+    return [fold(g, torch.add) + b for g, b in zip(got, bs)]
 
 
 def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Tensor], n_total: int,
@@ -122,9 +128,8 @@ def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Te
     the row's max (cuda_utils.cu:120-133). Returns (loss, acc) on the first
     partition's device, the same on every process."""
     c_loc = logits[0].shape[1]
-    devs = [lg.device for lg in logits]
     row_max = reduce_parts([torch.amax(lg.detach(), dim=1) for lg in logits], torch.maximum, mesh)
-    es = [torch.exp(lg - row_max.to(d)[:, None]) for lg, d in zip(logits, devs)]
+    es = [torch.exp(lg - rm[:, None]) for lg, rm in zip(logits, to_parts(row_max, mesh))]
     sums, picks = [], []
     for k, e, y in zip(mesh.local, es, ys):
         local = y.long() - k * c_loc
@@ -132,16 +137,19 @@ def _dist_col_softmax_xent(logits: Sequence[torch.Tensor], ys: Sequence[torch.Te
         p = torch.gather(e, 1, torch.clamp(local, 0, c_loc - 1)[:, None])[:, 0]
         sums.append(torch.sum(e, dim=1))
         picks.append(torch.where(in_shard, p, torch.zeros_like(p)))
-    denom = fold(gather_replicated(sums, mesh), torch.add)
-    p_label = fold(gather_replicated(picks, mesh), torch.add) / denom
+    with scope("psum"):
+        if mesh.world == 1:  # across processes the gathers count what arrives
+            _landed(mesh.first, sums[:1] + picks[:1], mesh.parts - 1)
+        denom = fold(gather_replicated(sums, mesh), torch.add)
+        p_label = fold(gather_replicated(picks, mesh), torch.add) / denom
     logp = torch.log(torch.clamp(p_label, min=torch.finfo(p_label.dtype).tiny))
 
     # accuracy only: the first shard holding the row's max wins
-    os_ = [e.detach() / denom.detach().to(d)[:, None] for e, d in zip(es, devs)]
+    os_ = [e.detach() / dn[:, None] for e, dn in zip(es, to_parts(denom.detach(), mesh))]
     local_max = [torch.amax(o, dim=1) for o in os_]
     gmax = reduce_parts(local_max, torch.maximum, mesh)
-    cands = [torch.where(lm == gmax.to(d), torch.argmax(o, dim=1) + k * c_loc, 2**30)
-             for k, o, lm, d in zip(mesh.local, os_, local_max, devs)]
+    cands = [torch.where(lm == gm, torch.argmax(o, dim=1) + k * c_loc, 2**30)
+             for k, o, lm, gm in zip(mesh.local, os_, local_max, to_parts(gmax, mesh))]
     pred = reduce_parts(cands, torch.minimum, mesh)
     correct = (pred == ys[0].long().to(pred.device)).to(logp.dtype)
     return -torch.sum(logp) / n_total, torch.sum(correct) / n_total
@@ -220,16 +228,17 @@ def make_col_train_step(
             raise ValueError(f"column-parallel needs widths divisible by P; got {s} % {parts}")
 
     def step(params, opt_state, mats, xs, ys):
-        loss, acc, grads = col_loss_and_grad(params, mats, xs, ys, config, n_total, mesh)
-        new_params, new_state = [], []
-        with torch.no_grad():
-            for p, st, g in zip(params, opt_state, grads):
-                if optimizer == "sgd":  # the state rides unchanged
-                    p = adam.sgd_update(p, g, hp["lr"], hp["weight_decay"])
-                else:
-                    p, st = adam.adam_update(p, g, st, **hp)
-                new_params.append(p)
-                new_state.append(st)
+        with scope("train-step"):
+            loss, acc, grads = col_loss_and_grad(params, mats, xs, ys, config, n_total, mesh)
+            new_params, new_state = [], []
+            with torch.no_grad():
+                for p, st, g in zip(params, opt_state, grads):
+                    if optimizer == "sgd":  # the state rides unchanged
+                        p = adam.sgd_update(p, g, hp["lr"], hp["weight_decay"])
+                    else:
+                        p, st = adam.adam_update(p, g, st, **hp)
+                    new_params.append(p)
+                    new_state.append(st)
         return new_params, new_state, loss, acc
 
     return step

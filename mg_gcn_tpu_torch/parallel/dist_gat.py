@@ -55,7 +55,9 @@ from ..nn import adam
 from ..ops import elementwise as ew
 from ..ops.edge_attention import sddmm, spmm_attn
 from ..ops.spmm_edges import DTYPES, EdgeTileMat, TSched, transposed_schedule
-from .dist import Ring, _exact_loss_and_grad, _ppermute, _update_replicas, column_blocks, reduce_parts, row_slab
+from ..timers import scope
+from .dist import (Ring, _exact_loss_and_grad, _ppermute, _update_replicas, column_blocks, reduce_parts, row_slab,
+                   to_parts)
 
 
 @dataclass(frozen=True)
@@ -129,7 +131,7 @@ def _global_max(scores: Sequence[Sequence[torch.Tensor]], ring: Ring) -> list[to
         local.append(torch.amax(torch.stack(maxes)) if maxes else torch.tensor(float("-inf"), device=dev))
     smax = reduce_parts(local, torch.maximum, ring)
     smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
-    return [smax.to(row[0].device) for row in scores]
+    return to_parts(smax, ring)
 
 
 def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list[torch.Tensor]:
@@ -256,8 +258,9 @@ def make_dist_gat_train_step(
         hp.update(hparams)
 
     def step(params, opt_state, graph, xs, ys, masks=None):
-        per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
-        loss, acc, grads = dist_gat_loss_and_grad(per_part, graph, xs, ys, config, masks)
-        return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
+        with scope("train-step"):
+            per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
+            loss, acc, grads = dist_gat_loss_and_grad(per_part, graph, xs, ys, config, masks)
+            return (*_update_replicas(params, opt_state, grads, mesh, hp, optimizer), loss, acc)
 
     return step

@@ -58,8 +58,9 @@ import torch
 from ..formats import CSRData
 from ..ops.spmm import COOMat, spmm
 from ..ops.spmm_gather import GatherMat
+from ..timers import scope
 from . import multihost
-from .dist import Ring, _copy_to, _permute, column_blocks, gather_block, row_slab
+from .dist import Ring, _copy_to, _landed, _permute, column_blocks, gather_block, row_slab
 
 
 SEND_PAD = 128
@@ -319,9 +320,11 @@ def dist_aggregate_halo(mat: DistHaloMat, hs: Sequence[torch.Tensor]) -> list[to
             c = _block_product(mat.loc[j], h)
             for s in range(parts - 1):
                 k = (j + s + 1) % parts
-                halo = hs[k].index_select(0, mat.send_idx[k][s])
-                if halo.device != h.device:
-                    halo = _copy_to(halo, h.device)
+                with scope("exchange"):
+                    halo = hs[k].index_select(0, mat.send_idx[k][s])
+                    _landed(j, [halo])
+                    if halo.device != h.device:
+                        halo = _copy_to(halo, h.device)
                 c = c + _block_product(mat.rem[j][s], halo)
                 del halo
             out.append(c.to(h.dtype))

@@ -1,19 +1,43 @@
 """Per-phase timing registry with CSV export (port of the JAX package's
 ``timers.py``; reference matrix.hpp:107-157, one ``prefix+name:ms`` line per
-timer), the phase scopes of the model step (:func:`scope`, the counterpart
-of ``jax.named_scope``) and the ``--profile`` trace (:func:`trace`)."""
+timer), the spans of the train step (:func:`scope`, the counterpart of
+``jax.named_scope``), its counters (:func:`count`) and the ``--profile``
+trace (:func:`trace`).
+
+Spans and counters record only while a ``torch.profiler`` runs; at any
+other time each costs one read of the profiler's flag. The spans the port
+opens:
+
+* ``train-step``: one step of ``train.make_train_step`` or of a
+  distributed step, from its call to its return (before the caller reads
+  the loss back): the parent of every other span of an epoch;
+* the phase scopes, the reference's timer keys (gcn.hpp register_timer):
+  ``<layer>_<0|1>_<matmul-gemm|matmul-spmm|activation|residual>``,
+  ``<L>_loss-layer``, ``adam-update``;
+* ``exchange``: blocks moving between the partitions of a distributed
+  step (slot fills, ring hops, all-to-alls, halos, messages between
+  processes);
+* ``psum``: partitions' values folded into one (gradients, loss terms),
+  and the summed gradients copied to the parameters' replicas.
+
+The one counter, :data:`EXCHANGE_BYTES`, adds the bytes of every block
+that lands in another partition's buffer or on another replica's device,
+or arrives as a message from another process, keyed by the partition it
+lands in."""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from collections import OrderedDict
+from collections import OrderedDict, defaultdict
 from typing import Iterator, TextIO
 
 import torch
 
 _NO_SCOPE = contextlib.nullcontext()
+EXCHANGE_BYTES = "exchange_bytes"
+_COUNTERS: "defaultdict[str, defaultdict]" = defaultdict(lambda: defaultdict(int))
 
 
 class TimerRegistry:
@@ -25,9 +49,12 @@ class TimerRegistry:
 
     @contextlib.contextmanager
     def span(self, name: str) -> Iterator[None]:
+        """The region's host milliseconds under ``name``, and a
+        :func:`scope` of that name (a ``--profile`` trace shows it)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with scope(name):
+                yield
         finally:
             self.record(name, (time.perf_counter() - t0) * 1e3)
 
@@ -44,6 +71,25 @@ def scope(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SCOPE
+
+
+def counting() -> bool:
+    """Whether a profiler runs, so that :func:`count` adds: a caller checks
+    it before working out what to count."""
+    return torch.autograd._profiler_enabled()
+
+
+def count(name: str, n: int, key=None) -> None:
+    """Add ``n`` to counter ``name`` under ``key`` while a profiler runs;
+    nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        _COUNTERS[name][key] += n
+
+
+def counters() -> dict:
+    """{counter: {key: total}}: what :func:`count` has added in this
+    process."""
+    return {name: dict(by_key) for name, by_key in _COUNTERS.items()}
 
 
 def profiler_activities() -> list:

@@ -274,12 +274,13 @@ def make_train_step(
         hp.update(hparams)
 
     def step(params, opt_state, pair, x, y, mask):
-        loss, acc, grads = lag(params, pair, x, y, config, mask)
-        with torch.no_grad(), scope("adam-update"):
-            if optimizer == "adam":
-                params, opt_state = adam.adam_update(params, grads, opt_state, **hp)
-            else:
-                params = adam.sgd_update(params, grads, hp["lr"], hp["weight_decay"])
+        with scope("train-step"):
+            loss, acc, grads = lag(params, pair, x, y, config, mask)
+            with torch.no_grad(), scope("adam-update"):
+                if optimizer == "adam":
+                    params, opt_state = adam.adam_update(params, grads, opt_state, **hp)
+                else:
+                    params = adam.sgd_update(params, grads, hp["lr"], hp["weight_decay"])
         return params, opt_state, loss, acc
 
     return step
