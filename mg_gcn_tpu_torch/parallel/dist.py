@@ -819,9 +819,13 @@ def dist_aggregate_pattern(
     ``pattern_bwd`` per round on the m_loc-square blocks, adding each
     round's product in the accumulator type; ``fused`` fills each
     partition's (P, m_loc, d_pad) slot buffer and launches one ring kernel a
-    partition. int8: one global per-feature scale, the max over all
-    partitions (pmax), so every partition quantizes as the single-card path
-    does; int32 sums.
+    partition. ``fused`` and ``all_gather`` fill every partition's slots
+    before the first product: a peer copy runs on its source card's current
+    stream, so a copy issued after that card's product would wait for it,
+    and the cards' products would run one after another. Each slot buffer
+    is dropped once its partition's products are issued. int8: one global
+    per-feature scale, the max over all partitions (pmax), so every
+    partition quantizes as the single-card path does; int32 sums.
     """
     if strategy not in STRATEGIES["pattern"]:
         raise ValueError(f"unknown dist spmm strategy {strategy!r}")
@@ -856,15 +860,16 @@ def dist_aggregate_pattern(
         # because its RDMA kernel needs a peer; this one reads no peer)
         kernel = ring_pattern_fwd if forward else ring_pattern_bwd
         every = _all_parts(blocks, ring)
-        accs = [kernel(packs[i], _slots(every, j, [(j + s) % parts for s in range(parts)]))
-                for i, j in enumerate(local)]
+        slots = [_slots(every, j, [(j + s) % parts for s in range(parts)]) for j in local]
+        accs = [kernel(pack, slots.pop(0)) for pack in packs]
     else:
         call = sp.pattern_fwd if forward else sp.pattern_bwd
         accs = [torch.zeros((m, d_pad), dtype=acc_dt, device=b.device) for b in blocks]
         if strategy == "all_gather":
             every = _all_parts(blocks, ring)
+            slots = [_slots(every, j, range(parts)) for j in local]  # partition order
             for i, j in enumerate(local):
-                gathered = _slots(every, j, range(parts))  # partition order
+                gathered = slots.pop(0)
                 for s in range(parts):
                     accs[i] += call(packs[i][s], gathered[(j + s) % parts])
         else:

@@ -865,6 +865,39 @@ def test_dist_step_on_card_matches_cpu():
     np.testing.assert_allclose(losses["cuda:0"], losses["cpu"], rtol=1e-5)
 
 
+@pytest.mark.parametrize("strategy", ["fused", "all_gather"])
+def test_dist_step_across_cards_equals_one_card(strategy):
+    """Three bf16 pattern steps with one partition on each of min(4, cards)
+    cards (the slots filled by peer copies) against the same steps with
+    every partition on cuda:0: losses and parameters bit for bit."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
+    from mg_gcn_tpu_torch.nn import adam
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA cards")
+    parts = min(4, cards)
+    ds = Dataset.load(GOLDEN)
+    config = GCNConfig(sizes=(ds.num_features, 16, 16, ds.num_labels))
+    runs = []
+    for devices in ([f"cuda:{i}" for i in range(parts)], ["cuda:0"] * parts):
+        mesh = dist.make_mesh(parts, devices)
+        pair = dist.DistPatternPair.from_binary_csr(ds.graph, mesh, dtype="bfloat16")
+        xs, ys, masks = dist.shard_dataset(ds, mesh, pair.n_pad)
+        params = init_params(config, device="cuda:0")
+        params, opt = dist.replicate(params, mesh), dist.replicate(adam.adam_init(params), mesh)
+        step = dist.make_dist_train_step(config, mesh, ds.num_nodes, strategy=strategy, pair_kind="pattern",
+                                         pattern_dtype="bfloat16")
+        losses = []
+        for _ in range(3):
+            params, opt, loss, _ = step(params, opt, pair, xs, ys, masks)
+            losses.append(float(loss))
+        runs.append((losses, [v.cpu() for layer in params[0] for v in layer.values()]))
+    (losses, leaves), (want_losses, want_leaves) = runs
+    assert losses == want_losses
+    assert all(torch.equal(a, b) for a, b in zip(leaves, want_leaves))
+
+
 # ---------------------------------------------------------------------------
 # the forward walk (pattern_fwd, ring_fwd): register sums, staged bit tiles,
 # row slices

@@ -154,6 +154,54 @@ def test_dist_infer_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# the pattern exchange's order
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("orientation", ["PT", "P"])
+@pytest.mark.parametrize("strategy", ["fused", "all_gather"])
+def test_pattern_exchange_fills_every_slot_before_the_first_product(monkeypatch, strategy, orientation, parts):
+    """Every partition's slot buffer is filled before the first product
+    launches (a peer copy runs on its source card's stream, so one issued
+    after that card's product would wait for it); each product reads a
+    filled buffer; the outputs equal the ring exchange's bit for bit."""
+    n = 3000
+    g = sparse.random_graph(n, 4, seed=23, weights="ones")
+    ring = _cpu_ring(parts)
+    pair = dist.DistPatternPair.from_binary_csr(g, ring, dtype="bfloat16")
+    h = np.zeros((pair.n_pad, 20), np.float32)
+    h[:n] = np.random.default_rng(7).standard_normal((n, 20))
+    want = dist.dist_aggregate_pattern(pair, dist.shard(h, ring), orientation, strategy="ring")
+
+    events, filled = [], []
+    slots = dist._slots
+
+    def spy_slots(blocks, j, order):
+        out = slots(blocks, j, order)
+        events.append(("slots", j))
+        filled.append(out.untyped_storage().data_ptr())
+        return out
+
+    def spy(kernel):
+        def launch(pack, operand):
+            events.append(("product", operand.untyped_storage().data_ptr()))
+            return kernel(pack, operand)
+        return launch
+
+    monkeypatch.setattr(dist, "_slots", spy_slots)
+    for owner, name in ((dist, "ring_pattern_fwd"), (dist, "ring_pattern_bwd"), (dist.sp, "pattern_fwd"),
+                        (dist.sp, "pattern_bwd")):
+        monkeypatch.setattr(owner, name, spy(getattr(owner, name)))
+    got = dist.dist_aggregate_pattern(pair, dist.shard(h, ring), orientation, strategy=strategy)
+
+    assert events[:parts] == [("slots", j) for j in range(parts)]
+    products = events[parts:]
+    assert len(products) == (parts if strategy == "fused" else parts * parts)
+    assert all(kind == "product" and ptr in filled for kind, ptr in products)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
 # the train step
 
 
