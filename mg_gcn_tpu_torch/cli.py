@@ -1,6 +1,7 @@
 """Command-line interface, the port of ``mg_gcn_tpu/cli.py`` (reference
 main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE) and
-``--model gat [--heads H] [--edge-weighted]`` on one card, with ``-P N -R 1``
+``--model gat [--heads H | H1,H2,...] [--edge-weighted] [--activation elu]
+[--skip L1,...]`` on one card, with ``-P N -R 1``
 GCN, SAGE and GAT row-partitioned over N partitions driven by this
 process (``parallel/dist.py``, ``parallel/dist_halo.py``,
 ``parallel/dist_gat.py``), and with ``-P N -R 0`` GCN column-parallel
@@ -44,6 +45,18 @@ import torch
 from . import resolve_device
 
 
+def _heads(text: str) -> int | tuple[int, ...]:
+    """``--heads``: one count for every GAT layer, or a comma list of one a
+    layer (``4,4,6``)."""
+    counts = tuple(int(h) for h in text.split(","))
+    return counts[0] if len(counts) == 1 else counts
+
+
+def _layers(text: str) -> tuple[int, ...]:
+    """``--skip``: a comma list of layer indices (empty: none)."""
+    return tuple(int(i) for i in text.split(",") if i.strip())
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mg_gcn_tpu_torch",
@@ -65,8 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="aggregation engine (halo: -P > 1 only)",
     )
     p.add_argument("--model", default="gcn", choices=["gcn", "sage", "gat"])
-    p.add_argument("--heads", type=int, default=1,
-                   help="attention heads per GAT layer (--model gat; concat on hidden layers, mean on the output)")
+    p.add_argument("--heads", type=_heads, default=1,
+                   help="attention heads per GAT layer, or a comma list of one count a layer (--model gat; concat "
+                        "on hidden layers, mean on the output)")
+    p.add_argument("--activation", default="leaky", choices=["leaky", "elu"],
+                   help="activation between GAT layers: LeakyReLU 0.01 or ELU (--model gat, one card)")
+    p.add_argument("--skip", type=_layers, default=(),
+                   help="comma list of GAT layers whose input is added to their output before the activation "
+                        "(equal widths; --model gat, one card)")
     p.add_argument("--edge-weighted", action="store_true",
                    help="weight the GAT attention by the graph's positive edge values (--model gat, one card)")
     p.add_argument(
@@ -175,7 +194,20 @@ def _invalid(opts) -> str | None:
             return "--residual is a GCN option (--model gcn)"
         if opts.edge_weighted and opts.P > 1:
             return "--edge-weighted GAT is single-chip (the distributed graph drops edge values); use -P 1"
+    if opts.activation != "leaky" or opts.skip:
+        if opts.model != "gat":
+            return "--activation and --skip are GAT options (--model gat)"
+        if opts.P > 1:
+            return "--activation elu and --skip run on one card (the distributed GAT step has neither); use -P 1"
     return None
+
+
+def _gat_config(opts, sizes, **kw):
+    """``--model gat``'s configuration from the flags."""
+    from .models import gat
+
+    return gat.GATConfig(sizes=tuple(sizes), heads=opts.heads, edge_weighted=opts.edge_weighted,
+                         activation=opts.activation, skip=opts.skip, **kw)
 
 
 def cmd_train(opts) -> int:
@@ -231,8 +263,11 @@ def cmd_train(opts) -> int:
     )
     loss_mask = "train" if opts.mask_train else "all"
     if opts.model == "gat":
-        config = gat.GATConfig(sizes=tuple(sizes), heads=opts.heads, loss_mask=loss_mask,
-                               edge_weighted=opts.edge_weighted)
+        try:
+            config = _gat_config(opts, sizes, loss_mask=loss_mask)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
         params = gat.init_params(config, opts.seed, device=dev)
     elif opts.model == "sage":
         config = sage.SAGEConfig(sizes=tuple(sizes), loss_mask=loss_mask)
@@ -645,7 +680,11 @@ def cmd_infer(opts) -> int:
     if opts.model == "sage":
         model, config = sage, sage.SAGEConfig(sizes=tuple(sizes))
     elif opts.model == "gat":
-        model, config = gat, gat.GATConfig(sizes=tuple(sizes), heads=opts.heads, edge_weighted=opts.edge_weighted)
+        try:
+            model, config = gat, _gat_config(opts, sizes)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
     else:
         model, config = gcn, gcn.GCNConfig(sizes=tuple(sizes), residual=opts.residual)
     if opts.model != "gcn" and P > 1:

@@ -8,10 +8,22 @@ Port of ``mg_gcn_tpu/models/gat.py``. Each layer, per head::
     h'_r   = Σ_e alpha_e · z[c_e]                        (weighted SpMM)
 
 Heads concatenate on hidden layers and average on the output layer
-(Velickovic et al., arXiv:1710.10903). Parameters are a list of dicts of
+(Velickovic et al., arXiv:1710.10903). Each layer may have its own head
+count (the paper's PPI model: 4, 4, 6), the hidden layers' activation is
+LeakyReLU (the JAX package's) or ELU (the paper's), and a layer listed in
+``skip`` adds its input to its output before the activation (the PPI
+model's skip across its middle layer). Parameters are a list of dicts of
 tensors (``W``, ``a_dst``, ``a_src``, ``b``), the JAX package's tree, so
-``convert`` carries them across. Training is exact autograd through the
-attention ops of ``ops/edge_attention.py``.
+``convert`` carries them across; the skip adds none. Training is exact
+autograd through the attention ops of ``ops/edge_attention.py``.
+
+Phase scopes (``timers.scope``), layer l: ``l_0_matmul-gemm`` around the
+projection and the score vectors, ``l_0_matmul-spmm`` around each head's
+scores, softmax and weighted aggregation and the heads' combination,
+``l_0_residual`` around the skip, ``l_0_activation`` around the
+activation; ``L_loss-layer`` around the loss. The attention ops open
+``l_1_matmul-spmm`` around their backward products, on the thread that
+runs the backward.
 """
 
 from __future__ import annotations
@@ -21,32 +33,64 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..formats import CSRData
 from ..nn import init as init_lib
 from ..ops import elementwise as ew
 from ..ops.edge_attention import build_attention_graph, sddmm, slot_softmax, spmm_attn
 from ..ops.softmax_xent import softmax_xent
+from ..timers import scope
+
+ACTIVATIONS = ("leaky", "elu")
 
 
 @dataclass(frozen=True)
 class GATConfig:
     sizes: tuple[int, ...]  # per-head widths: (in, h1, ..., out)
-    heads: int = 1
+    heads: int | tuple[int, ...] = 1  # one count for every layer, or one a layer
     att_slope: float = 0.2  # LeakyReLU slope on attention scores
-    leaky_slope: float = 0.01  # inter-layer activation
+    leaky_slope: float = 0.01  # inter-layer LeakyReLU
     loss_mask: str = "all"
     # weight the attention by the graph's (positive) edge values:
     # alpha_e ∝ w_e · exp(s_e), i.e. a log-weight bias on the scores
     edge_weighted: bool = False
+    activation: str = "leaky"  # between layers: "leaky" (leaky_slope) or "elu" (ELU, alpha 1)
+    skip: tuple[int, ...] = ()  # layers whose input is added to their output, before the activation
+
+    def __post_init__(self):
+        if not isinstance(self.heads, int):
+            object.__setattr__(self, "heads", tuple(int(h) for h in self.heads))
+            if len(self.heads) != self.num_layers:
+                raise ValueError(f"heads lists {len(self.heads)} counts for {self.num_layers} layers")
+        if min(self.heads_of(i) for i in range(self.num_layers)) < 1:
+            raise ValueError(f"every layer needs at least one head, got {self.heads}")
+        if self.activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {self.activation!r} (expected {'/'.join(ACTIVATIONS)})")
+        object.__setattr__(self, "skip", tuple(sorted({int(i) for i in self.skip})))
+        for i in self.skip:
+            if not 0 <= i < self.num_layers:
+                raise ValueError(f"skip layer {i} is not one of the {self.num_layers} layers")
+            if self.layer_in(i) != self.layer_out(i):
+                raise ValueError(f"a skip needs equal widths: layer {i} takes {self.layer_in(i)} features "
+                                 f"and gives {self.layer_out(i)}")
 
     @property
     def num_layers(self) -> int:
         return len(self.sizes) - 1
 
+    def heads_of(self, i: int) -> int:
+        """Layer ``i``'s head count."""
+        return self.heads if isinstance(self.heads, int) else self.heads[i]
+
     def layer_in(self, i: int) -> int:
         # hidden layers concatenate the previous layer's heads
-        return self.sizes[i] * (self.heads if i > 0 else 1)
+        return self.sizes[i] * (self.heads_of(i - 1) if i > 0 else 1)
+
+    def layer_out(self, i: int) -> int:
+        """Layer ``i``'s output width: its heads concatenated on a hidden
+        layer, their mean on the last."""
+        return self.sizes[i + 1] * (self.heads_of(i) if i + 1 < self.num_layers else 1)
 
 
 def build_gat_graph(graph: CSRData, dtype: str = "bfloat16", device: str | torch.device = "cuda"):
@@ -74,10 +118,9 @@ def init_params(config: GATConfig, seed: int | None = None, device: str | torch.
     package's; a seed draws from a ``torch.Generator`` instead."""
     gen = None if seed is None else torch.Generator().manual_seed(seed)
     params = []
-    H = config.heads
     for i in range(config.num_layers):
-        in_, out = config.layer_in(i), config.sizes[i + 1]
-        b_width = out * (H if i + 1 < config.num_layers else 1)
+        in_, out, H = config.layer_in(i), config.sizes[i + 1], config.heads_of(i)
+        b_width = config.layer_out(i)
         if gen is None:
             w = np.concatenate([init_lib.kaiming_uniform_ref(in_, out) for _ in range(H)], axis=1)
             a = init_lib.kaiming_uniform_ref(out, 2 * H)  # columns: per-head pairs
@@ -99,42 +142,58 @@ def init_params(config: GATConfig, seed: int | None = None, device: str | torch.
     return params
 
 
-def _attend_head(mat, sched, z, e_dst, e_src, slope, bias=None):
-    """alpha-weighted aggregation for one head's projected features z."""
+def _attend_head(mat, sched, z, e_dst, e_src, slope, bias=None, tag=None):
+    """alpha-weighted aggregation for one head's projected features z; the
+    attention ops' backward scopes take the layer ``tag``."""
     ones = torch.ones((z.shape[0], 1), dtype=torch.float32, device=z.device)
     s = sddmm(mat, sched,
               torch.cat([e_dst, ones], dim=1),  # <[e_dst_r, 1], [1, e_src_c]>
-              torch.cat([ones, e_src], dim=1))
+              torch.cat([ones, e_src], dim=1), tag=tag)
     s = ew.leaky_relu(s, slope)
     if bias is not None:
         s = s + bias
-    alpha = slot_softmax(mat, sched, s)
-    return spmm_attn(mat, sched, alpha, z)
+    alpha = slot_softmax(mat, sched, s, tag=tag)
+    return spmm_attn(mat, sched, alpha, z, tag=tag)
+
+
+def _activate(h: torch.Tensor, config: GATConfig) -> torch.Tensor:
+    """The activation between layers."""
+    if config.activation == "elu":
+        return F.elu(h)
+    return ew.leaky_relu(h, config.leaky_slope)
 
 
 def forward(params: Sequence[dict], graph, x: torch.Tensor, config: GATConfig) -> torch.Tensor:
     mat, sched = graph
     h = x
-    H = config.heads
     bias = _log_weight_bias(mat) if config.edge_weighted else None
     for i, layer in enumerate(params):
-        out = config.sizes[i + 1]
-        z = h @ layer["W"]  # (n, H*out)
-        heads = []
-        for hd in range(H):
-            zh = z[:, hd * out : (hd + 1) * out]
-            e_dst = zh @ layer["a_dst"][hd][:, None]  # (n, 1)
-            e_src = zh @ layer["a_src"][hd][:, None]
-            heads.append(_attend_head(mat, sched, zh, e_dst, e_src, config.att_slope, bias))
-        if i + 1 < config.num_layers:
-            h = ew.leaky_relu(torch.cat(heads, dim=1) + layer["b"], config.leaky_slope)
-        else:
-            h = sum(heads) / H + layer["b"]  # average heads on the output
+        out, H = config.sizes[i + 1], config.heads_of(i)
+        hidden = i + 1 < config.num_layers
+        with scope(f"{i}_0_matmul-gemm"):
+            z = h @ layer["W"]  # (n, H*out)
+            zs = [z[:, hd * out : (hd + 1) * out] for hd in range(H)]
+            e_dst = [zh @ layer["a_dst"][hd][:, None] for hd, zh in enumerate(zs)]  # (n, 1)
+            e_src = [zh @ layer["a_src"][hd][:, None] for hd, zh in enumerate(zs)]
+        with scope(f"{i}_0_matmul-spmm"):
+            heads = [_attend_head(mat, sched, zh, ed, es, config.att_slope, bias, tag=i)
+                     for zh, ed, es in zip(zs, e_dst, e_src)]
+            # concatenate the heads on a hidden layer, average them on the output
+            y = (torch.cat(heads, dim=1) if hidden else sum(heads) / H) + layer["b"]
+        if i in config.skip:
+            with scope(f"{i}_0_residual"):
+                y = y + h
+        if hidden:
+            with scope(f"{i}_0_activation"):
+                y = _activate(y, config)
+        h = y
     return h
 
 
 def loss_fn(params, graph, x, y, config: GATConfig, mask=None):
-    out = softmax_xent(forward(params, graph, x, config), y, mask)
+    logits = forward(params, graph, x, config)
+    with scope(f"{config.num_layers}_loss-layer"):
+        out = softmax_xent(logits, y, mask)
     return out.loss, out.acc
 
 

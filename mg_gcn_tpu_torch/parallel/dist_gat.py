@@ -196,13 +196,12 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
 def dist_gat_forward(params, g: DistGatGraph, xs, config: GATConfig) -> list[torch.Tensor]:
     """This process's partitions' logits (``mg_gcn_tpu/parallel/
     dist_gat.py:261-282``): ``params[i]`` is the parameter tree its i-th
-    partition computes with; heads concatenate on hidden layers and average
-    on the output layer."""
+    partition computes with; heads (``config.heads_of``, one count a layer)
+    concatenate on hidden layers and average on the output layer."""
     hs = list(xs)
-    H = config.heads
     for i in range(config.num_layers):
         layers = [p[i] for p in params]
-        out = config.sizes[i + 1]
+        out, H = config.sizes[i + 1], config.heads_of(i)
         zs = [h @ lp["W"] for h, lp in zip(hs, layers)]
         heads = []
         for hd in range(H):
@@ -243,11 +242,18 @@ def make_dist_gat_train_step(
     copy per distinct device, returned updated alike (Adam, or SGD);
     ``xs`` / ``ys`` / ``masks`` are :func:`~.dist.shard`'s lists, ``masks``
     None when every row counts. ``graph`` is the :class:`DistGatGraph` the
-    step was made for (its size and partitions)."""
+    step was made for (its size and partitions). Per-layer head counts run;
+    ELU and skips (``GATConfig.activation``, ``skip``) run on one card only
+    and are refused."""
     if config.edge_weighted:
         raise ValueError(
             "edge-weighted GAT is single-chip only (DistGatGraph stores no "
             "edge values); drop edge_weighted or use -P 1"
+        )
+    if config.activation != "leaky" or config.skip:
+        raise ValueError(
+            "the distributed GAT step runs LeakyReLU between layers and no skip; "
+            "use activation='leaky' and skip=() or -P 1"
         )
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")

@@ -469,6 +469,45 @@ def test_gat_step_on_card_matches_cpu():
             assert diff <= 1e-4 * torch.linalg.vector_norm(layer_c[k]), k
 
 
+def test_ppi_gat_step_on_card_matches_cpu_and_counts_its_launches():
+    """One float32 step of the PPI form of GAT (per-layer heads, ELU, the
+    skip across the middle layer) on the card against the port's CPU step
+    from the same parameters: loss within rtol 1e-5, every gradient leaf
+    within ||card - CPU|| <= 1e-4 ||CPU||; traced, the ``attn_launches``
+    counter equals the launches the kernel wrappers record."""
+    from mg_gcn_tpu_torch import timers
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.ops.edge_attention import ATTN_LAUNCHES
+
+    ds = Dataset.load(GOLDEN)
+    config = gat.GATConfig(sizes=(ds.num_features, 16, 16, ds.num_labels), heads=(2, 2, 3), activation="elu",
+                           skip=(1,))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        graph = gat.build_gat_graph(ds.graph, dtype="float32", device=dev)
+        params = gat.init_params(config, 5, device=dev)
+        x = torch.from_numpy(ds.features).to(dev)
+        y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+        out[dev] = gat.loss_and_grad(params, graph, x, y, config)
+    (lc, _, gc), (lg, _, gg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for layer_c, layer_g in zip(gc, gg):
+        for k in layer_c:
+            diff = torch.linalg.vector_norm(layer_g[k].cpu() - layer_c[k])
+            assert diff <= 1e-4 * torch.linalg.vector_norm(layer_c[k]), k
+
+    def launched():
+        return {k: sum(f.launches.values()) for k, f in (("sddmm", sd.sddmm), ("edge", se.edge), ("edge_t", se.edge_t))}
+
+    before, counted = launched(), dict(timers.counters().get(ATTN_LAUNCHES, {}))
+    with torch.profiler.profile(activities=timers.profiler_activities()):
+        gat.loss_and_grad(params, graph, x, y, config)
+        torch.cuda.synchronize()
+    after, now = launched(), timers.counters()[ATTN_LAUNCHES]
+    by_kernel = {k: sum(n - counted.get(key, 0) for key, n in now.items() if key[0] == k) for k in after}
+    assert by_kernel == {k: after[k] - before[k] for k in after} == {"sddmm": 35, "edge": 35, "edge_t": 14}
+
+
 # ---------------------------------------------------------------------------
 # the block-sparse pattern pair and the tiled-ELL kernel
 

@@ -174,6 +174,18 @@ def test_gradients_equal_the_single_card_step(parts, heads, dtype):
     assert_same_step(got, one, n)
 
 
+def test_per_layer_heads_equal_the_single_card_step():
+    """A head count a layer (two layers, 2 then 3 heads) at P = 2 and in
+    bfloat16: the step equals the one-card step."""
+    n, parts = 96, 2
+    config = gat.GATConfig(sizes=SIZES, heads=(2, 3))
+    x, y, _ = inputs(n, seed=8)
+    params = convert.params_to_numpy(gat.init_params(config, 8, device="cpu"))
+    assert [p["a_dst"].shape for p in params] == [(2, 4), (3, 3)] and params[1]["W"].shape == (8, 9)
+    one, got = single_and_dist(toy_graph(n, 0.06, seed=8), parts, config, params, x, y, None, "bfloat16")
+    assert_same_step(got, one, n)
+
+
 def test_masked_loss_equals_the_single_card_step():
     """``--mask-train``: the partitions' mask and the mask's partition-summed
     denominator give the one-card masked loss and gradients."""
@@ -281,7 +293,7 @@ def test_sgd_and_three_adam_steps_equal_the_single_card_steps():
 
 def test_step_refusals():
     """The JAX step's refusal of edge-weighted GAT (its message), the JAX
-    build's n % P message, and an unknown optimizer."""
+    build's n % P message, an unknown optimizer, and ELU or a skip."""
     ring = cpu_ring(2)
     graph = dist_gat.build_dist_gat_graph(toy_graph(64, 0.05, seed=1), ring)
     with pytest.raises(ValueError) as got:
@@ -298,6 +310,10 @@ def test_step_refusals():
     assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="unknown optimizer"):
         dist_gat.make_dist_gat_train_step(gat.GATConfig(sizes=SIZES), ring, graph, optimizer="lamb")
+    # ELU and the skip run on one card only
+    for kw in (dict(activation="elu"), dict(sizes=(5, 4, 4, 3), skip=(1,))):
+        with pytest.raises(ValueError, match="LeakyReLU between layers and no skip"):
+            dist_gat.make_dist_gat_train_step(gat.GATConfig(**{"sizes": SIZES, **kw}), ring, graph)
 
 
 # ---------------------------------------------------------------------------

@@ -274,3 +274,53 @@ def test_cli_gat_refusals_match_jax(args, capsys):
     want = capsys.readouterr().err.splitlines()
     assert got == want[-1:]
 
+
+
+def test_cli_gat_per_layer_heads_elu_and_skip(tmp_path, capsys):
+    """``--heads 4,4,6 --activation elu --skip 1`` (the PPI form of GAT at
+    small widths) on the golden dataset: the epoch lines carry the library
+    step's losses from the seed-99 init, and ``infer`` takes the same flags
+    for the checkpoint ``--save`` wrote."""
+    ds = Dataset.load(GOLDEN)
+    config = gat.GATConfig(sizes=(ds.num_features, 8, 8, ds.num_labels), heads=(4, 4, 6), activation="elu",
+                           skip=(1,))
+    graph = gat.build_gat_graph(ds.graph, device="cpu")
+    params = gat.init_params(config, device="cpu")
+    assert [layer["a_dst"].shape[0] for layer in params] == [4, 4, 6] and params[2]["W"].shape == (32, 6 * ds.num_labels)
+    opt = adam.adam_init(params)
+    step = ttrain.make_train_step(config, model="gat")
+    x, y = torch.from_numpy(ds.features), torch.from_numpy(ds.labels.reshape(-1).astype(np.int64))
+    want = []
+    for _ in range(2):
+        params, opt, loss, _ = step(params, opt, graph, x, y, None)
+        want.append(float(loss))
+    flags = ["--device", "cpu", "--model", "gat", "--heads", "4,4,6", "--activation", "elu", "--skip", "1"]
+    ck = str(tmp_path / "gat.ckpt.npz")
+    rc = cli.main(["-E", "2", *flags, "--save", ck, "--csv-dir", str(tmp_path), "train", GOLDEN, "2", "8", "8"])
+    assert rc == 0
+    epochs = [line.split() for line in capsys.readouterr().err.splitlines()[3:]]
+    np.testing.assert_allclose([float(e[1]) for e in epochs], want, rtol=1e-6)
+    out = str(tmp_path / "pred.bin")
+    assert cli.main([*flags, "--load", ck, "--save", out, "infer", GOLDEN, "2", "8", "8"]) == 0
+    preds = np.fromfile(out, np.int32)[-ds.num_nodes:]
+    with torch.no_grad():
+        logits = gat.forward(params, graph, x, config)
+    assert np.array_equal(preds, torch.argmax(logits, dim=-1).numpy())
+
+
+@pytest.mark.parametrize(
+    "args,message",
+    [
+        (["--activation", "elu", "train", GOLDEN, "1", "8"], "--activation and --skip are GAT options"),
+        (["--skip", "1", "--model", "sage", "train", GOLDEN, "1", "8"], "--activation and --skip are GAT options"),
+        (["-P", "2", "-R", "1", "--model", "gat", "--activation", "elu", "train", GOLDEN, "1", "8"],
+         "run on one card"),
+        (["--model", "gat", "--heads", "4,4", "train", GOLDEN, "2", "8", "8"], "heads lists 2 counts for 3 layers"),
+        (["--model", "gat", "--skip", "0", "train", GOLDEN, "1", "8"], "a skip needs equal widths"),
+    ],
+    ids=["elu gcn", "skip sage", "elu -P 2", "heads count", "skip widths"],
+)
+def test_cli_gat_option_refusals(args, message, capsys):
+    """The new GAT flags exit 2 with a message where they do not apply."""
+    assert cli.main(["--device", "cpu", "-E", "1", *args]) == 2
+    assert message in capsys.readouterr().err

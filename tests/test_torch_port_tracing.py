@@ -181,3 +181,66 @@ def test_timer_span_is_a_profiler_span():
             torch.ones(3).sum()
     assert [e["name"] for e in _spans(xplane.trace_events(prof), lambda n: n == "0_preprocess")] == ["0_preprocess"]
     assert list(reg._entries) == ["0_preprocess"]
+
+
+# ---------------------------------------------------------------------------
+# GAT: phase scopes on both passes, and the attention's launch counter
+
+GAT_SIZES = (F, 16, 16, C)
+
+
+def _gat_traced_step(monkeypatch=None):
+    """(events, {kernel: Counter of CPU calls by d_pad}, counter delta) of one
+    traced step of the PPI form of GAT (heads 2, 2, 3, ELU, the skip across
+    layer 1) on a small graph; with ``monkeypatch`` the three kernel
+    wrappers count their CPU calls as the card's count its launches."""
+    from collections import Counter
+
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.ops import edge_attention, sddmm as sd, spmm_edges as se
+
+    calls = {"sddmm": Counter(), "edge": Counter(), "edge_t": Counter()}
+    if monkeypatch is not None:
+        for mod, name in ((sd, "sddmm"), (se, "edge"), (se, "edge_t")):
+            def counted(*args, _real=getattr(mod, name), _name=name):
+                out = _real(*args)
+                calls[_name][args[-1].shape[1] if _name != "sddmm" else args[2].shape[1]] += 1
+                return out
+            monkeypatch.setattr(mod, name, counted)
+    g = sparse.random_graph(300, 6, seed=2, weights="ones")
+    rng = np.random.default_rng(4)
+    x, y = torch.from_numpy(rng.standard_normal((300, F)).astype(np.float32)), torch.from_numpy(rng.integers(0, C, 300))
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=(2, 2, 3), activation="elu", skip=(1,))
+    params = gat.init_params(config, 3, device="cpu")
+    step = ttrain.make_train_step(config, model="gat")
+    before = dict(timers.counters().get(edge_attention.ATTN_LAUNCHES, {}))
+    with torch.profiler.profile(activities=timers.profiler_activities()) as prof:
+        step(params, adam.adam_init(params), gat.build_gat_graph(g, device="cpu"), x, y, None)
+    after = timers.counters()[edge_attention.ATTN_LAUNCHES]
+    return xplane.trace_events(prof), calls, {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def test_gat_step_opens_phase_scopes_on_both_passes():
+    """Every layer's forward scopes and its backward attention scope (opened
+    by the attention ops' backward, on the thread that runs it), the skip's
+    residual scope, the loss layer; all inside the step's span."""
+    events, _, _ = _gat_traced_step()
+    names = {e["name"] for e in _spans(events, xplane._looks_like_phase)}
+    layers = range(len(GAT_SIZES) - 1)
+    want = {f"{i}_{p}_matmul-spmm" for i in layers for p in (0, 1)} | {f"{i}_0_matmul-gemm" for i in layers}
+    want |= {"0_0_activation", "1_0_activation", "1_0_residual", "3_loss-layer", "adam-update"}
+    assert names == want
+    (outer,) = _spans(events, lambda name: name == STEP)
+    assert all(_inside(e, outer) for e in _spans(events, xplane._looks_like_phase) if e["tid"] == outer["tid"])
+
+
+def test_gat_launch_counter_equals_the_kernel_calls(monkeypatch):
+    """``attn_launches`` counts each SDDMM, weighted and transposed product
+    the attention ops call, by kernel and d_pad: 12 a head and layer (9 at
+    d_pad 8: the scores, the softmax's row sums, shifts and log row sums and
+    their gradients; 3 at the head's width: the aggregation, its weights'
+    SDDMM and its transposed product)."""
+    _, calls, counted = _gat_traced_step(monkeypatch)
+    assert counted == {(k, d): n for k, by_d in calls.items() for d, n in by_d.items()}
+    assert sum(counted.values()) == 12 * (2 + 2 + 3)
+    assert {k: n for k, n in counted.items() if k[1] == 16} == {("sddmm", 16): 4, ("edge", 16): 4, ("edge_t", 16): 4}
