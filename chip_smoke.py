@@ -56,8 +56,13 @@ the result line:
 4. main path at full width — bench.py's uniform configuration
    (n = 232,968, random_graph(n, 493, seed=1) ~ 115M edges, 608 features,
    41 classes, sizes (608, 128, 128, 41), parity mode, Adam, seed-99 init)
-   through ``train.build_agg_pair`` / ``train.train`` with impl="auto":
-   auto must pick the pattern pair; one float32 pattern step must agree
+   through ``train.build_agg_pair`` / ``train.train`` with impl="pattern"
+   (``train.auto_engine`` must pick the binary CSR walk, "gather", for
+   bfloat16 and float32 operands on this graph, 1 bit in 474 set, far below
+   ``train.WALK_DENSITY_MAX``, and the pattern pair for int8, which the
+   walk does not take;
+   the pattern kernels stay on SAGE's, PageRank's, -P 4's and int8's
+   paths); one float32 pattern step must agree
    with the COO engine (its pair built on the card; run with PyTorch's deterministic algorithms, so
    its sums, and the comparison, repeat from run to run) within rtol 1e-4: the loss, and every gradient leaf
    in norm, ||pattern - COO|| <= 1e-4 ||COO|| (element-wise, the two sum
@@ -130,7 +135,7 @@ the result line:
    peak memory; exactly 0 and 48 ``gather`` launches an epoch (16 at d_pad
    608, 32 at 512);
 5f. phase timing of the main path — phase 4's bfloat16 step on the pattern
-   pair ``build_agg_pair(impl="auto")`` builds, through
+   pair ``build_agg_pair(impl="pattern")`` builds, through
    ``diagnostics.profile_fused_step`` (one warm step, 2 traced): the
    per-phase device ms an epoch (``xplane.attribute`` on the kept Chrome
    trace), the keys equal to the JAX package's named scopes for these
@@ -140,6 +145,19 @@ the result line:
    launches, by width); logged: the unattributed share, the phase sum
    against the device's busy time and window, each SpMM scope against
    phase 5's isolated launch at its width;
+5g. the main path on impl="auto" — phase 4's graph, model and sizes
+   through ``build_agg_pair`` / ``train`` with impl="auto", which must
+   build the binary gather pair (no weights): its float32 step against the
+   COO engine by the rule of phase 4; 5 bfloat16 epochs with finite losses
+   (logged beside phase 4's pattern-pair bfloat16 losses); counters zeroed
+   before and read after: exactly the float32 step's 5 ``gather`` float32
+   launches (3 at d_pad 128, 2 at 48) and 5 ``gather`` bfloat16 launches an
+   epoch (the operand streamed in bfloat16: 3 at d_pad 128, 2 at 48), and
+   no other kernel; peak memory and the pair's build seconds;
+5h. gather kernel at the main path's shape — ``gather`` with a bfloat16
+   operand on 5g's binary Âᵀ at d = 128 and 41 against its plain version,
+   with the repeat check and walk geometry of phase 13, beside the bound
+   and 5g's launches at that width (kernels-line rows);
 6. the dist path — BASELINE's canonical ``-P 4 -R 1`` run (BASELINE.md:13)
    on the main path's dataset, sizes (608, 128, 128, 44) (41 classes round
    up to a multiple of P), its 4 partitions all on cuda:0, through
@@ -304,7 +322,7 @@ the result line:
    local engine`` and ``halo exchange`` lines, the moved rows the library's),
    ``--impl gather`` and ``--model sage --impl halo``; ``--time-phases``
    (``phase_`` rows of the JAX package's scopes, no fallback line),
-   ``--profile DIR`` (a Chrome trace naming the pattern kernels) and
+   ``--profile DIR`` (a Chrome trace naming the CSR walk kernel) and
    ``--f64`` (the COO engine) on the toy dataset; at -P 4 on one card
    ``-R 1 --model gat --heads 2 train <dir> 1 16`` and ``-R 0 train <dir> 2
    128 128 --save CK``: their epoch lines equal the library's steps on the
@@ -921,7 +939,7 @@ def profile_step(label: str, step, args) -> tuple[dict, list]:
 
 def phase_main_path_phases(ds, rows: list[dict]) -> None:
     """Phase 5f: the main path's bfloat16 step (phase 4's, sizes 608 → 128
-    → 128 → 41, the pattern pair ``build_agg_pair(impl="auto")`` picks)
+    → 128 → 41, on the pattern pair ``build_agg_pair(impl="pattern")``)
     through ``diagnostics.profile_fused_step``: the phase keys must be the
     JAX package's named scopes for these sizes (:func:`gcn_phase_keys`),
     each traced epoch's ``{l}_0_matmul-spmm`` scopes must hold one
@@ -932,7 +950,6 @@ def phase_main_path_phases(ds, rows: list[dict]) -> None:
     isolated launch at its width."""
     from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params
     from mg_gcn_tpu_torch.nn import adam
-    from mg_gcn_tpu_torch.ops.spmm_pattern import PatternMat
     from mg_gcn_tpu_torch.train import build_agg_pair, make_train_step
 
     dev = torch.device("cuda")
@@ -940,9 +957,7 @@ def phase_main_path_phases(ds, rows: list[dict]) -> None:
     x = torch.from_numpy(ds.features).to(dev)
     y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
     params = init_params(config, device=dev)
-    pair = build_agg_pair(ds.graph, impl="auto", pattern_dtype="bfloat16", device=dev)
-    if not isinstance(pair.fwd, PatternMat):
-        raise AssertionError(f"impl='auto' chose {type(pair.fwd).__name__}, not the pattern pair")
+    pair = build_agg_pair(ds.graph, impl="pattern", pattern_dtype="bfloat16", device=dev)
     reset_counts()  # the path starts here
     totals, attributed = profile_step("main path, bfloat16", make_train_step(config),
                                       (params, adam.adam_init(params), pair, x, y, None))
@@ -992,10 +1007,27 @@ def sp_pad(d: int) -> int:
     return round_up(max(d, 8), 8)
 
 
+def phase_main_auto_path(ds, pattern_bf16: dict) -> dict:
+    """Phase 5g: the main path on impl="auto", the binary CSR walk
+    (:func:`drive_path`), its launches by width, and its bfloat16 losses
+    logged beside ``pattern_bf16``, phase 4's run on the pattern pair."""
+    out = drive_path("gather", ds, HIDDEN, [("bfloat16", EPOCHS)])
+    if out["fwd"].has_w or out["fwd"].stream_bf16:
+        raise AssertionError("impl='auto' with a float32 operand did not build the float32 binary gather pair")
+    expect_launches(out["launches"], {("gather", "float32"): 5, ("gather", "bfloat16"): 5 * EPOCHS})
+    by_width = {k: v for k, v in out["launches"]["gather"].items() if v}
+    want = {("float32", 128): 3, ("float32", 48): 2, ("bfloat16", 128): 3 * EPOCHS, ("bfloat16", 48): 2 * EPOCHS}
+    if by_width != want:
+        raise AssertionError(f"gather launches by width {by_width}, want {want}")
+    walk, pack = out["bfloat16"]["losses"], pattern_bf16["losses"]
+    log(f"  bfloat16 losses, the walk {walk}, the pattern pair {pack}; largest relative difference"
+        f" {max(abs(a - b) / abs(b) for a, b in zip(walk, pack)):.3e}")
+    return out
+
+
 def phase_main_path(ds) -> dict:
     from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
-    from mg_gcn_tpu_torch.ops.spmm_pattern import PatternMat
-    from mg_gcn_tpu_torch.train import build_agg_pair, train
+    from mg_gcn_tpu_torch.train import auto_engine, build_agg_pair, card_memory, train
 
     dev = torch.device("cuda")
     sizes = (FEATURES, *HIDDEN, CLASSES)
@@ -1004,12 +1036,15 @@ def phase_main_path(ds) -> dict:
     y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
     params = init_params(config, device=dev)
     out = {}
+    for dtype, want in (("bfloat16", "gather"), ("float32", "gather"), ("int8", "pattern")):
+        impl, why = auto_engine(ds.graph, card_memory(dev), pattern_dtype=dtype)
+        if impl != want:
+            raise AssertionError(f"impl='auto' picks {impl} for a {dtype} operand, not {want} ({why})")
+    log(f"  impl='auto' on this graph: {why}")
 
     reset_counts()  # the main path starts here
     t0 = time.perf_counter()
-    pair = build_agg_pair(ds.graph, impl="auto", pattern_dtype="float32", device=dev)
-    if not isinstance(pair.fwd, PatternMat):
-        raise AssertionError(f"impl='auto' chose {type(pair.fwd).__name__}, not the pattern pair")
+    pair = build_agg_pair(ds.graph, impl="pattern", pattern_dtype="float32", device=dev)
     torch.cuda.synchronize()
     out["pattern_build_s"] = time.perf_counter() - t0
     loss_p, acc_p, grads_p = loss_and_grad(params, pair, x, y, config)
@@ -1032,12 +1067,12 @@ def phase_main_path(ds) -> dict:
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    res = train(ds, HIDDEN, epochs=EPOCHS, impl="auto", pattern_dtype="bfloat16", device=dev)
+    res = train(ds, HIDDEN, epochs=EPOCHS, impl="pattern", pattern_dtype="bfloat16", device=dev)
     if res.engine != "pattern" or not all(math.isfinite(v) for v in res.losses):
         raise AssertionError(f"bf16 run: engine {res.engine}, losses {res.losses}")
     out["bf16"] = dict(losses=res.losses, accs=res.accs, epoch_seconds=res.epoch_seconds,
                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    res8 = train(ds, HIDDEN, epochs=1, impl="auto", pattern_dtype="int8", device=dev)
+    res8 = train(ds, HIDDEN, epochs=1, impl="pattern", pattern_dtype="int8", device=dev)
     if res8.engine != "pattern" or not all(math.isfinite(v) for v in res8.losses):
         raise AssertionError(f"int8 run: engine {res8.engine}, losses {res8.losses}")
     out["int8"] = dict(losses=res8.losses, accs=res8.accs, epoch_seconds=res8.epoch_seconds)
@@ -2358,21 +2393,20 @@ def cross_engine(where: str, mat, w32, rows: list[dict]) -> None:
             torch.cuda.empty_cache()
 
 
-def phase_gather_main(fwd, launches: dict) -> list[dict]:
-    """The gather kernel at path B's shape (its forward matrix Aᵀ, binary):
-    the path's float32 walk at each of its widths, and (logged, not in the
-    kernels line: the path does not run it) the bfloat16 operand stream at
-    the widest, against the plain version, timed beside the bound and beside
-    torch.sparse.mm on the same float32 CSR."""
+def phase_gather_main(fwd, launches: dict, where: str, runs) -> list[dict]:
+    """The gather kernel at a binary path's shape (its forward matrix,
+    ``fwd``), for each (operand dtype, width) of ``runs`` against the plain
+    version, timed beside the bound and (float32) beside torch.sparse.mm on
+    the same float32 CSR; returns a row each."""
     from mg_gcn_tpu_torch.ops import spmm_gather as sg
 
     ones = torch.ones(fwd.nnz, device="cuda")
     lib = csr_library(fwd.indptr, fwd.indices, ones, (fwd.n_out, fwd.n_in))
     del ones
     measured = []
-    for dtype, d in (("float32", 256), ("float32", 100), ("float32", 48), ("bfloat16", 256)):
+    for dtype, d in runs:
         b = operand(fwd.n_in, d, dtype, seed=d)
-        label = f"gather {dtype} d={d} (path B shape)"
+        label = f"gather {dtype} d={d} ({where} shape)"
         check, ms, plain_ms = time_against_plain(label, sg.gather, sg.gather_plain,
                                                  (fwd.indptr, fwd.indices, None, b), dtype, 5, 1, repeat=True)
         extra = walk_geometry(label, sg.gather_geometry(fwd.n_out, b.shape[1], b.dtype, False))
@@ -2389,8 +2423,7 @@ def phase_gather_main(fwd, launches: dict) -> list[dict]:
         del b
         torch.cuda.empty_cache()
     del lib
-    cross_engine("path B's Aᵀ (gather regime)", fwd, None, measured)
-    return [r for r in measured if r["dtype"] == "float32"]  # the path's own mode; the stream row is logged only
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -3864,8 +3897,8 @@ def phase_cli_dist_gat_col(tmp: str, toy: str, runs: dict) -> None:
 def phase_cli_phases_f64(tmp: str, toy: str, runs: dict) -> None:
     """``--time-phases``, ``--profile DIR`` and ``--f64`` on the toy dataset:
     the ``phase_`` rows of the JAX package's scopes from the device trace
-    (no fallback line), a non-empty Chrome trace that names the pattern
-    kernels, and a float64 run on the COO engine."""
+    (no fallback line), a non-empty Chrome trace that names the CSR walk
+    ``auto`` takes there, and a float64 run on the COO engine."""
     from mg_gcn_tpu_torch.formats import Dataset
     from mg_gcn_tpu_torch.models.gcn import GCNConfig
 
@@ -3877,10 +3910,9 @@ def phase_cli_phases_f64(tmp: str, toy: str, runs: dict) -> None:
     run_cli(ds, ["--profile", prof, "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv",
             started=runs["profile"])
     trace = open(os.path.join(prof, "trace.json")).read()
-    if "pattern_fwd_kernel" not in trace or "PackArgs" not in trace:
-        raise AssertionError("CLI --profile: the trace names no pattern kernel")
-    log(f"  --profile: trace.json {len(trace)} bytes, pattern_fwd / pattern_bwd events"
-        f" {trace.count('pattern_fwd_kernel')} / {trace.count('PackArgs')}")
+    if "csr::walk_kernel" not in trace:
+        raise AssertionError("CLI --profile: the trace names no CSR walk kernel")
+    log(f"  --profile: trace.json {len(trace)} bytes, CSR walk events {trace.count('csr::walk_kernel')}")
     lines = run_cli(ds, ["--f64", "train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv", started=runs["f64"])
     if any(line.startswith("aggregation engine") for line in lines):
         raise AssertionError("CLI --f64: not on the COO engine")
@@ -3946,7 +3978,7 @@ def start_cli_runs(tmp: str, toy: str, pool) -> dict:
 
 def phase_cli() -> None:
     """The CLI on a small binary dataset: GCN (``train <dir> 2 128 128``,
-    where ``auto`` must pick the pattern pair), GAT (``--model gat
+    where ``auto`` must pick the binary CSR walk, "gather"), GAT (``--model gat
     --heads 2 train <dir> 1 16``), ``-P 4 -R 1`` GCN on one card (the
     dist pattern pair, the fused exchange by ``auto``), SAGE's train and
     infer and PageRank at -P 1 and 4 (:func:`phase_cli_sage_pagerank`);
@@ -3973,8 +4005,8 @@ def phase_cli() -> None:
         runs = start_cli_runs(tmp, toy, pool)
         ds = Dataset.load(toy)
         lines = run_cli(ds, ["train", toy, "2", "128", "128"], "toy_32_128_128_7_1.csv", started=runs["gcn"])
-        if not any(line.startswith("aggregation engine: pattern") for line in lines):
-            raise AssertionError("CLI: no pattern engine line")
+        if not any(line.startswith("aggregation engine: gather") for line in lines):
+            raise AssertionError("CLI: no gather engine line")
         run_cli(ds, ["--model", "gat", "--heads", "2", "train", toy, "1", "16"], "toy_32_16_7_1.csv",
                 started=runs["gat"])
         # -P 4 -R 1, the four partitions on one card; 7 labels round up to 8
@@ -4580,6 +4612,14 @@ def main() -> int:
     phase(f"[5f] phase timing of the main path's bfloat16 step, n = {N_MAIN}")
     phase_main_path_phases(ds, kernels)
 
+    phase(f"[5g] the main path on impl='auto': the binary CSR walk, n = {N_MAIN}")
+    auto_path = phase_main_auto_path(ds, main_path["bf16"])
+
+    phase("[5h] gather kernel at the main path's shape")
+    kernels += phase_gather_main(auto_path.pop("fwd"), auto_path["launches"], "main path",
+                                 (("bfloat16", 128), ("bfloat16", 41)))
+    torch.cuda.empty_cache()
+
     phase(f"[6] dist path: -P {DIST_PARTS} -R 1 on one card, n = {N_MAIN}")
     dist_path = phase_dist_path(ds)
     torch.cuda.empty_cache()
@@ -4662,7 +4702,10 @@ def main() -> int:
 
     phase("[17] gather kernel at path B's shape and at the -P 4 halo blocks'")
     fwd_b = path_b.pop("fwd")
-    kernels += phase_gather_main(fwd_b, path_b["launches"])
+    rows = phase_gather_main(fwd_b, path_b["launches"], "path B",
+                             (("float32", 256), ("float32", 100), ("float32", 48), ("bfloat16", 256)))
+    cross_engine("path B's Aᵀ (gather regime)", fwd_b, None, rows)
+    kernels += [r for r in rows if r["dtype"] == "float32"]  # the path's own mode; the stream row is logged only
     kernels += phase_halo_gather_kernels(products_dist.pop("pair"), products_dist["halo_gather"]["launches"])
     torch.cuda.empty_cache()
 

@@ -120,10 +120,11 @@ def gather_pair_from_binary_csr(
     """
     if graph.nnz and not bool((graph.data == 1).all()):
         raise ValueError("gather_pair_from_binary_csr needs an all-ones adjacency")
-    cs = np.bincount(graph.indices.astype(np.int64), minlength=graph.ncols).astype(np.float32)
+    graph_t = sparse.transpose(graph)
+    cs = np.diff(graph_t.indptr).astype(np.float32)  # the column counts: Aᵀ's row lengths
     inv_cs = 1.0 / np.maximum(cs, 1.0)
     kw = dict(device=device, scale=inv_cs, stream_bf16=stream_bf16)
-    fwd = gather_mat_from_csr(sparse.transpose(graph), scale_side="post", **kw)
+    fwd = gather_mat_from_csr(graph_t, scale_side="post", **kw)
     bwd = gather_mat_from_csr(graph, scale_side="pre", **kw)
     return fwd, bwd
 

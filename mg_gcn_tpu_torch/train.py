@@ -39,6 +39,12 @@ BLOCK_PLANE_OCC_MAX = 0.3
 # expected edge-tile slot fill at and above which the edge engine is taken
 # over the gather engine (the JAX package's crossover, train.py:65-75)
 EDGE_FILL_MIN = 0.3
+# impl="auto" takes the binary CSR walk over a pack that fits up to this
+# share of the pack's bits set: on uniform graphs on an H100 the walk's
+# products of a GCN epoch beat the pattern pair's at 1 bit in 8 and lost at
+# 1 in 4 at n = 65,536, and won at every density from 1 in 32 down at
+# n = 233,472 (scripts/probe_walk_vs_pack.py)
+WALK_DENSITY_MAX = 1 / 8
 ENGINE_OF = {
     spmm_pattern.PatternMat: "pattern",
     spmm_pattern_sparse.BlockPatternMat: "block",
@@ -61,19 +67,37 @@ def _edge_or_gather(graph: CSRData) -> str:
     return "edge" if fill >= EDGE_FILL_MIN else "gather"
 
 
-def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = False) -> tuple[str, str]:
-    """(engine, reason) that impl="auto" picks for ``graph`` on a card of
-    ``card_bytes`` memory, or on the CPU for ``card_bytes=None``, by the JAX
-    package's rule (train.py:161-187). For a raw binary adjacency: the block
-    pair when tile occupancy < BLOCK_TILE_OCC_MAX or plane occupancy <
-    BLOCK_PLANE_OCC_MAX and its store (tile occupancy x n_pad²/8) fits
-    PATTERN_MEM_FRACTION of the card and the builder's int32 addressing
-    (``spmm_pattern_sparse.MAX_STORE_WORDS``); else the pattern pair when its
-    n_pad²/8 pack fits; else :func:`_edge_or_gather`, as for a weighted
-    adjacency. On the CPU the COO engine. The occupancies come from the CSR
-    arrays; a graph known by its counts only skips the block rule."""
+def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = False,
+                pattern_dtype: str = "bfloat16") -> tuple[str, str]:
+    """(engine, reason) of :func:`_auto_pick`."""
+    impl, why, _ = _auto_pick(graph, card_bytes, pre_normalized, pattern_dtype)
+    return impl, why
+
+
+def _auto_pick(graph: CSRData, card_bytes: int | None, pre_normalized: bool,
+               pattern_dtype: str) -> tuple[str, str, bool]:
+    """(engine, reason, stream_bf16) that impl="auto" picks for ``graph`` on
+    a card of ``card_bytes`` memory, or on the CPU for ``card_bytes=None``,
+    with the products' operand in ``pattern_dtype``. From the JAX package's rule
+    (train.py:161-187), for a raw binary adjacency: the block pair when tile
+    occupancy < BLOCK_TILE_OCC_MAX or plane occupancy < BLOCK_PLANE_OCC_MAX
+    and its store (tile occupancy x n_pad²/8) fits PATTERN_MEM_FRACTION of
+    the card and the builder's int32 addressing
+    (``spmm_pattern_sparse.MAX_STORE_WORDS``); else, when the n_pad²/8 pack
+    fits, the binary CSR walk ("gather") where its kernel takes the operand
+    dtype (float32, bfloat16), at most WALK_DENSITY_MAX of the pack's bits
+    are set, the entries fit its int32 indices and its two index lists
+    (4·nnz + 8·(n + 1) bytes each) the pack's budget; else the pattern
+    pair; else :func:`_edge_or_gather`, as for a weighted adjacency. The
+    JAX rule keeps the pattern pair where the pack fits (ROADMAP queue 3).
+    On the CPU the COO engine. The occupancies come from the CSR arrays; a
+    graph known by its counts only skips the block rule.
+
+    ``stream_bf16`` is true only where the walk takes a pack's place with a
+    bfloat16 operand: it then keeps the pattern pair's rounding points, the
+    operand streamed in bfloat16. Every other gather pick is float32."""
     if card_bytes is None:
-        return "xla", "no card"
+        return "xla", "no card", False
     pack_gb, budget_gb = spmm_pattern.pack_budget_gb(graph.nrows, card_bytes)
     binary = not pre_normalized and spmm_pattern.is_binary(graph)
     occ = ""
@@ -83,13 +107,25 @@ def auto_engine(graph: CSRData, card_bytes: int | None, pre_normalized: bool = F
         sparse_tiles = tile_occ < BLOCK_TILE_OCC_MAX or plane_occ < BLOCK_PLANE_OCC_MAX
         store_gb, addressable_gb = tile_occ * pack_gb, spmm_pattern_sparse.MAX_STORE_WORDS * 4 / 1e9
         if sparse_tiles and store_gb <= budget_gb and store_gb < addressable_gb:
-            return "block", f"binary adjacency, {occ}block store {store_gb:.2f} GB within {budget_gb:.1f} GB"
+            return "block", f"binary adjacency, {occ}block store {store_gb:.2f} GB within {budget_gb:.1f} GB", False
     if not pre_normalized and spmm_pattern.pattern_feasible(graph, card_bytes):
-        return "pattern", f"binary adjacency, {occ}bit pack {pack_gb:.2f} GB within {budget_gb:.1f} GB"
+        bits = pack_gb * 8e9
+        walk_gb = (4 * graph.nnz + 8 * (graph.nrows + 1)) / 1e9
+        limits = (
+            (spmm_pattern.DTYPES.get(pattern_dtype) in spmm_gather._B_CODE, "which the CSR walk does not take"),
+            (graph.nnz <= WALK_DENSITY_MAX * bits, f"denser than 1 bit in {1 / WALK_DENSITY_MAX:g}"),
+            (graph.nnz < 2**31, "2^31 entries or more (the walk's int32 indices)"),
+            (2 * walk_gb <= budget_gb, "two index lists past the budget"),
+        )
+        past = [text for ok, text in limits if not ok]
+        why = (f"binary adjacency, {occ}bit pack {pack_gb:.3g} GB within {budget_gb:.1f} GB, 1 bit in"
+               f" {bits / max(graph.nnz, 1):.3g} set, CSR index list {walk_gb:.3g} GB, {pattern_dtype} operand"
+               + "".join(f", {text}" for text in past))
+        return ("pattern", why, False) if past else ("gather", why, pattern_dtype == "bfloat16")
     why = f"bit pack {pack_gb:.1f} GB over {budget_gb:.1f} GB" if binary else "weighted adjacency"
     fill = spmm_edges.expected_fill(graph.nrows, graph.ncols, graph.nnz)
     impl = _edge_or_gather(graph)
-    return impl, f"{why}, expected edge-tile fill {fill:.3f} {'>=' if impl == 'edge' else '<'} {EDGE_FILL_MIN}"
+    return impl, f"{why}, expected edge-tile fill {fill:.3f} {'>=' if impl == 'edge' else '<'} {EDGE_FILL_MIN}", False
 
 
 def card_memory(dev: torch.device) -> int | None:
@@ -198,7 +234,11 @@ def build_agg_pair(
 
     impl:
       "auto"    — :func:`auto_engine`; on CUDA one stderr line names the
-                  engine and the reason.
+                  engine and the reason. Where it takes the binary CSR walk
+                  over a pack that fits, the walk keeps the pattern pair's
+                  rounding points: a bfloat16 ``pattern_dtype`` streams the
+                  (pre-scaled) operand in bfloat16 (:func:`_auto_pick`'s
+                  ``stream_bf16``).
       "pattern" — the bit-packed dense-pattern kernel pair (raw binary
                   adjacency only).
       "block"   — the block-sparse pattern kernel pair over the occupied
@@ -219,9 +259,10 @@ def build_agg_pair(
     if impl not in IMPLS:
         raise ValueError(f"unknown aggregation impl {impl!r} (expected {'/'.join(IMPLS)}; 'halo' is a "
                          "distributed mode — see parallel.dist_halo)")
+    stream_bf16 = False
     if impl == "auto":
         card = card_memory(dev)
-        impl, why = auto_engine(graph, card, pre_normalized)
+        impl, why, stream_bf16 = _auto_pick(graph, card, pre_normalized, pattern_dtype)
         if card is not None:
             print(f"aggregation engine: {impl} (auto: {why})", file=sys.stderr)
     if impl in ("pattern", "block"):
@@ -232,7 +273,7 @@ def build_agg_pair(
         fwd, bwd = build(graph, dtype=pattern_dtype, device=dev)
         return AggPair(fwd=fwd, bwd=bwd)
     if impl == "gather" and not pre_normalized and bool((graph.data == 1).all()):
-        fwd, bwd = spmm_gather.gather_pair_from_binary_csr(graph, device=dev)
+        fwd, bwd = spmm_gather.gather_pair_from_binary_csr(graph, device=dev, stream_bf16=stream_bf16)
         return AggPair(fwd=fwd, bwd=bwd)
     a = graph if pre_normalized else sparse.normalize(graph, axis=True)
     a_t = sparse.transpose(a)

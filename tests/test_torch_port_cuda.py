@@ -299,6 +299,43 @@ def test_auto_picks_edge_for_a_weighted_graph():
     assert isinstance(build_agg_pair(g, impl="auto", device="cuda").fwd, se.EdgeTileMat)
 
 
+def test_auto_takes_the_binary_csr_walk_on_a_uniform_graph():
+    """A uniform binary graph (n = 50,000, 20 draws a row): its 354 MB pack
+    fits the card, but about 1 bit in 2,600 is set, far below
+    WALK_DENSITY_MAX, so auto takes the binary gather pair, streaming
+    bfloat16. One GCN parity step at the
+    benchmark's sizes (608, 128, 128, 128, 41) launches only ``gather``
+    bfloat16: 3 forward and 2 backward products at d_pad 128, 1 and 1 at 48,
+    and no pattern kernel. Its loss is within rtol 1e-5 and every gradient
+    leaf within ||walk - pattern|| <= 1e-4 ||pattern|| of the same step on
+    the pattern pair."""
+    from mg_gcn_tpu_torch.models.gcn import GCNConfig, init_params, loss_and_grad
+
+    n = 50_000
+    g = sparse.random_graph(n, 20, seed=6)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((n, 608)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 41, n)).cuda()
+    config = GCNConfig(sizes=(608, 128, 128, 128, 41))
+    params = init_params(config, device="cuda")
+    walk = build_agg_pair(g, impl="auto", pattern_dtype="bfloat16", device="cuda")
+    assert isinstance(walk.fwd, sg.GatherMat) and walk.fwd.stream_bf16 and walk.bwd.stream_bf16
+    for kernel in (sg.gather, sp.pattern_fwd, sp.pattern_bwd):
+        kernel.launches.clear()
+    loss_w, _, grads_w = loss_and_grad(params, walk, x, y, config)
+    torch.cuda.synchronize()
+    assert dict(sg.gather.launches) == {("bfloat16", 128): 5, ("bfloat16", 48): 2}
+    assert not sum(sp.pattern_fwd.launches.values()) and not sum(sp.pattern_bwd.launches.values())
+    del walk
+    pack = build_agg_pair(g, impl="pattern", pattern_dtype="bfloat16", device="cuda")
+    loss_p, _, grads_p = loss_and_grad(params, pack, x, y, config)
+    np.testing.assert_allclose(float(loss_w), float(loss_p), rtol=1e-5)
+    for layer_p, layer_w in zip(grads_p, grads_w):
+        for k in layer_p:
+            diff = torch.linalg.vector_norm(layer_w[k] - layer_p[k])
+            assert diff <= 1e-4 * torch.linalg.vector_norm(layer_p[k]), k
+
+
 # ---------------------------------------------------------------------------
 # the attention kernels: sddmm, sddmm_qskip and edge_t
 

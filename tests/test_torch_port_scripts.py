@@ -110,3 +110,25 @@ def test_products_and_headline_defaults():
     assert (p.n, p.deg, p.classes, p.features, p.hidden, p.epochs) == (2_449_029, 50, 48, 100, [256, 256], 30)
     assert (h.n, h.deg, h.classes, h.features, h.hidden, h.heads, h.epochs) == (232_968, 493, 41, 64, 64, 2, 30)
     assert trajectory_parity.parse_args([]).epochs == 20 and trajectory_parity.parse_args([]).d == 64
+
+
+def test_probe_walk_vs_pack_builds_one_draw_for_both_engines():
+    """The probe's graph on the CPU: its pack and CSR hold one draw (the
+    plain ``pattern_bwd`` equals ``gather`` inside ``probe``), about 1 bit
+    in k set, and the line's bytes are the pack's and the index list's."""
+    from mg_gcn_tpu_torch.scripts import probe_walk_vs_pack
+
+    lines = probe_walk_vs_pack.main("--n 4096 --inv-density 8 64 --reps 1".split())
+    for line, k in zip(lines, (8, 64)):
+        assert line["n"] == 4096 and line["inv_density"] == k
+        assert abs(line["nnz"] * k / 4096**2 - 1) < 0.02
+        assert line["pack_gb"] == 4096**2 / 8 / 1e9 and line["index_gb"] == (4 * line["nnz"] + 8 * 4097) / 1e9
+        names = ("pattern_fwd", "pattern_bwd", "gather")
+        assert set(line["ms"]) == {f"{name}.{d}" for name in names for d in (128, 48)}
+    from mg_gcn_tpu_torch.ops.spmm_pattern import decode_pattern
+
+    pack, indptr, indices = probe_walk_vs_pack.uniform_graph(4096, 8, seed=1, dev=torch.device("cpu"))
+    rows, cols = decode_pattern(pack, 0, 4096)
+    key = (rows * 4096 + cols).sort().values
+    csr_rows = torch.repeat_interleave(torch.arange(4096), indptr.diff())
+    assert int(indptr[-1]) == indices.numel() and torch.equal(key, csr_rows * 4096 + indices.long())

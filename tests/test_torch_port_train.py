@@ -184,12 +184,12 @@ GB = 10**9
 @pytest.mark.parametrize(
     "n,nnz,binary,card,want",
     [
-        (232_968, 114_964_049, True, 80 * GB, "pattern"),  # Reddit, pack 6.8 GB
+        (232_968, 114_964_049, True, 80 * GB, "gather"),  # Reddit: index list 0.46 GB, pack 6.8 GB
         (232_968, 114_964_049, False, 80 * GB, "edge"),  # weighted Reddit
         (232_968, 114_964_049, True, 10 * GB, "edge"),  # pack over half of 10 GB
         (2_449_029, 124_900_000, True, 80 * GB, "gather"),  # products: pack 750 GB
         (2_449_029, 124_900_000, False, 80 * GB, "gather"),
-        (2_449_029, 124_900_000, True, 2000 * GB, "pattern"),
+        (2_449_029, 124_900_000, True, 2000 * GB, "gather"),  # the pack fits: index list 0.52 GB, pack 750 GB
         (232_968, 114_964_049, True, None, "xla"),  # the CPU
     ],
 )
@@ -198,7 +198,91 @@ def test_auto_engine_is_a_function_of_card_memory(n, nnz, binary, card, want):
     impl, why = ttrain.auto_engine(g, card)
     assert impl == want
     if want in ("edge", "gather"):
-        assert "expected edge-tile fill" in why
+        # the walk in a fitting pack's place names its index list; the others the edge-tile fill
+        walk = f"CSR index list {(4 * nnz + 8 * (n + 1)) / 1e9:.3g} GB, bfloat16 operand"
+        assert ("expected edge-tile fill" in why) != (walk in why)
+
+
+@pytest.mark.parametrize(
+    "n,nnz,dtype,card,want,past",
+    [
+        (232_968, 114_964_049, "int8", 80 * GB, "pattern", "which the CSR walk does not take"),
+        (232_968, 114_964_049, "float32", 80 * GB, "gather", None),
+        (20_000, 20_000**2 // 4, "bfloat16", 80 * GB, "pattern", "denser than 1 bit in 8"),  # 1 bit in 4.2
+        (20_000, 20_000**2 // 16, "bfloat16", 80 * GB, "gather", None),  # 1 bit in 16.8 (the bytes favour the pack)
+        (20_000, 20_000**2 // 40, "bfloat16", 80 * GB, "gather", None),
+        # 1 bit in 102, but past the walk's int32 indices; the 31.7 GB pack fits
+        (500_000, 2_500_000_000, "bfloat16", 80 * GB, "pattern", "2^31 entries or more"),
+        # 1 bit in 46, the pack's 11.5 GB within 15 GB, two 8 GB index lists not
+        (300_000, 2_000_000_000, "bfloat16", 30 * GB, "pattern", "two index lists past the budget"),
+    ],
+)
+def test_auto_engine_weighs_the_index_list_against_the_pack(n, nnz, dtype, card, want, past):
+    """Where the n_pad²/8 pack fits, auto takes the binary CSR walk where its
+    kernel takes the operand dtype, at most WALK_DENSITY_MAX of the pack's
+    bits are set, the entries fit int32 indices and its two index lists
+    (4·nnz + 8·(n + 1) bytes each) fit the pack's budget; else the pattern
+    pair. The reason names both byte counts, the density and the dtype, and
+    each limit the walk is past."""
+    from mg_gcn_tpu_torch.ops.spmm_pattern import N_ALIGN, round_up
+
+    g = SimpleNamespace(nrows=n, ncols=n, nnz=nnz, data=np.ones(3, np.float32))
+    impl, why = ttrain.auto_engine(g, card, pattern_dtype=dtype)
+    assert impl == want
+    bits = round_up(n, N_ALIGN) ** 2
+    pack_gb, walk_gb = bits / 8 / 1e9, (4 * nnz + 8 * (n + 1)) / 1e9
+    assert (nnz <= bits / 8) == (past != "denser than 1 bit in 8")
+    assert (f"bit pack {pack_gb:.3g} GB within {card / 2e9:.1f} GB, 1 bit in {bits / nnz:.3g} set,"
+            f" CSR index list {walk_gb:.3g} GB, {dtype} operand") in why
+    assert why.count(", ") == 4 + (past is not None) and (past is None or past in why)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_auto_walk_keeps_the_pattern_pairs_rounding_points(monkeypatch, dtype):
+    """auto's binary CSR walk in the pattern pair's place (a card of 80 GB,
+    its size passed in through ``card_memory``): a GatherMat pair that
+    streams bfloat16 exactly for a bfloat16 operand. At d = 41 and 128 each
+    walk's kernel gets the pattern kernel's operand bit for bit (the
+    backward's pre-scaled in float32, then rounded) on every row an entry
+    reads, and the products agree within float32 summation-order tolerance.
+    The graph has empty columns, the only rows where the two scales differ
+    (1/max(cs, 1) against 0)."""
+    from mg_gcn_tpu_torch.ops import spmm_gather as sg
+    from mg_gcn_tpu_torch.ops import spmm_pattern as sp
+    from mg_gcn_tpu_torch.ops.spmm import spmm
+
+    g = sparse.random_graph(3000, 4, seed=7, self_loops=False)
+    read = torch.from_numpy(np.bincount(g.indices, minlength=g.ncols) > 0)
+    assert not bool(read.all())
+    monkeypatch.setattr(ttrain, "card_memory", lambda dev: 80 * GB)
+    walk = ttrain.build_agg_pair(g, impl="auto", pattern_dtype=dtype, device="cpu")
+    pack = ttrain.build_agg_pair(g, impl="pattern", pattern_dtype=dtype, device="cpu")
+    assert isinstance(walk.fwd, GatherMat) and isinstance(walk.bwd, GatherMat) and not walk.fwd.has_w
+    assert walk.fwd.stream_bf16 == walk.bwd.stream_bf16 == (dtype == "bfloat16")
+    # only auto's pick in a pack's place streams bfloat16; --impl gather stays float32
+    assert not ttrain.build_agg_pair(g, impl="gather", pattern_dtype=dtype, device="cpu").fwd.stream_bf16
+
+    operands = {}
+
+    def keep_operand(name, kernel):
+        def run(*args):
+            operands[name] = args[-1]
+            return kernel(*args)
+        return run
+
+    monkeypatch.setattr(sg, "gather", keep_operand("walk", sg.gather))
+    monkeypatch.setattr(sp, "pattern_fwd", keep_operand("pack", sp.pattern_fwd))
+    monkeypatch.setattr(sp, "pattern_bwd", keep_operand("pack", sp.pattern_bwd))
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    rng = np.random.default_rng(3)
+    for d in (41, 128):
+        b = torch.from_numpy(rng.standard_normal((g.nrows, d)).astype(np.float32))
+        for side in ("fwd", "bwd"):
+            got, want = spmm(getattr(walk, side), b), spmm(getattr(pack, side), b)
+            op_walk, op_pack = operands["walk"][:, :d], operands["pack"][: g.nrows, :d]
+            assert op_walk.dtype == op_pack.dtype == sp.DTYPES[dtype]
+            assert torch.equal(op_walk[read].view(bits), op_pack[read].view(bits)), (d, side)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
 
 
 def test_auto_engine_pre_normalized_skips_pattern():
@@ -381,20 +465,22 @@ def test_cli_later_slices_exit_2(args, capsys, tmp_path, monkeypatch):
     "which,card,want",
     [
         ("banded", 80 * GB, "block"),  # tile occupancy 0.05: the block store
-        ("uniform", 80 * GB, "pattern"),  # every tile occupied
+        ("uniform", 80 * GB, "gather"),  # every tile occupied; 1 bit in 470 set: the binary CSR walk
         ("banded", 10**6, "edge"),  # neither store fits half of 1 MB
         ("banded-weighted", 80 * GB, "edge"),
         ("banded-pre-normalized", 80 * GB, "edge"),
         # planes sparse (0.19) but the store (~11.5 GB) is past the block
-        # builder's int32 addressing though within half the card: the dense pack
-        ("uniform-past-int32", 80 * GB, "pattern"),
+        # builder's int32 addressing though within half the card: the dense
+        # pack fits, and 1 bit in 300,000 is set: the binary CSR walk
+        ("uniform-past-int32", 80 * GB, "gather"),
     ],
 )
 def test_auto_engine_block_rule(which, card, want):
     """The JAX package's rule (train.py:165-179) on real graphs: block when
     tiles or planes are sparse and the store fits the card and the builder's
-    addressing, else pattern when the dense pack fits, else the O(nnz)
-    engines; the reason names both occupancies."""
+    addressing, else, when the dense pack fits, the binary CSR walk on a
+    graph no denser than WALK_DENSITY_MAX, else the O(nnz) engines; the
+    reason names both occupancies."""
     from mg_gcn_tpu.ops import spmm_pattern_sparse as jsps
     from mg_gcn_tpu_torch.ops import spmm_pattern_sparse as sps
 
