@@ -4,10 +4,13 @@ main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE) and
 [--skip L1,...]`` on one card, with ``-P N -R 1``
 GCN, SAGE and GAT row-partitioned over N partitions driven by this
 process (``parallel/dist.py``, ``parallel/dist_halo.py``,
-``parallel/dist_gat.py``), and with ``-P N -R 0`` GCN column-parallel
-(``parallel/dist_col.py``); ``infer``
-loads a checkpoint and writes the forward pass's predictions; ``pagerank``
-runs the power iteration. ``--multihost`` joins a run of several processes
+``parallel/dist_gat.py``; each model's layers are ``models/``'s, one block
+a partition). At ``-P N`` GAT refuses ``--edge-weighted`` (the partitions'
+blocks hold no edge values) and ``--activation elu`` / ``--skip``, which
+the shared layers would run but no test holds there yet. With ``-P N -R 0``
+GCN runs column-parallel (``parallel/dist_col.py``). ``infer`` loads a
+checkpoint and writes the forward pass's predictions; ``pagerank`` runs the
+power iteration. ``--multihost`` joins a run of several processes
 (``parallel/multihost.py``, from the ``MG_GCN_*`` variables): ``-P N -R 1``
 GCN, SAGE and GAT and ``-P N -R 0`` split their partitions over the
 processes, GCN and SAGE reading only each process's row slabs of the graph

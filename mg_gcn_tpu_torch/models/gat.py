@@ -17,6 +17,10 @@ tensors (``W``, ``a_dst``, ``a_src``, ``b``), the JAX package's tree, so
 ``convert`` carries them across; the skip adds none. Training is exact
 autograd through the attention ops of ``ops/edge_attention.py``.
 
+The layer stack is written once, over a list of row blocks with a head's
+attention as a callable (:func:`forward_blocks`): one block on one card,
+one a partition with the ring attention of ``parallel/dist_gat.py``.
+
 Phase scopes (``timers.scope``), layer l: ``l_0_matmul-gemm`` around the
 projection and the score vectors, ``l_0_matmul-spmm`` around each head's
 scores, softmax and weighted aggregation and the heads' combination,
@@ -163,31 +167,47 @@ def _activate(h: torch.Tensor, config: GATConfig) -> torch.Tensor:
     return ew.leaky_relu(h, config.leaky_slope)
 
 
-def forward(params: Sequence[dict], graph, x: torch.Tensor, config: GATConfig) -> torch.Tensor:
-    mat, sched = graph
-    h = x
-    bias = _log_weight_bias(mat) if config.edge_weighted else None
-    for i, layer in enumerate(params):
+def forward_blocks(params: Sequence, attend, xs, config: GATConfig) -> list:
+    """The layer stack over blocks of rows: ``params[j]`` is the parameter
+    list block j computes with and ``xs[j]`` its input rows (one block on
+    one card, one a partition in ``parallel/dist_gat.py``).
+    ``attend(zh, e_dst, e_src, tag)`` is one head's attention: the blocks'
+    projected features and score vectors to their aggregated blocks, the
+    layer index ``tag`` naming the attention ops' backward scopes. The
+    blocks' logits."""
+    hs = xs
+    for i in range(config.num_layers):
+        layers = [p[i] for p in params]
         out, H = config.sizes[i + 1], config.heads_of(i)
         hidden = i + 1 < config.num_layers
         with scope(f"{i}_0_matmul-gemm"):
-            z = h @ layer["W"]  # (n, H*out)
-            zs = [z[:, hd * out : (hd + 1) * out] for hd in range(H)]
-            e_dst = [zh @ layer["a_dst"][hd][:, None] for hd, zh in enumerate(zs)]  # (n, 1)
-            e_src = [zh @ layer["a_src"][hd][:, None] for hd, zh in enumerate(zs)]
+            zs = [h @ lp["W"] for h, lp in zip(hs, layers)]  # (rows, H*out)
+            zh = [[z[:, hd * out : (hd + 1) * out] for z in zs] for hd in range(H)]
+            e_dst = [[z @ lp["a_dst"][hd][:, None] for z, lp in zip(zh[hd], layers)] for hd in range(H)]  # (rows, 1)
+            e_src = [[z @ lp["a_src"][hd][:, None] for z, lp in zip(zh[hd], layers)] for hd in range(H)]
         with scope(f"{i}_0_matmul-spmm"):
-            heads = [_attend_head(mat, sched, zh, ed, es, config.att_slope, bias, tag=i)
-                     for zh, ed, es in zip(zs, e_dst, e_src)]
+            heads = [attend(zh[hd], e_dst[hd], e_src[hd], i) for hd in range(H)]
             # concatenate the heads on a hidden layer, average them on the output
-            y = (torch.cat(heads, dim=1) if hidden else sum(heads) / H) + layer["b"]
+            ys = [(torch.cat([hd[j] for hd in heads], dim=1) if hidden else sum(hd[j] for hd in heads) / H) + lp["b"]
+                  for j, lp in enumerate(layers)]
         if i in config.skip:
             with scope(f"{i}_0_residual"):
-                y = y + h
+                ys = [y + h for y, h in zip(ys, hs)]
         if hidden:
             with scope(f"{i}_0_activation"):
-                y = _activate(y, config)
-        h = y
-    return h
+                ys = [_activate(y, config) for y in ys]
+        hs = ys
+    return hs
+
+
+def forward(params: Sequence[dict], graph, x: torch.Tensor, config: GATConfig) -> torch.Tensor:
+    mat, sched = graph
+    bias = _log_weight_bias(mat) if config.edge_weighted else None
+
+    def attend(zh, e_dst, e_src, tag):
+        return [_attend_head(mat, sched, zh[0], e_dst[0], e_src[0], config.att_slope, bias, tag=tag)]
+
+    return forward_blocks([params], attend, [x], config)[0]
 
 
 def loss_fn(params, graph, x, y, config: GATConfig, mask=None):

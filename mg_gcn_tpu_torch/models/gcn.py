@@ -19,10 +19,17 @@ Layer schedule (gcn.hpp:437-458): if ``out <= in`` compute ``Â(HW + b)``
 LeakyReLU(0.01) on every layer but the last; an optional residual (identity
 when ``in == out``, else a projection) after the activation.
 
+The layer stack is written once, over a list of row blocks with the
+aggregation as a callable over the list (:func:`forward_blocks`,
+:func:`loss_and_grad_parity_blocks`): the one-card model is the case of one
+block, and the row-partitioned step (``parallel/dist.py``) passes one block
+a partition, its exchange-carrying products and its partition-summed loss.
+
 Each phase runs in a :func:`~..timers.scope` named with the reference's
 timer key (gcn.hpp register_timer sites), the JAX package's ``named_scope``
 names: ``{layer}_{0|1}_{matmul-gemm|matmul-spmm|activation|residual}`` and
-``{L}_loss-layer``, from which ``--time-phases`` credits the card's time
+``{L}_loss-layer``, each around the loop over the blocks, from which
+``--time-phases`` credits the card's time
 (``diagnostics.profile_fused_step``). In the exact mode the backward runs
 in autograd, outside every scope.
 """
@@ -104,33 +111,56 @@ def init_params(
     return params
 
 
-def _layer_forward(layer: dict, meta: dict, pair: AggPair, h: torch.Tensor, slope: float, tag: str = "L"):
-    """One GCN layer forward; returns (output, cache for the backward).
-    ``tag`` (the layer index) names the phase scopes."""
-    w, b = layer["W"], layer["b"]
+def _layer_forward(layers, meta: dict, agg_fwd, hs, slope: float, tag: str = "L"):
+    """One GCN layer on every block; ``layers[j]`` is the layer's
+    parameters block j computes with and ``agg_fwd`` maps the blocks to
+    their aggregated blocks. Returns (outputs, cache for the backward).
+    ``tag`` (the layer index) names the phase scopes, each around the loop
+    over the blocks."""
     if meta["lin_first"]:
         with scope(f"{tag}_0_matmul-gemm"):
-            hw = h @ w + b  # bias precedes aggregation, gcn.hpp:116-123
+            hw = [h @ lp["W"] + lp["b"] for h, lp in zip(hs, layers)]  # bias precedes aggregation, gcn.hpp:116-123
         with scope(f"{tag}_0_matmul-spmm"):
-            ahw = aggregate(pair, hw)
+            ahw = agg_fwd(hw)
+        del hw
     else:
         with scope(f"{tag}_0_matmul-spmm"):
-            hw = aggregate(pair, h)
+            ah = agg_fwd(hs)
         with scope(f"{tag}_0_matmul-gemm"):
-            ahw = hw @ w + b
+            ahw = [a @ lp["W"] + lp["b"] for a, lp in zip(ah, layers)]
+        del ah
     if meta["activation"]:
         with scope(f"{tag}_0_activation"):
-            ahw = ew.leaky_relu(ahw, slope)
+            ahw = [ew.leaky_relu(a, slope) for a in ahw]
     if meta["res_proj"]:
         with scope(f"{tag}_0_residual"):
-            ahw = ahw + h @ layer["Wres"] + layer["bres"]
+            ahw = [a + h @ lp["Wres"] + lp["bres"] for a, h, lp in zip(ahw, hs, layers)]
     elif meta["res_identity"]:
         with scope(f"{tag}_0_residual"):
-            ahw = ahw + h
+            ahw = [a + h for a, h in zip(ahw, hs)]
     # "post" is also the activation-sign source of the parity backward: the
     # reference reuses the overwritten AHW buffer (post activation AND
     # residual) for leaky_relu_backward (gcn.hpp:465)
-    return ahw, dict(h=h, post=ahw)
+    return ahw, dict(h=hs, post=ahw)
+
+
+def forward_blocks(params: Sequence, agg_fwd, xs, config: GCNConfig, return_caches: bool = False):
+    """The layer stack over blocks of rows: ``params[j]`` is the parameter
+    list block j computes with, ``xs[j]`` its input rows, and ``agg_fwd``
+    maps the blocks to their aggregated blocks (one block on one card, one
+    a partition in ``parallel/dist.py``). The blocks' logits (and the
+    per-layer caches if requested)."""
+    hs, caches = xs, []
+    for i in range(config.num_layers):
+        hs, cache = _layer_forward([p[i] for p in params], config.layer_meta(i), agg_fwd, hs, config.leaky_slope,
+                                   tag=str(i))
+        caches.append(cache)
+    return (hs, caches) if return_caches else hs
+
+
+def _one_block(pair: AggPair):
+    """(agg_fwd, agg_bwd) of the one-card pair on a list of one block."""
+    return (lambda hs: [aggregate(pair, h) for h in hs]), (lambda gs: [spmm(pair.bwd, g) for g in gs])
 
 
 def forward(
@@ -141,65 +171,69 @@ def forward(
     return_caches: bool = False,
 ):
     """Model forward: logits (and the per-layer caches if requested)."""
-    h = x
-    caches = []
-    for i, layer in enumerate(params):
-        h, cache = _layer_forward(layer, config.layer_meta(i), pair, h, config.leaky_slope, tag=str(i))
-        caches.append(cache)
-    return (h, caches) if return_caches else h
+    hs, caches = forward_blocks([params], _one_block(pair)[0], [x], config, return_caches=True)
+    if not return_caches:
+        return hs[0]
+    return hs[0], [{k: v[0] for k, v in cache.items()} for cache in caches]
 
 
-def _layer_backward(
-    layer: dict,
-    meta: dict,
-    pair: AggPair,
-    cache: dict,
-    g: torch.Tensor,
-    slope: float,
-    need_input_grad: bool,
-    tag: str = "L",
-):
-    """Reference-parity backward of one layer (gcn.hpp:460-489). A phase
-    with no work (layer 0's skipped SpMM) opens no scope, as a JAX
-    named_scope around no op leaves no trace."""
-    grads = {}
-    t = g
+def _layer_backward(layers, meta: dict, agg_bwd, cache: dict, gs, slope: float, need_input_grad: bool,
+                    tag: str = "L"):
+    """Reference-parity backward of one layer on every block
+    (gcn.hpp:460-489): the blocks' gradients (the caller sums them) and
+    their input gradients. A phase with no work (layer 0's skipped SpMM)
+    opens no scope, as a JAX named_scope around no op leaves no trace."""
+    ts = gs
     if meta["activation"]:
         with scope(f"{tag}_1_activation"):
-            t = ew.leaky_relu_grad(cache["post"], g, slope)
-    w = layer["W"]
+            ts = [ew.leaky_relu_grad(p, g, slope) for p, g in zip(cache["post"], gs)]
     g_out = None
     if meta["lin_first"]:
-        g_hw = t
+        src = ts
         if meta["backward_spmm"]:
             with scope(f"{tag}_1_matmul-spmm"):
-                g_hw = spmm(pair.bwd, t)
+                src = agg_bwd(ts)
         with scope(f"{tag}_1_matmul-gemm"):
-            grads["b"] = torch.sum(g_hw, dim=0, keepdim=True)
-            grads["W"] = cache["h"].T @ g_hw
+            grads = [dict(b=torch.sum(x, dim=0, keepdim=True), W=h.T @ x) for x, h in zip(src, cache["h"])]
             if need_input_grad:
-                g_out = g_hw @ w.T
+                g_out = [x @ lp["W"].T for x, lp in zip(src, layers)]
     else:
         with scope(f"{tag}_1_matmul-gemm"):
-            grads["b"] = torch.sum(t, dim=0, keepdim=True)
             # deliberate reference deviation: the layer input, not ÂH
             # (lin.setX(H), gcn.hpp:477) — the shared HW buffer is long gone
-            grads["W"] = cache["h"].T @ t
-            g_hw = t @ w.T if need_input_grad else None
-        if need_input_grad:
-            g_out = g_hw
-            if meta["backward_spmm"]:
-                with scope(f"{tag}_1_matmul-spmm"):
-                    g_out = spmm(pair.bwd, g_hw)
+            grads = [dict(b=torch.sum(t, dim=0, keepdim=True), W=h.T @ t) for t, h in zip(ts, cache["h"])]
+            g_out = [t @ lp["W"].T for t, lp in zip(ts, layers)] if need_input_grad else None
+        if need_input_grad and meta["backward_spmm"]:
+            with scope(f"{tag}_1_matmul-spmm"):
+                g_out = agg_bwd(g_out)
     if meta["res_proj"]:
         with scope(f"{tag}_1_residual"):
-            grads["bres"] = torch.sum(g, dim=0, keepdim=True)
-            grads["Wres"] = cache["h"].T @ g
+            for gr, g, h in zip(grads, gs, cache["h"]):
+                gr["bres"], gr["Wres"] = torch.sum(g, dim=0, keepdim=True), h.T @ g
             if g_out is not None:
-                g_out = g_out + g @ layer["Wres"].T
+                g_out = [o + g @ lp["Wres"].T for o, g, lp in zip(g_out, gs, layers)]
     elif meta["res_identity"] and g_out is not None:
-        g_out = g_out + g
+        g_out = [o + g for o, g in zip(g_out, gs)]
     return grads, g_out
+
+
+def loss_and_grad_parity_blocks(params: Sequence, agg_fwd, agg_bwd, xs, config: GCNConfig, loss_layer):
+    """Reference-parity forward and manual backward over blocks of rows
+    (:func:`forward_blocks`'s ``params``, ``agg_fwd`` and ``xs``; ``agg_bwd``
+    the backward matrix's products). ``loss_layer(logits)`` gives (loss,
+    acc, the blocks' logits gradients). Returns (loss, acc, grads),
+    ``grads[j]`` block j's gradients in the structure of its parameters,
+    for the caller to sum."""
+    hs, caches = forward_blocks(params, agg_fwd, xs, config, return_caches=True)
+    with scope(f"{config.num_layers}_loss-layer"):
+        loss, acc, gs = loss_layer(hs)
+    grads: list = [[None] * config.num_layers for _ in params]
+    for i in reversed(range(config.num_layers)):
+        layer_grads, gs = _layer_backward([p[i] for p in params], config.layer_meta(i), agg_bwd, caches[i], gs,
+                                          config.leaky_slope, need_input_grad=i > 0, tag=str(i))
+        for j, g in enumerate(layer_grads):
+            grads[j][i] = g
+    return loss, acc, grads
 
 
 def loss_and_grad_parity(
@@ -212,17 +246,13 @@ def loss_and_grad_parity(
 ):
     """Reference-exact forward + manual backward: (loss, acc, grads), grads
     in the structure of params."""
-    logits, caches = forward(params, pair, x, config, return_caches=True)
-    with scope(f"{len(params)}_loss-layer"):
-        out = softmax_xent(logits, y, mask)
-    g = out.grad
-    grads: list = [None] * len(params)
-    for i in reversed(range(len(params))):
-        grads[i], g = _layer_backward(
-            params[i], config.layer_meta(i), pair, caches[i], g, config.leaky_slope,
-            need_input_grad=i > 0, tag=str(i),
-        )
-    return out.loss, out.acc, grads
+
+    def loss_layer(logits):
+        out = softmax_xent(logits[0], y, mask)
+        return out.loss, out.acc, [out.grad]
+
+    loss, acc, grads = loss_and_grad_parity_blocks([params], *_one_block(pair), [x], config, loss_layer)
+    return loss, acc, grads[0]
 
 
 def loss_and_grad(params, pair, x, y, config: GCNConfig, mask=None):

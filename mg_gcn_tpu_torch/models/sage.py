@@ -12,6 +12,10 @@ the backward pattern walk, ``pattern_bwd``) and Mᵀ·G = Pᵀ·(r ⊙ G)
 shared pack. Training uses exact autograd gradients (there is no reference
 backward to mirror for this model); layer 0's aggregation of the features
 needs none, so an epoch launches L M-products and L - 1 Mᵀ-products.
+
+The layer stack is written once, over a list of row blocks
+(:func:`forward_blocks`): one block on one card, one a partition in
+``parallel/dist.py``.
 """
 
 from __future__ import annotations
@@ -131,16 +135,24 @@ def init_params(
     return params
 
 
-def forward(params: Sequence[dict], pair: AggPair, x: torch.Tensor, config: SAGEConfig) -> torch.Tensor:
-    h = x
-    for i, layer in enumerate(params):
-        neigh = aggregate(pair, h)
-        h = h @ layer["Wself"] + neigh @ layer["Wneigh"] + layer["b"]
+def forward_blocks(params: Sequence, agg, xs, config: SAGEConfig) -> list:
+    """The layer stack over blocks of rows: ``params[j]`` is the parameter
+    list block j computes with, ``xs[j]`` its input rows, and ``agg`` maps
+    the blocks to their M·H blocks, differentiably (one block on one card,
+    one a partition in ``parallel/dist.py``). The blocks' logits."""
+    hs = xs
+    for i in range(config.num_layers):
+        lps = [p[i] for p in params]
+        hs = [h @ lp["Wself"] + nb @ lp["Wneigh"] + lp["b"] for h, nb, lp in zip(hs, agg(hs), lps)]
         if i + 1 < config.num_layers:
-            h = ew.leaky_relu(h, config.leaky_slope)
+            hs = [ew.leaky_relu(h, config.leaky_slope) for h in hs]
             if config.l2_normalize:
-                h = l2_norm_rows(h)
-    return h
+                hs = [l2_norm_rows(h) for h in hs]
+    return hs
+
+
+def forward(params: Sequence[dict], pair: AggPair, x: torch.Tensor, config: SAGEConfig) -> torch.Tensor:
+    return forward_blocks([params], lambda hs: [aggregate(pair, h) for h in hs], [x], config)[0]
 
 
 def loss_fn(params, pair, x, y, config: SAGEConfig, mask=None):

@@ -38,13 +38,16 @@ The pairs: COO ring blocks (:class:`DistAggPair`), the bit-packed pattern
 pair (:class:`DistPatternPair`), ring blocks on the serial-gather kernel
 (:class:`DistGatherPair`) and the halo exchange (``parallel/dist_halo.py``).
 GCN trains on each (:func:`make_dist_train_step`), GraphSAGE on all but the
-pattern pair (:func:`make_dist_sage_train_step`).
+pattern pair (:func:`make_dist_sage_train_step`). The models' layer stacks
+are ``models/``'s, run with one block a partition; this module supplies
+what is particular to partitions: the aggregation over them, the loss
+across them and the sum of their gradients.
 
 The exchange runs on the partitions' current streams, before the products
 that read it; overlapping the two is later work (ROADMAP queue 1 item 9h).
 
-Traced (``timers``), the GCN step opens the one-card step's phase scopes,
-each around the loop over the partitions; every move between partitions
+Traced (``timers``), the GCN step opens the one-card step's phase scopes
+(``models.gcn``'s own), each around the loop over the partitions; every move between partitions
 opens an ``exchange`` span, every fold a ``psum`` span, and the bytes that
 land in another partition count to ``timers.EXCHANGE_BYTES`` under the
 partition they land in (:func:`_landed`).
@@ -52,6 +55,7 @@ partition they land in (:func:`_landed`).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
@@ -62,9 +66,9 @@ import torch.nn.functional as F
 from .. import resolve_device, sparse, timers
 from . import multihost
 from ..formats import CSRData
+from ..models import gcn, sage
 from ..models.gcn import GCNConfig
 from ..nn import adam
-from ..ops import elementwise as ew
 from ..ops import spmm_pattern as sp
 from ..ops.softmax_xent import softmax
 from ..ops.spmm import COOMat, spmm
@@ -891,75 +895,6 @@ def dist_aggregate_pattern(
 # the step
 
 
-def _dist_layer_forward(layers, meta: dict, agg_fwd, hs, slope: float, tag: str = "L"):
-    """One GCN layer on every partition; ``layers[j]`` is the layer's
-    parameters on partition j's device. Returns (outputs, cache). ``tag``
-    (the layer index) names the phase scopes, each around the loop over
-    the partitions, as ``models.gcn._layer_forward`` names them."""
-    if meta["lin_first"]:
-        with scope(f"{tag}_0_matmul-gemm"):
-            hw = [h @ lp["W"] + lp["b"] for h, lp in zip(hs, layers)]
-        with scope(f"{tag}_0_matmul-spmm"):
-            ahw = agg_fwd(hw)
-        del hw
-    else:
-        with scope(f"{tag}_0_matmul-spmm"):
-            ah = agg_fwd(hs)
-        with scope(f"{tag}_0_matmul-gemm"):
-            ahw = [a @ lp["W"] + lp["b"] for a, lp in zip(ah, layers)]
-        del ah
-    if meta["activation"]:
-        with scope(f"{tag}_0_activation"):
-            ahw = [ew.leaky_relu(a, slope) for a in ahw]
-    if meta["res_proj"]:
-        with scope(f"{tag}_0_residual"):
-            ahw = [a + h @ lp["Wres"] + lp["bres"] for a, h, lp in zip(ahw, hs, layers)]
-    elif meta["res_identity"]:
-        with scope(f"{tag}_0_residual"):
-            ahw = [a + h for a, h in zip(ahw, hs)]
-    return ahw, dict(h=hs, post=ahw)
-
-
-def _dist_layer_backward(layers, meta: dict, agg_bwd, cache: dict, gs, slope: float, need_input_grad: bool,
-                         tag: str = "L"):
-    """Reference-parity backward of one layer on every partition
-    (gcn.hpp:460-489): the partitions' local gradients (summed later) and
-    the input gradients; the phase scopes as
-    ``models.gcn._layer_backward``'s (layer 0's skipped product opens
-    none)."""
-    ts = gs
-    if meta["activation"]:
-        with scope(f"{tag}_1_activation"):
-            ts = [ew.leaky_relu_grad(p, g, slope) for p, g in zip(cache["post"], gs)]
-    g_out = None
-    if meta["lin_first"]:
-        src = ts
-        if meta["backward_spmm"]:
-            with scope(f"{tag}_1_matmul-spmm"):
-                src = agg_bwd(ts)
-        with scope(f"{tag}_1_matmul-gemm"):
-            grads = [dict(b=torch.sum(x, dim=0, keepdim=True), W=h.T @ x) for x, h in zip(src, cache["h"])]
-            if need_input_grad:
-                g_out = [x @ lp["W"].T for x, lp in zip(src, layers)]
-    else:
-        with scope(f"{tag}_1_matmul-gemm"):
-            # the layer input, not ÂH (lin.setX(H), gcn.hpp:477)
-            grads = [dict(b=torch.sum(t, dim=0, keepdim=True), W=h.T @ t) for t, h in zip(ts, cache["h"])]
-            g_out = [t @ lp["W"].T for t, lp in zip(ts, layers)] if need_input_grad else None
-        if need_input_grad and meta["backward_spmm"]:
-            with scope(f"{tag}_1_matmul-spmm"):
-                g_out = agg_bwd(g_out)
-    if meta["res_proj"]:
-        with scope(f"{tag}_1_residual"):
-            for gr, g, h in zip(grads, gs, cache["h"]):
-                gr["bres"], gr["Wres"] = torch.sum(g, dim=0, keepdim=True), h.T @ g
-            if g_out is not None:
-                g_out = [o + g @ lp["Wres"].T for o, g, lp in zip(g_out, gs, layers)]
-    elif meta["res_identity"] and g_out is not None:
-        g_out = [o + g for o, g in zip(g_out, gs)]
-    return grads, g_out
-
-
 def _dist_softmax_xent(logits, ys, n_total: int, masks, mesh: Ring):
     """Row-local softmax + NLL with partition-summed scalars (gcn.hpp:890-929):
     (loss, acc, per-partition logits gradients)."""
@@ -1001,26 +936,15 @@ def _local_xent_terms(logits, y, m, denom):
 def dist_loss_and_grad(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig, n_total: int, masks=None, *,
                        mesh: Ring):
     """Forward and reference-parity backward over this process's partitions
-    (``mg_gcn_tpu/parallel/dist.py:718-752``). ``params[i]`` is the
-    parameter tree on its i-th partition's device; ``agg_fwd`` / ``agg_bwd``
-    map the partitions' blocks to theirs. Returns (loss, acc, grads), the
-    gradients summed over every partition (of every process of ``mesh``) in
-    partition order, on the first local partition's device. Layer 0 skips
-    its backward product, as the reference does."""
+    (``mg_gcn_tpu/parallel/dist.py:718-752``): ``models.gcn``'s layer stack
+    with the partition-summed loss layer. ``params[i]`` is the parameter
+    tree on its i-th partition's device; ``agg_fwd`` / ``agg_bwd`` map the
+    partitions' blocks to theirs. Returns (loss, acc, grads), the gradients
+    summed over every partition (of every process of ``mesh``) in partition
+    order, on the first local partition's device."""
     with torch.no_grad():
-        hs, caches = xs, []
-        for i in range(config.num_layers):
-            hs, cache = _dist_layer_forward([p[i] for p in params], config.layer_meta(i), agg_fwd, hs,
-                                            config.leaky_slope, tag=str(i))
-            caches.append(cache)
-        with scope(f"{config.num_layers}_loss-layer"):
-            loss, acc, gs = _dist_softmax_xent(hs, ys, n_total, masks, mesh)
-        local: list = [[None] * config.num_layers for _ in params]
-        for i in reversed(range(config.num_layers)):
-            grads, gs = _dist_layer_backward([p[i] for p in params], config.layer_meta(i), agg_bwd, caches[i], gs,
-                                             config.leaky_slope, need_input_grad=i > 0, tag=str(i))
-            for j, g in enumerate(grads):
-                local[j][i] = g
+        loss, acc, local = gcn.loss_and_grad_parity_blocks(
+            params, agg_fwd, agg_bwd, xs, config, lambda hs: _dist_softmax_xent(hs, ys, n_total, masks, mesh))
     return loss, acc, _psum_trees(local, mesh)
 
 
@@ -1039,11 +963,14 @@ class _ExactAgg(torch.autograd.Function):
         return (None, None, *ctx.agg_bwd(list(gs)))
 
 
-def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks, mesh: Ring):
+def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks, mesh: Ring,
+                         loss_scope: str | None = None):
     """(loss, acc, grads) of the partitions' summed local loss shares by one
     backward pass: each partition has its own parameter leaves,
     ``logits_of(leaves)`` gives the partitions' logits, and the leaves'
-    gradients are summed over the partitions afterwards."""
+    gradients are summed over the partitions afterwards. ``loss_scope``
+    names the phase scope around the loss shares, where the model's
+    one-card step opens one."""
     leaves = [[{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in p] for p in params]
     if masks is None:
         ms = [None] * len(ys)
@@ -1052,8 +979,9 @@ def _exact_loss_and_grad(params, logits_of: Callable, ys, n_total: int, masks, m
         ms = [mk.to(torch.float32) for mk in masks]
         denom = torch.clamp(reduce_parts([torch.sum(mk) for mk in ms], torch.add, mesh), min=1.0)
     with torch.enable_grad():
-        terms = [_local_xent_terms(h, y, m, dn)
-                 for h, y, m, dn in zip(logits_of(leaves), ys, ms, to_parts(denom, mesh))]
+        logits = logits_of(leaves)
+        with scope(loss_scope) if loss_scope else contextlib.nullcontext():
+            terms = [_local_xent_terms(h, y, m, dn) for h, y, m, dn in zip(logits, ys, ms, to_parts(denom, mesh))]
         flat = [v for p in leaves for layer in p for v in layer.values()]
         flat_grads = iter(torch.autograd.grad([t[0] for t in terms], flat))
     local = [[{k: next(flat_grads) for k in layer} for layer in p] for p in leaves]
@@ -1069,15 +997,8 @@ def dist_loss_and_grad_exact(params, agg_fwd, agg_bwd, xs, ys, config: GCNConfig
     backward pass through :class:`_ExactAgg` gives each partition's leaves
     the gradient of the partitions' local loss shares."""
     agg = lambda hs: list(_ExactAgg.apply(agg_fwd, agg_bwd, *hs))  # noqa: E731
-
-    def logits_of(leaves):
-        hs = xs
-        for i in range(config.num_layers):
-            hs, _ = _dist_layer_forward([p[i] for p in leaves], config.layer_meta(i), agg, hs, config.leaky_slope,
-                                        tag=str(i))
-        return hs
-
-    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks, mesh)
+    return _exact_loss_and_grad(params, lambda leaves: gcn.forward_blocks(leaves, agg, xs, config), ys, n_total,
+                                masks, mesh)
 
 
 def dist_sage_loss_and_grad(params, agg, xs, ys, config, n_total: int, masks=None, *, mesh: Ring):
@@ -1085,22 +1006,10 @@ def dist_sage_loss_and_grad(params, agg, xs, ys, config, n_total: int, masks=Non
     (``mg_gcn_tpu/parallel/dist.py:1151-1174``): ``agg`` maps the
     partitions' blocks to their M·H blocks, differentiably; each layer is
     ``h·W_self + M h·W_neigh + b``, LeakyReLU and the per-node l2
-    normalization between layers (``models/sage.py``). Returns (loss, acc,
-    grads), summed over the partitions in partition order."""
-    from ..models.sage import l2_norm_rows
-
-    def logits_of(leaves):
-        hs = xs
-        for i in range(config.num_layers):
-            lps = [p[i] for p in leaves]
-            hs = [h @ lp["Wself"] + nb @ lp["Wneigh"] + lp["b"] for h, nb, lp in zip(hs, agg(hs), lps)]
-            if i + 1 < config.num_layers:
-                hs = [ew.leaky_relu(h, config.leaky_slope) for h in hs]
-                if config.l2_normalize:
-                    hs = [l2_norm_rows(h) for h in hs]
-        return hs
-
-    return _exact_loss_and_grad(params, logits_of, ys, n_total, masks, mesh)
+    normalization between layers (``models.sage.forward_blocks``). Returns
+    (loss, acc, grads), summed over the partitions in partition order."""
+    return _exact_loss_and_grad(params, lambda leaves: sage.forward_blocks(leaves, agg, xs, config), ys, n_total,
+                                masks, mesh)
 
 
 def _check_pair_kind(pair_kind: str, strategy: str, kinds) -> None:
@@ -1274,11 +1183,6 @@ def make_dist_infer(config: GCNConfig, mesh: Ring, strategy: str = "ring"):
     def infer(params, pair: DistAggPair, xs):
         per_part = [params[mesh.replica_of(i)] for i in range(len(mesh.devices))]
         with torch.no_grad():
-            hs = xs
-            for i in range(config.num_layers):
-                hs, _ = _dist_layer_forward([p[i] for p in per_part], config.layer_meta(i),
-                                            lambda b: dist_aggregate(pair.fwd, b, strategy), hs, config.leaky_slope,
-                                            tag=str(i))
-        return hs
+            return gcn.forward_blocks(per_part, lambda hs: dist_aggregate(pair.fwd, hs, strategy), xs, config)
 
     return infer

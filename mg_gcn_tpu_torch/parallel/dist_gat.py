@@ -30,6 +30,11 @@ the gradients of ``e_src`` and ``z`` travel the ring back. Gradients are
 exact autograd through the attention ops (``ops/edge_attention.py``), the
 partitions' local loss shares summed by ``dist._exact_loss_and_grad``.
 
+The layer stack (projections, score vectors, heads, bias, activation) is
+``models.gat.forward_blocks``, run with one block a partition and
+:func:`_attend_head_dist` as a head's attention, so a traced step opens the
+one-card step's phase scopes.
+
 Each block is the port's attention pair ``(EdgeTileMat, TSched)``, built on
 its partition's device: row-sorted CSR of the block's real entries, every
 entry kept (duplicates too, as ``build_attention_graph(merge=False)``), the
@@ -50,6 +55,7 @@ from typing import Sequence
 import torch
 
 from ..formats import CSRData
+from ..models import gat
 from ..models.gat import GATConfig
 from ..nn import adam
 from ..ops import elementwise as ew
@@ -134,7 +140,7 @@ def _global_max(scores: Sequence[Sequence[torch.Tensor]], ring: Ring) -> list[to
     return to_parts(smax, ring)
 
 
-def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list[torch.Tensor]:
+def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float, tag) -> list[torch.Tensor]:
     """Two-pass ring attention of one head over this process's partitions
     (``mg_gcn_tpu/parallel/dist_gat.py:196-258``): ``zs``, ``e_dsts`` and
     ``e_srcs`` are their (m_loc, out) and (m_loc, 1) blocks; returns their
@@ -148,7 +154,7 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
     for s in range(P):
         for i in range(L):
             mat, sched = g.blocks[i][s]
-            sc = sddmm(mat, sched, torch.cat([e_dsts[i], ones[i]], dim=1), torch.cat([ones[i], vis[i]], dim=1))
+            sc = sddmm(mat, sched, torch.cat([e_dsts[i], ones[i]], dim=1), torch.cat([ones[i], vis[i]], dim=1), tag)
             scores[i][s] = ew.leaky_relu(sc, slope)
         if s + 1 < P:
             vis = _ppermute(vis, g.ring)
@@ -164,7 +170,7 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
             for s in range(P):
                 mat, sched = g.blocks[i][s]
                 e1 = torch.exp(torch.clamp(scores[i][s].detach() - smax[i], -80.0, 0.0))
-                prod = spmm_attn(mat, sched, e1, ones[i])
+                prod = spmm_attn(mat, sched, e1, ones[i], tag)
                 rs1 = prod if rs1 is None else rs1 + prod
             lse1.append(smax[i] + torch.log(torch.clamp(rs1, min=1e-30)))
 
@@ -173,8 +179,8 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
         rowsum = None
         for s in range(P):
             mat, sched = g.blocks[i][s]
-            shift = sddmm(mat, sched, lse1[i], ones[i]).detach()
-            prod = spmm_attn(mat, sched, torch.exp(scores[i][s] - shift), ones[i])
+            shift = sddmm(mat, sched, lse1[i], ones[i], tag).detach()
+            prod = spmm_attn(mat, sched, torch.exp(scores[i][s] - shift), ones[i], tag)
             rowsum = prod if rowsum is None else rowsum + prod
         log_rs.append(torch.log(torch.clamp(rowsum, min=1e-30)))
 
@@ -184,9 +190,9 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
     for s in range(P):
         for i in range(L):
             mat, sched = g.blocks[i][s]
-            shift = sddmm(mat, sched, lse1[i], ones[i]).detach()
-            slot_lrs = sddmm(mat, sched, log_rs[i], ones[i])
-            prod = spmm_attn(mat, sched, torch.exp(scores[i][s] - shift - slot_lrs), vis_z[i])
+            shift = sddmm(mat, sched, lse1[i], ones[i], tag).detach()
+            slot_lrs = sddmm(mat, sched, log_rs[i], ones[i], tag)
+            prod = spmm_attn(mat, sched, torch.exp(scores[i][s] - shift - slot_lrs), vis_z[i], tag)
             out[i] = prod if out[i] is None else out[i] + prod
         if s + 1 < P:
             vis_z = _ppermute(vis_z, g.ring)
@@ -195,26 +201,14 @@ def _attend_head_dist(g: DistGatGraph, zs, e_dsts, e_srcs, slope: float) -> list
 
 def dist_gat_forward(params, g: DistGatGraph, xs, config: GATConfig) -> list[torch.Tensor]:
     """This process's partitions' logits (``mg_gcn_tpu/parallel/
-    dist_gat.py:261-282``): ``params[i]`` is the parameter tree its i-th
-    partition computes with; heads (``config.heads_of``, one count a layer)
-    concatenate on hidden layers and average on the output layer."""
-    hs = list(xs)
-    for i in range(config.num_layers):
-        layers = [p[i] for p in params]
-        out, H = config.sizes[i + 1], config.heads_of(i)
-        zs = [h @ lp["W"] for h, lp in zip(hs, layers)]
-        heads = []
-        for hd in range(H):
-            zh = [z[:, hd * out : (hd + 1) * out] for z in zs]
-            e_dst = [z @ lp["a_dst"][hd][:, None] for z, lp in zip(zh, layers)]
-            e_src = [z @ lp["a_src"][hd][:, None] for z, lp in zip(zh, layers)]
-            heads.append(_attend_head_dist(g, zh, e_dst, e_src, config.att_slope))
-        if i + 1 < config.num_layers:
-            hs = [ew.leaky_relu(torch.cat([hd[j] for hd in heads], dim=1) + lp["b"], config.leaky_slope)
-                  for j, lp in enumerate(layers)]
-        else:
-            hs = [sum(hd[j] for hd in heads) / H + lp["b"] for j, lp in enumerate(layers)]
-    return hs
+    dist_gat.py:261-282``): ``models.gat``'s layer stack with the ring
+    attention of each head; ``params[i]`` is the parameter tree its i-th
+    partition computes with."""
+
+    def attend(zh, e_dst, e_src, tag):
+        return _attend_head_dist(g, zh, e_dst, e_src, config.att_slope, tag)
+
+    return gat.forward_blocks(params, attend, xs, config)
 
 
 def dist_gat_loss_and_grad(params, g: DistGatGraph, xs, ys, config: GATConfig, masks=None):
@@ -222,7 +216,7 @@ def dist_gat_loss_and_grad(params, g: DistGatGraph, xs, ys, config: GATConfig, m
     backward pass; the gradients summed over every partition in partition
     order, on this process's first partition's device."""
     return _exact_loss_and_grad(params, lambda leaves: dist_gat_forward(leaves, g, xs, config), ys, g.n, masks,
-                                g.ring)
+                                g.ring, loss_scope=f"{config.num_layers}_loss-layer")
 
 
 def make_dist_gat_train_step(
@@ -242,9 +236,9 @@ def make_dist_gat_train_step(
     copy per distinct device, returned updated alike (Adam, or SGD);
     ``xs`` / ``ys`` / ``masks`` are :func:`~.dist.shard`'s lists, ``masks``
     None when every row counts. ``graph`` is the :class:`DistGatGraph` the
-    step was made for (its size and partitions). Per-layer head counts run;
-    ELU and skips (``GATConfig.activation``, ``skip``) run on one card only
-    and are refused."""
+    step was made for (its size and partitions). Per-layer head counts run.
+    ELU and skips (``GATConfig.activation``, ``skip``) are refused: the
+    shared layer stack would run them, but no test holds them here yet."""
     if config.edge_weighted:
         raise ValueError(
             "edge-weighted GAT is single-chip only (DistGatGraph stores no "

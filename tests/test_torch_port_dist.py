@@ -21,9 +21,11 @@ from mg_gcn_tpu.ops.spmm import COOMat as JCOOMat
 from mg_gcn_tpu.parallel import dist as jdist
 from mg_gcn_tpu_torch import cli, convert, sparse
 from mg_gcn_tpu_torch.formats import CSRData, Dataset
+from mg_gcn_tpu_torch.models import gcn as tgcn
 from mg_gcn_tpu_torch.models.gcn import GCNConfig
 from mg_gcn_tpu_torch.nn import adam
 from mg_gcn_tpu_torch.parallel import dist
+from mg_gcn_tpu_torch.train import build_agg_pair
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "golden")
 
@@ -327,6 +329,48 @@ def test_three_step_trajectory_matches_jax():
         np.testing.assert_allclose([s[1] for s in got], [s[1] for s in want], rtol=1e-4)
         _assert_params_close(got[-1][0], want[-1][0], 5e-4, 5e-6)
     assert want[-1][1] < want[0][1]
+
+
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("aggs", ["one_card", "coo"])
+@pytest.mark.parametrize("parity", [True, False])
+def test_one_partition_equals_the_single_card_step(parity, aggs, mask):
+    """At P = 1 the row-partitioned step is the one-card step, so that a
+    second copy of the layer stack that drifts fails here:
+    ``dist_loss_and_grad`` (parity) or ``dist_loss_and_grad_exact`` on one
+    CPU partition against ``models.gcn.loss_and_grad`` on the COO pair, with
+    the one-card pair's own aggregation or the COO ring pair: loss at rtol
+    1e-5, each gradient leaf within 1e-5 of its norm. On the CPU the two are
+    bit for bit (the loss layers' divisions by n and by a tensor of n agree
+    there), and that is asserted too."""
+    n = 600
+    config = GCNConfig(sizes=SIZES, residual=True, parity=parity)
+    g = sparse.random_graph(n, 4, seed=22, weights="ones")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((n, SIZES[0])).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, SIZES[-1], n))
+    train = torch.from_numpy(rng.random(n) < 0.6) if mask else None
+    params = tgcn.init_params(config, seed=5, device="cpu")
+    pair = build_agg_pair(g, impl="xla", device="cpu")
+    loss, acc, grads = tgcn.loss_and_grad(params, pair, x, y, config, train)
+    ring = _cpu_ring(1)
+    if aggs == "one_card":
+        agg_fwd, agg_bwd = tgcn._one_block(pair)
+    else:
+        a = sparse.normalize(g, axis=True)
+        agg_fwd, agg_bwd = dist._aggregations("coo", dist.build_pair("coo", sparse.transpose(a), a, ring), "ring",
+                                              "float32")
+    lag = dist.dist_loss_and_grad if parity else dist.dist_loss_and_grad_exact
+    dloss, dacc, dgrads = lag([params], agg_fwd, agg_bwd, [x], [y], config, n, None if train is None else [train],
+                              mesh=ring)
+    np.testing.assert_allclose(float(dloss), float(loss), rtol=1e-5)
+    assert float(dacc) == float(acc)
+    for layer, ref in zip(dgrads, grads, strict=True):
+        assert layer.keys() == ref.keys()
+        for k in ref:
+            assert float(torch.linalg.vector_norm(layer[k] - ref[k])) <= 1e-5 * float(torch.linalg.vector_norm(ref[k]))
+            assert torch.equal(layer[k], ref[k]), k
+    assert torch.equal(dloss, loss) and torch.equal(dacc, acc)
 
 
 def test_bf16_and_int8_steps_stay_near_float32():

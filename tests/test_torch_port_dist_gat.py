@@ -6,7 +6,7 @@ takes over a minute a step here, so it runs once (a module-scoped fixture:
 P = 2, one head, SGD at lr 1 without decay, so that p − p′ is the
 gradient). Everything else is held against the port's one-card GAT step,
 which ``tests/test_torch_port_gat.py`` holds against the JAX package:
-P = 2 and 4, one and two heads, float32 and bfloat16, the masked loss, SGD,
+P = 1, 2 and 4, one and two heads, float32 and bfloat16, the masked loss, SGD,
 three Adam steps, a banded graph whose far blocks are empty, and a graph
 whose every edge crosses partitions (the ring hops must carry gradient).
 Random per-head parameters come in through ``convert``: under the seed-99
@@ -160,12 +160,14 @@ def test_sgd_step_matches_the_jax_dist_gat_step(jax_sgd_step):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("heads", [1, 2])
-@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("parts", [1, 2, 4])
 def test_gradients_equal_the_single_card_step(parts, heads, dtype):
-    """Two layers on a random graph at P = 2 and 4, one and two heads, in
+    """Two layers on a random graph at P = 1, 2 and 4, one and two heads, in
     both dtypes: the loss within rtol 1e-5, the same correct rows, every
     leaf within ‖Δ‖ ≤ 1e-5 ‖one card‖ (the same rounded inputs; only the
-    row sums' order differs, by blocks)."""
+    row sums' order differs, by blocks). At P = 1 the two steps share
+    ``models.gat``'s layer stack and differ only in the attention (the ring
+    passes against the one-card softmax) and the loss layer."""
     n = 96
     config = gat.GATConfig(sizes=SIZES, heads=heads)
     x, y, _ = inputs(n, seed=parts + heads)

@@ -72,13 +72,14 @@ def test_three_sage_steps_match_jax(kind, strategy, parts, mask):
     assert all(not np.array_equal(got[-1][0][i][k], start[i][k]) for i in range(2) for k in start[i])
 
 
+@pytest.mark.parametrize("parts", [1, 4])
 @pytest.mark.parametrize("kind", ["coo", "halo", "gather", "halo_gather"])
-def test_dist_sage_gradients_equal_the_single_card_step(kind):
+def test_dist_sage_gradients_equal_the_single_card_step(kind, parts):
     """``dist_sage_loss_and_grad`` at P = 4 on a banded graph (empty halo
-    rounds and ring blocks) against ``models.sage.loss_and_grad`` on one
-    device with the COO pair: loss at rtol 1e-5, each gradient leaf within
-    1e-5 of its norm."""
-    parts, n = 4, 480
+    rounds and ring blocks), and at P = 1, against
+    ``models.sage.loss_and_grad`` on one device with the COO pair: loss at
+    rtol 1e-5, each gradient leaf within 1e-5 of its norm."""
+    n = 480
     g = banded_weighted(n, parts, seed=32)
     x, y, _ = features(n, SIZES[0], SIZES[-1], seed=10)
     config = sage.SAGEConfig(sizes=SIZES)

@@ -172,9 +172,8 @@ def test_quirk_activation_mask_from_post_residual_buffer():
     h = torch.tensor([[5.0, -5.0, 1.0, 1.0]] * n)  # flips the sign of columns 0 and 1
     post = ew.leaky_relu(pre) + h
     g = torch.ones(n, d)
-    grads, _ = gcn._layer_backward(
-        layer, meta, _diag_pair(n, 1.0, 1.0), dict(h=h, post=post), g, 0.01, need_input_grad=True
-    )
+    _, agg_bwd = gcn._one_block(_diag_pair(n, 1.0, 1.0))
+    (grads,), _ = gcn._layer_backward([layer], meta, agg_bwd, dict(h=[h], post=[post]), [g], 0.01, need_input_grad=True)
     t_post = torch.where(post > 0, g, 0.01 * g)
     t_pre = torch.where(pre > 0, g, 0.01 * g)
     torch.testing.assert_close(grads["b"], t_post.sum(0, keepdim=True))

@@ -2,7 +2,10 @@
 row-partitioned GCN step on four partitions opens the one-card step's phase
 scopes, one ``train-step`` span a step with the ``exchange`` and ``psum``
 spans inside it, and counts the bytes its exchange moves; untraced it opens
-no span, counts nothing, and traced or not it computes the same bits."""
+no span, counts nothing, and traced or not it computes the same bits. The
+one-card GAT step opens its phase scopes on both passes and counts its
+attention launches, and the row-partitioned GAT step opens the same phase
+scopes."""
 
 import numpy as np
 import pytest
@@ -189,11 +192,19 @@ def test_timer_span_is_a_profiler_span():
 GAT_SIZES = (F, 16, 16, C)
 
 
-def _gat_traced_step(monkeypatch=None):
+def _gat_inputs():
+    g = sparse.random_graph(300, 6, seed=2, weights="ones")
+    rng = np.random.default_rng(4)
+    x, y = torch.from_numpy(rng.standard_normal((300, F)).astype(np.float32)), torch.from_numpy(rng.integers(0, C, 300))
+    return g, x, y
+
+
+def _gat_traced_step(monkeypatch=None, config=None):
     """(events, {kernel: Counter of CPU calls by d_pad}, counter delta) of one
-    traced step of the PPI form of GAT (heads 2, 2, 3, ELU, the skip across
-    layer 1) on a small graph; with ``monkeypatch`` the three kernel
-    wrappers count their CPU calls as the card's count its launches."""
+    traced step of ``config``, by default the PPI form of GAT (heads 2, 2,
+    3, ELU, the skip across layer 1), on a small graph; with
+    ``monkeypatch`` the three kernel wrappers count their CPU calls as the
+    card's count its launches."""
     from collections import Counter
 
     from mg_gcn_tpu_torch.models import gat
@@ -207,10 +218,8 @@ def _gat_traced_step(monkeypatch=None):
                 calls[_name][args[-1].shape[1] if _name != "sddmm" else args[2].shape[1]] += 1
                 return out
             monkeypatch.setattr(mod, name, counted)
-    g = sparse.random_graph(300, 6, seed=2, weights="ones")
-    rng = np.random.default_rng(4)
-    x, y = torch.from_numpy(rng.standard_normal((300, F)).astype(np.float32)), torch.from_numpy(rng.integers(0, C, 300))
-    config = gat.GATConfig(sizes=GAT_SIZES, heads=(2, 2, 3), activation="elu", skip=(1,))
+    g, x, y = _gat_inputs()
+    config = config or gat.GATConfig(sizes=GAT_SIZES, heads=(2, 2, 3), activation="elu", skip=(1,))
     params = gat.init_params(config, 3, device="cpu")
     step = ttrain.make_train_step(config, model="gat")
     before = dict(timers.counters().get(edge_attention.ATTN_LAUNCHES, {}))
@@ -244,3 +253,29 @@ def test_gat_launch_counter_equals_the_kernel_calls(monkeypatch):
     assert counted == {(k, d): n for k, by_d in calls.items() for d, n in by_d.items()}
     assert sum(counted.values()) == 12 * (2 + 2 + 3)
     assert {k: n for k, n in counted.items() if k[1] == 16} == {("sddmm", 16): 4, ("edge", 16): 4, ("edge_t", 16): 4}
+
+
+def test_dist_gat_step_opens_the_one_card_phase_scopes():
+    """The row-partitioned GAT step on two partitions (heads 2, 2, 3,
+    LeakyReLU, no skip: what it runs) opens the one-card step's phase
+    scopes, the attention ops' backward scopes and the loss layer included,
+    all inside its step's span on that thread."""
+    from mg_gcn_tpu_torch.models import gat
+    from mg_gcn_tpu_torch.parallel import dist_gat
+
+    config = gat.GATConfig(sizes=GAT_SIZES, heads=(2, 2, 3))
+    events, _, _ = _gat_traced_step(config=config)
+    want = {e["name"] for e in _spans(events, xplane._looks_like_phase)}
+    assert {"2_1_matmul-spmm", "3_loss-layer", "adam-update"} <= want
+    g, x, y = _gat_inputs()
+    ring = dist.make_mesh(2, ["cpu"] * 2)
+    graph = dist_gat.build_dist_gat_graph(g, ring, dtype="bfloat16")
+    params = gat.init_params(config, 3, device="cpu")
+    params, opt = dist.replicate(params, ring), dist.replicate(adam.adam_init(params), ring)
+    step = dist_gat.make_dist_gat_train_step(config, ring, graph)
+    with torch.profiler.profile(activities=timers.profiler_activities()) as prof:
+        step(params, opt, graph, dist.shard(x, ring), dist.shard(y, ring), None)
+    events = xplane.trace_events(prof)
+    assert {e["name"] for e in _spans(events, xplane._looks_like_phase)} == want
+    (outer,) = _spans(events, lambda name: name == STEP)
+    assert all(_inside(e, outer) for e in _spans(events, xplane._looks_like_phase) if e["tid"] == outer["tid"])
