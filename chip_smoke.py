@@ -228,8 +228,9 @@ the result line:
    ``train.make_train_step(model="gat")``: the graph's build seconds, 5
    bfloat16 epochs from the seed-99 init with finite losses falling from
    epoch 0 to 4, their median, peak memory; counters zeroed before the
-   epochs and read after: exactly 20 ``sddmm`` + 20 ``edge`` + 8
-   ``edge_t`` launches an epoch, by width;
+   epochs and read after: exactly 8 ``softmax_fwd`` + 4 ``softmax_bwd``
+   (the edge softmax's walks, at d_pad 8) + 4 ``sddmm`` + 4 ``edge`` + 8
+   ``edge_t`` (4 at d_pad 8) launches an epoch, by width;
 13. attention kernels at the GAT path's shape — ``sddmm`` and
    ``sddmm_qskip`` x {bfloat16, float32, int8} and ``edge_t`` x {bfloat16,
    float32}, x d in {2, 41, 64} (the path's d_pad 8, 48 and 64), as phase
@@ -245,7 +246,13 @@ the result line:
    groups a warp); the SDDMM's lanes, groups, entries a group scores at
    once, features a lane loads and the tree's shuffles a batch (held to
    the rule) and its L2 gather bytes nnz x d_pad x element size (computed)
-   are logged beside its bound, not put in the line;
+   are logged beside its bound, not put in the line; then the edge
+   softmax's fused walks, ``softmax_fwd`` and ``softmax_bwd`` (port-only
+   kernels, logged only) in bfloat16 and float32, each launched twice for
+   the same bits, held element by element to its plain version on the card
+   (each entry's gradient within one ulp), the gradient's row sums and its
+   column sums through ``edge_t`` within the float32 sum bound, and timed
+   beside its bytes bound;
 13s. the multi-epoch step on the GAT path — phase 12's model and attention
    graph as phase 5s; where two eager runs of the step differ, the
    replayed epochs are held within rtol 1e-5 of the eager ones and the
@@ -492,7 +499,8 @@ PORT_KERNEL_EVENTS = (("pattern_fwd_kernel", ("pattern_fwd",)), ("ring_fwd_kerne
                       ("block_fwd_kernel", ("block_fwd",)), ("TileArgs", ("block_bwd",)),
                       ("PackArgs", ("pattern_bwd", "ring_bwd")),
                       ("csr::walk_kernel", ("edge", "edge_i8", "edge_t", "gather")),
-                      ("sddmm_kernel", ("sddmm", "sddmm_qskip")), ("tiled_kernel", ("tiled",)))
+                      ("sddmm_kernel", ("sddmm", "sddmm_qskip")), ("tiled_kernel", ("tiled",)),
+                      ("edge_softmax::", ("softmax_fwd", "softmax_bwd")))
 FALLBACK_LINE = "no device trace; falling back to un-fused phase replay"
 # phase 19: BASELINE config 3 ("edge-partitioned across 2 hosts with halo
 # exchange") as two processes on one card: a papers100M-like graph
@@ -728,6 +736,7 @@ def wrappers() -> dict:
     from mg_gcn_tpu_torch.ops import spmm_gather as sg
     from mg_gcn_tpu_torch.ops import spmm_pattern as sp
 
+    from mg_gcn_tpu_torch.ops import edge_softmax as esm
     from mg_gcn_tpu_torch.ops import sddmm as sd
     from mg_gcn_tpu_torch.ops import spmm_pallas as tpl
     from mg_gcn_tpu_torch.ops import spmm_pattern_ring as ring
@@ -736,7 +745,8 @@ def wrappers() -> dict:
     return {"pattern_fwd": sp.pattern_fwd, "pattern_bwd": sp.pattern_bwd, "edge": se.edge,
             "edge_i8": se.edge_i8, "gather": sg.gather, "sddmm": sd.sddmm, "sddmm_qskip": sd.sddmm_qskip,
             "edge_t": se.edge_t, "block_fwd": sps.block_fwd, "block_bwd": sps.block_bwd, "tiled": tpl.tiled,
-            "ring_fwd": ring.ring_pattern_fwd, "ring_bwd": ring.ring_pattern_bwd}
+            "ring_fwd": ring.ring_pattern_fwd, "ring_bwd": ring.ring_pattern_bwd,
+            "softmax_fwd": esm.softmax_fwd, "softmax_bwd": esm.softmax_bwd}
 
 
 def counts() -> dict:
@@ -3238,20 +3248,22 @@ def gat_features(labels: np.ndarray) -> np.ndarray:
 
 def gat_launches_per_epoch(config) -> dict:
     """{(kernel, dtype, d_pad): launches} of one bfloat16 GAT epoch: per head
-    and layer, forward 3 sddmm (scores d=2, shift and slot_log_rs d=1) and 3
-    edge (rs1, rowsum d=1, aggregation d=out); backward 2 sddmm (the
-    aggregation's dw at d=out, rowsum's dw at d=1), 2 edge (slot_log_rs's
-    and the scores' dA, d=1 and 2) and 2 edge_t (the aggregation's and the
-    scores' dB, d=out and 2)."""
+    and layer, forward the edge softmax's two walks (``softmax_fwd``: the
+    global max, then both passes and the weights) and 1 edge (the
+    aggregation, d=out); backward the edge softmax's walk (``softmax_bwd``),
+    1 sddmm (the aggregation's dw at d=out) and 2 edge_t (the aggregation's
+    dB at d=out; the column sums of the scores' gradient at d=1)."""
     from mg_gcn_tpu_torch.ops.spmm_pattern import round_up
 
     want = {}
     for i in range(config.num_layers):
         d_out = round_up(max(config.sizes[i + 1], 8), 8)
-        for name, narrow, wide in (("sddmm", 4, 1), ("edge", 4, 1), ("edge_t", 1, 1)):
+        for name, narrow, wide in (("softmax_fwd", 2, 0), ("softmax_bwd", 1, 0), ("sddmm", 0, 1), ("edge", 0, 1),
+                                   ("edge_t", 1, 1)):
             for d_pad, n in ((8, narrow), (d_out, wide)):
                 key = (name, "bfloat16", d_pad)
-                want[key] = want.get(key, 0) + n * config.heads
+                if n:
+                    want[key] = want.get(key, 0) + n * config.heads
     return want
 
 
@@ -3460,6 +3472,88 @@ def phase_gat_kernels(graph, launches: dict) -> list[dict]:
             del a
             torch.cuda.empty_cache()
     return rows
+
+
+def held_to_twin(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> str:
+    """``got`` within ``rtol`` of ``want`` element by element (atol the
+    smallest normal of ``want``'s dtype: no value is let off for being small
+    beside the largest); the share of values equal bit for bit, for the
+    log."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=torch.finfo(want.dtype).tiny,
+                               msg=lambda m: f"{label}: {m}")
+    return f"{float((got == want).float().mean()):.6f}"
+
+
+def phase_gat_softmax(graph, launches: dict) -> None:
+    """The edge softmax's fused walks (``ops/edge_softmax.py``, port-only
+    kernels: logged, not in the kernels line) at the GAT path's shape, in
+    bfloat16 (the path's) and float32: ``softmax_fwd`` (its two launches)
+    and ``softmax_bwd`` each launched twice must give the same bits; the
+    weights, the row statistics and each entry's gradient are held element
+    by element to their plain versions run on the card (the same operations,
+    each row summed in the walk's order: within rtol 1e-5, the gradient
+    within one ulp of its dtype, the share equal bit for bit logged); the
+    gradient's row sums (``e_dst``'s) and its column sums through ``edge_t``
+    at d = 1 in the gradient's dtype (``e_src``'s; the op's own call on the
+    path's bfloat16 graph) within the float32 sum bound of float64 sums of
+    the same entries; each walk timed beside its bytes
+    bound (the index list read once a walk, the per-entry values read or
+    written once, the score vectors and row statistics)."""
+    from mg_gcn_tpu_torch.ops import edge_softmax as esm
+    from mg_gcn_tpu_torch.ops.spmm_edges import DTYPES, edge_t, pad_features
+
+    mat, sched = graph
+    n, n_in, nnz = mat.n_out, mat.n_in, mat.nnz
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    vectors = [2.0 * torch.randn(m, device="cuda", generator=gen) for m in (n, n_in)]
+    dalpha = torch.randn(nnz, device="cuda", generator=gen)
+    csr = 8 * (n + 1) + 4 * nnz
+    ones = torch.ones((n, 1), dtype=torch.float32, device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        e_dst, e_src = (v.to(DTYPES[dtype]) for v in vectors)
+        args = (mat.indptr, mat.indices, e_dst, e_src, None, 0.2)
+        (alpha, stats), again = esm.softmax_fwd(*args), esm.softmax_fwd(*args)
+        (de, g_pre), (de2, g_pre2) = esm.softmax_bwd(*args, stats, dalpha), esm.softmax_bwd(*args, stats, dalpha)
+        torch.cuda.synchronize()
+        if not (torch.equal(alpha, again[0]) and torch.equal(stats, again[1]) and torch.equal(de, de2)
+                and torch.equal(g_pre, g_pre2)):
+            raise AssertionError(f"edge softmax {dtype}: two launches differ")
+        del again, de2, g_pre2
+        t0 = time.perf_counter()
+        twin_alpha, twin_stats = esm.softmax_fwd_plain(*args, row_sums=esm.walk_row_sums)
+        twin_de, twin_g = esm.softmax_bwd_plain(*args, stats, dalpha, row_sums=esm.walk_row_sums)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        ulp = 2.0**-7 if dtype == "bfloat16" else 2.0**-23
+        equal = {k: held_to_twin(f"edge softmax {dtype} {k}", got, want, tol) for k, got, want, tol in (
+            ("alpha", alpha, twin_alpha, 1e-5), ("stats", stats, twin_stats, 1e-5), ("g_pre", g_pre, twin_g, ulp))}
+        equal["de_dst"] = f"{float((de == twin_de).float().mean()):.6f}"
+        del twin_alpha, twin_stats, twin_de, twin_g
+        torch.cuda.empty_cache()
+        de_src = edge_t(sched.t_indptr, sched.t_rows, sched.perm, g_pre, pad_features(ones, g_pre.dtype))[:, :1]
+        sums_use = {
+            "de_dst": within_sum_bound(f"edge softmax {dtype} de_dst", de[:, None], mat.indptr, mat.indices, g_pre,
+                                       ones.new_ones((n_in, 1))),
+            "de_src": within_sum_bound(f"edge softmax {dtype} de_src", de_src, sched.t_indptr, sched.t_rows,
+                                       g_pre[sched.perm.long()], ones)}
+        del de_src
+        torch.cuda.empty_cache()
+        fwd_ms = cuda_ms(lambda: esm.softmax_fwd(*args), 5)
+        bwd_ms = cuda_ms(lambda: esm.softmax_bwd(*args, stats, dalpha), 5)
+        elt = e_dst.element_size()
+        vec = elt * (n + n_in)
+        fwd_bytes = (csr + vec) + (csr + vec + 4 * nnz + 12 * n)  # the max walk, then the softmax walk
+        bwd_bytes = csr + vec + 12 * n + 4 * nnz + elt * nnz + 4 * n
+        key = (dtype, 8)
+        log(f"  edge softmax {dtype} (GAT shape, n={n} nnz={nnz}): softmax_fwd {fwd_ms:.3f} ms (bound"
+            f" {fwd_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, bytes), softmax_bwd {bwd_ms:.3f} ms (bound"
+            f" {bwd_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, bytes); launches in the path's epochs"
+            f" {launches['softmax_fwd'].get(key, 0)} + {launches['softmax_bwd'].get(key, 0)}; two launches equal"
+            f" bit for bit; held to the plain version ({plain_s:.1f} s both ways), shares equal bit for bit"
+            f" {equal}; gradient sums, share of the float32 sum bound used"
+            f" {', '.join(f'{k} {v:.3f}' for k, v in sums_use.items())}")
+        del alpha, stats, de, g_pre
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4657,6 +4751,7 @@ def main() -> int:
     phase("[13] attention kernels at the GAT path's shape")
     gat_graph = gat_path.pop("graph")
     kernels += phase_gat_kernels(gat_graph, gat_path["launches"])
+    phase_gat_softmax(gat_graph, gat_path["launches"])
     torch.cuda.empty_cache()
 
     phase(f"[13s] multi-epoch step, replayed against eager: the GAT path, n = {N_MAIN}")

@@ -31,6 +31,7 @@ SOURCES = {
     "spmm_pattern_sparse": "spmm_pattern_sparse.cu",
     "spmm_tiled": "spmm_tiled.cu",
     "spmm_pattern_ring": "spmm_pattern_ring.cu",
+    "edge_softmax": "edge_softmax.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

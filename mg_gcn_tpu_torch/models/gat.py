@@ -3,8 +3,8 @@
 Port of ``mg_gcn_tpu/models/gat.py``. Each layer, per head::
 
     z      = h · W                                      (dense GEMM)
-    s_e    = leaky_relu(a_dst·z[r_e] + a_src·z[c_e])     (d=2 SDDMM)
-    alpha  = softmax over each row's entries             (slot_softmax)
+    s_e    = leaky_relu(a_dst·z[r_e] + a_src·z[c_e])     (edge_softmax:
+    alpha  = softmax over each row's entries              fused row walks)
     h'_r   = Σ_e alpha_e · z[c_e]                        (weighted SpMM)
 
 Heads concatenate on hidden layers and average on the output layer
@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from ..formats import CSRData
 from ..nn import init as init_lib
 from ..ops import elementwise as ew
-from ..ops.edge_attention import build_attention_graph, sddmm, slot_softmax, spmm_attn
+from ..ops.edge_attention import build_attention_graph, edge_softmax, spmm_attn
 from ..ops.softmax_xent import softmax_xent
 from ..timers import scope
 
@@ -149,14 +149,7 @@ def init_params(config: GATConfig, seed: int | None = None, device: str | torch.
 def _attend_head(mat, sched, z, e_dst, e_src, slope, bias=None, tag=None):
     """alpha-weighted aggregation for one head's projected features z; the
     attention ops' backward scopes take the layer ``tag``."""
-    ones = torch.ones((z.shape[0], 1), dtype=torch.float32, device=z.device)
-    s = sddmm(mat, sched,
-              torch.cat([e_dst, ones], dim=1),  # <[e_dst_r, 1], [1, e_src_c]>
-              torch.cat([ones, e_src], dim=1), tag=tag)
-    s = ew.leaky_relu(s, slope)
-    if bias is not None:
-        s = s + bias
-    alpha = slot_softmax(mat, sched, s, tag=tag)
+    alpha = edge_softmax(mat, sched, e_dst, e_src, slope, bias, tag=tag)
     return spmm_attn(mat, sched, alpha, z, tag=tag)
 
 

@@ -19,13 +19,22 @@ Each backward computes only the cotangents autograd asks for
 ``valid_mask`` (the valid-slot mask) has no counterpart: every entry is an
 edge.
 
+GAT's edge softmax, :func:`edge_softmax`, is one op over fused row walks
+(``ops/edge_softmax.py``): a head's score vectors to its attention weights,
+the scores, their LeakyReLU, an optional per-entry bias and the two-pass
+row softmax of :func:`slot_softmax` in two launches forward, and their
+gradient in one row walk and the transposed product at d = 1 backward. It
+keeps the composite's rounding points; :func:`slot_softmax` stays as the
+composite, held against the JAX package's.
+
 Tracing. An op given a layer ``tag`` at forward opens the phase scope
 ``<tag>_1_matmul-spmm`` around its backward products: autograd runs a
 card's backward on a thread of its own, where the forward's scopes are not
 open. Under a profiler every kernel call the ops make on a matrix with
 entries (a launch on the card, the plain version on the CPU) adds one to
 the counter :data:`ATTN_LAUNCHES`, keyed by (kernel, d_pad): ``sddmm``,
-``edge`` (the weighted product) and ``edge_t`` (the transposed one).
+``edge`` (the weighted product), ``edge_t`` (the transposed one), and the
+edge softmax's ``softmax`` (two a forward) and ``softmax_bwd``, at d_pad 8.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import dataclasses
 import torch
 
 from .. import timers
+from .edge_softmax import softmax_bwd, softmax_fwd
 from .sddmm import sddmm_edge_tiles
 from .spmm_edges import (
     DTYPES, EdgeTileMat, TSched, edge_tile_mat_from_csr, spmm_edge_tiles, spmm_edge_tiles_t, transposed_schedule,
@@ -58,20 +68,24 @@ def build_attention_graph(csr, dtype: str = "bfloat16", device: str | torch.devi
     return m, transposed_schedule(m)
 
 
-def _with_w(mat: EdgeTileMat, w: torch.Tensor) -> EdgeTileMat:
+def _compute_dtype(mat: EdgeTileMat) -> torch.dtype:
     if mat.dtype_name == "int8":
         raise ValueError(
             "attention ops need dynamic entry weights — build the edge matrix "
             "in bfloat16 (int8 mode packs static quantized weights)"
         )
-    return dataclasses.replace(mat, w=w.to(DTYPES[mat.dtype_name]).contiguous())
+    return DTYPES[mat.dtype_name]
 
 
-def _counted(kernel: str, mat: EdgeTileMat, d: int) -> None:
-    """One call of ``kernel`` at width ``d`` on ``mat`` into
+def _with_w(mat: EdgeTileMat, w: torch.Tensor) -> EdgeTileMat:
+    return dataclasses.replace(mat, w=w.to(_compute_dtype(mat)).contiguous())
+
+
+def _counted(kernel: str, mat: EdgeTileMat, d: int, launches: int = 1) -> None:
+    """``launches`` launches of ``kernel`` at width ``d`` on ``mat`` into
     :data:`ATTN_LAUNCHES`; a matrix with no entry launches nothing."""
     if mat.nnz:
-        timers.count(ATTN_LAUNCHES, 1, (kernel, round_up(max(d, 8), 8)))
+        timers.count(ATTN_LAUNCHES, launches, (kernel, round_up(max(d, 8), 8)))
 
 
 def _backward_scope(tag):
@@ -163,3 +177,47 @@ def slot_softmax(mat: EdgeTileMat, sched: TSched, scores: torch.Tensor, tag=None
     log_rs = torch.log(torch.clamp(rowsum, min=1e-30))
     slot_log_rs = sddmm(mat, sched, log_rs, ones, tag)  # log rowsum[r_e] per entry
     return torch.exp(scores - shift - slot_log_rs)
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e_dst, e_src, bias, mat, sched, slope, tag):
+        cdtype = _compute_dtype(mat)
+        ed, es = (v.reshape(-1).to(cdtype).contiguous() for v in (e_dst, e_src))
+        bias = None if bias is None else bias.to(torch.float32).contiguous()
+        _counted("softmax", mat, 1, launches=2)
+        alpha, stats = softmax_fwd(mat.indptr, mat.indices, ed, es, bias, slope)
+        ctx.graph, ctx.slope, ctx.tag = (mat, sched), slope, tag
+        ctx.inputs = [(v.shape, v.dtype) for v in (e_dst, e_src)]
+        ctx.save_for_backward(ed, es, bias, stats)
+        return alpha
+
+    @staticmethod
+    def backward(ctx, dalpha):
+        (ed, es, bias, stats), (mat, sched) = ctx.saved_tensors, ctx.graph
+        de_dst = de_src = None
+        with _backward_scope(ctx.tag):
+            _counted("softmax_bwd", mat, 1)
+            de_rows, g_pre = softmax_bwd(mat.indptr, mat.indices, ed, es, bias, ctx.slope, stats,
+                                         dalpha.to(torch.float32).contiguous())
+            (dst_shape, dst_dtype), (src_shape, src_dtype) = ctx.inputs
+            if ctx.needs_input_grad[0]:
+                de_dst = de_rows.view(dst_shape).to(dst_dtype)
+            if ctx.needs_input_grad[1]:  # the column sums of the entries' gradients
+                _counted("edge_t", mat, 1)
+                ones = torch.ones((mat.n_out, 1), dtype=torch.float32, device=dalpha.device)
+                de_src = spmm_edge_tiles_t(mat, sched, ones, w_slots=g_pre).view(src_shape).to(src_dtype)
+        return de_dst, de_src, None, None, None, None, None
+
+
+def edge_softmax(mat: EdgeTileMat, sched: TSched, e_dst: torch.Tensor, e_src: torch.Tensor, slope: float,
+                 bias: torch.Tensor | None = None, tag=None) -> torch.Tensor:
+    """One head's attention weights (float32, CSR entry order) from its
+    score vectors ``e_dst`` (n_out, 1) and ``e_src`` (n_in, 1): the scores
+    ``leaky_relu(e_dst[r] + e_src[c], slope)`` (``+ bias``, a per-entry
+    float32 constant of the gradient), then :func:`slot_softmax` over each
+    row's entries, with the composite's rounding points (the vectors
+    rounded to the graph's compute dtype, the row sums' terms and the
+    per-row shifts too). Differentiable in ``e_dst`` and ``e_src``. ``tag``
+    as :func:`sddmm`'s."""
+    return _EdgeSoftmax.apply(e_dst, e_src, bias, mat, sched, float(slope), tag)

@@ -14,6 +14,7 @@ import torch
 
 from mg_gcn_tpu_torch import sparse
 from mg_gcn_tpu_torch.formats import CSRData, Dataset
+from mg_gcn_tpu_torch.ops import edge_softmax as esm
 from mg_gcn_tpu_torch.ops import sddmm as sd
 from mg_gcn_tpu_torch.ops import spmm_edges as se
 from mg_gcn_tpu_torch.ops import spmm_gather as sg
@@ -534,7 +535,8 @@ def test_ppi_gat_step_on_card_matches_cpu_and_counts_its_launches():
             assert diff <= 1e-4 * torch.linalg.vector_norm(layer_c[k]), k
 
     def launched():
-        return {k: sum(f.launches.values()) for k, f in (("sddmm", sd.sddmm), ("edge", se.edge), ("edge_t", se.edge_t))}
+        return {k: sum(f.launches.values()) for k, f in (("sddmm", sd.sddmm), ("edge", se.edge), ("edge_t", se.edge_t),
+                                                           ("softmax", esm.softmax_fwd), ("softmax_bwd", esm.softmax_bwd))}
 
     before, counted = launched(), dict(timers.counters().get(ATTN_LAUNCHES, {}))
     with torch.profiler.profile(activities=timers.profiler_activities()):
@@ -542,7 +544,92 @@ def test_ppi_gat_step_on_card_matches_cpu_and_counts_its_launches():
         torch.cuda.synchronize()
     after, now = launched(), timers.counters()[ATTN_LAUNCHES]
     by_kernel = {k: sum(n - counted.get(key, 0) for key, n in now.items() if key[0] == k) for k in after}
-    assert by_kernel == {k: after[k] - before[k] for k in after} == {"sddmm": 35, "edge": 35, "edge_t": 14}
+    # 7 heads and layers: one aggregation, its weights' SDDMM and its transposed product at the head's
+    # width, the transposed product at d = 1 (the scores' column sums), the edge softmax's two
+    # forward walks and its backward walk
+    assert by_kernel == {k: after[k] - before[k] for k in after} == {"sddmm": 7, "edge": 7, "edge_t": 14,
+                                                                      "softmax": 14, "softmax_bwd": 7}
+
+
+# ---------------------------------------------------------------------------
+# the edge softmax's fused walks (csrc/edge_softmax.cu)
+
+
+def _softmax_operands(g, dtype, weighted, seed):
+    """Score vectors (2 x normal, in ``dtype``), the clamped log-weight bias
+    (or None) and a cotangent, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e_dst, e_src = ((2.0 * torch.randn(m, device="cuda", generator=gen)).to(dtype) for m in (g.nrows, g.ncols))
+    bias = torch.clamp(torch.log(torch.from_numpy(g.data).cuda()), -30.0, 30.0) if weighted else None
+    return e_dst, e_src, bias, torch.randn(g.nnz, device="cuda", generator=gen)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["binary", "edge-weighted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_softmax_walks_follow_the_twin(hub_graph, dtype, weighted):
+    """``softmax_fwd`` (two launches) and ``softmax_bwd`` on the hub graph
+    (a row of 5,000 entries, empty rows 100..199) against their plain
+    versions on the card, each row summed in the walk's order, element by
+    element: the weights and the row statistics within rtol 1e-5, the
+    gradient of each entry within one ulp of its dtype (no value let off
+    for being small); the gradient's row sums (``e_dst``'s) and its column
+    sums through ``edge_t`` at d = 1 (``e_src``'s, the op's own call)
+    within the float32 sum bound of float64 sums of the same entries; two
+    launches give the same bits."""
+    from mg_gcn_tpu_torch.ops import edge_attention as ea
+
+    indptr, indices = _csr_on_card(hub_graph)
+    e_dst, e_src, bias, dalpha = _softmax_operands(hub_graph, dtype, weighted, seed=12)
+    args = (indptr, indices, e_dst, e_src, bias, 0.2)
+    key = (str(dtype).removeprefix("torch."), 8)
+    before = (esm.softmax_fwd.launches[key], esm.softmax_bwd.launches[key])
+    (alpha, stats), again = esm.softmax_fwd(*args), esm.softmax_fwd(*args)
+    (de, g_pre), (de2, g_pre2) = esm.softmax_bwd(*args, stats, dalpha), esm.softmax_bwd(*args, stats, dalpha)
+    torch.cuda.synchronize()
+    assert (esm.softmax_fwd.launches[key], esm.softmax_bwd.launches[key]) == (before[0] + 4, before[1] + 2)
+    assert torch.equal(alpha, again[0]) and torch.equal(stats, again[1])
+    assert torch.equal(de, de2) and torch.equal(g_pre, g_pre2)
+    assert alpha.dtype == stats.dtype == de.dtype == torch.float32 and g_pre.dtype == dtype
+    twin_alpha, twin_stats = esm.softmax_fwd_plain(*args, row_sums=esm.walk_row_sums)
+    _, twin_g = esm.softmax_bwd_plain(*args, stats, dalpha, row_sums=esm.walk_row_sums)
+    tiny = torch.finfo(torch.float32).tiny
+    for got, want in ((alpha, twin_alpha), (stats, twin_stats)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tiny)
+    ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
+    torch.testing.assert_close(g_pre.float(), twin_g.float(), rtol=ulp, atol=tiny)
+    _assert_within_sum_bound(de[:, None], indptr, indices, g_pre, torch.ones((hub_graph.ncols, 1), device="cuda"))
+    mat, sched = ea.build_attention_graph(hub_graph, str(dtype).removeprefix("torch."), "cuda")
+    de_src = se.spmm_edge_tiles_t(mat, sched, torch.ones((hub_graph.nrows, 1), device="cuda"), w_slots=g_pre)
+    cols, terms = indices.long(), g_pre.double()
+    exact = torch.zeros(hub_graph.ncols, dtype=torch.float64, device="cuda").index_add_(0, cols, terms)
+    mag = torch.zeros_like(exact).index_add_(0, cols, terms.abs())
+    _assert_within_sum_error(de_src[:, 0], exact, mag, torch.bincount(cols, minlength=hub_graph.ncols).double())
+
+
+def test_edge_softmax_on_card_matches_the_composite(hub_graph):
+    """The op on the card (float32 graph, edge-weighted) against the
+    composite it replaces on the card (sddmm -> leaky_relu -> + bias ->
+    slot_softmax) under autograd: alpha and both vectors' gradients within
+    1e-5 of their scale (float32 sums in another order; the bfloat16
+    rounding points are held on the CPU, where the plain version meets the
+    composite, and above, where the walks meet the plain version)."""
+    from mg_gcn_tpu_torch.ops import edge_attention as ea
+    from mg_gcn_tpu_torch.ops.elementwise import leaky_relu
+
+    mat, sched = ea.build_attention_graph(hub_graph, "float32", "cuda")
+    e_dst, e_src, bias, cot = _softmax_operands(hub_graph, torch.float32, True, seed=13)
+
+    def composite(ed, es):
+        s = ea.sddmm(mat, sched, torch.cat([ed, torch.ones_like(ed)], dim=1), torch.cat([torch.ones_like(es), es], 1))
+        return ea.slot_softmax(mat, sched, leaky_relu(s, 0.2) + bias)
+
+    out = []
+    for fn in (composite, lambda ed, es: ea.edge_softmax(mat, sched, ed, es, 0.2, bias)):
+        leaves = [v[:, None].clone().requires_grad_(True) for v in (e_dst, e_src)]
+        alpha = fn(*leaves)
+        out.append([alpha.detach(), *torch.autograd.grad(alpha, leaves, cot)])
+    for want, got in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 # ---------------------------------------------------------------------------

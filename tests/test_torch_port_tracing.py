@@ -210,7 +210,8 @@ def _gat_traced_step(monkeypatch=None, config=None):
     from mg_gcn_tpu_torch.models import gat
     from mg_gcn_tpu_torch.ops import edge_attention, sddmm as sd, spmm_edges as se
 
-    calls = {"sddmm": Counter(), "edge": Counter(), "edge_t": Counter()}
+    calls = {"sddmm": Counter(), "edge": Counter(), "edge_t": Counter(), "softmax": Counter(),
+             "softmax_bwd": Counter()}
     if monkeypatch is not None:
         for mod, name in ((sd, "sddmm"), (se, "edge"), (se, "edge_t")):
             def counted(*args, _real=getattr(mod, name), _name=name):
@@ -218,6 +219,12 @@ def _gat_traced_step(monkeypatch=None, config=None):
                 calls[_name][args[-1].shape[1] if _name != "sddmm" else args[2].shape[1]] += 1
                 return out
             monkeypatch.setattr(mod, name, counted)
+        # the edge softmax's wrappers: two launches forward, one backward, at d_pad 8
+        for name, key, n in (("softmax_fwd", "softmax", 2), ("softmax_bwd", "softmax_bwd", 1)):
+            def fused(*args, _real=getattr(edge_attention, name), _key=key, _n=n):
+                calls[_key][8] += _n
+                return _real(*args)
+            monkeypatch.setattr(edge_attention, name, fused)
     g, x, y = _gat_inputs()
     config = config or gat.GATConfig(sizes=GAT_SIZES, heads=(2, 2, 3), activation="elu", skip=(1,))
     params = gat.init_params(config, 3, device="cpu")
@@ -245,13 +252,16 @@ def test_gat_step_opens_phase_scopes_on_both_passes():
 
 def test_gat_launch_counter_equals_the_kernel_calls(monkeypatch):
     """``attn_launches`` counts each SDDMM, weighted and transposed product
-    the attention ops call, by kernel and d_pad: 12 a head and layer (9 at
-    d_pad 8: the scores, the softmax's row sums, shifts and log row sums and
-    their gradients; 3 at the head's width: the aggregation, its weights'
-    SDDMM and its transposed product)."""
+    and each edge softmax walk the attention ops launch, by kernel and
+    d_pad: 7 a head and layer (4 at d_pad 8: the edge softmax's two forward
+    walks and its backward walk, and the transposed product at d = 1 that
+    sums its gradient's columns; 3 at the head's width: the aggregation,
+    its weights' SDDMM and its transposed product)."""
     _, calls, counted = _gat_traced_step(monkeypatch)
     assert counted == {(k, d): n for k, by_d in calls.items() for d, n in by_d.items()}
-    assert sum(counted.values()) == 12 * (2 + 2 + 3)
+    assert sum(counted.values()) == 7 * (2 + 2 + 3)
+    assert {k: n for k, n in counted.items() if k[0].startswith("softmax")} == {("softmax", 8): 14,
+                                                                               ("softmax_bwd", 8): 7}
     assert {k: n for k, n in counted.items() if k[1] == 16} == {("sddmm", 16): 4, ("edge", 16): 4, ("edge_t", 16): 4}
 
 
