@@ -158,6 +158,18 @@ the result line:
    operand on 5g's binary Âᵀ at d = 128 and 41 against its plain version,
    with the repeat check and walk geometry of phase 13, beside the bound
    and 5g's launches at that width (kernels-line rows);
+5i. the DeeperGCN path — DeeperGCN's ResGEN as its benchmark cell runs it
+   (28 GENConv layers of 128, softmax_sg at t = 0.1, bfloat16 operand) on
+   the main path's graph through ``models.deepergcn.build_deepergcn_graph``
+   and ``train.make_train_step(model="deepergcn")``: 3 Adam steps with
+   finite losses, the last under a profiler; counters zeroed before the
+   steps and read after: exactly 28 ``gather`` bfloat16 launches an epoch
+   at d_pad 256 (the aggregation's forward) and 28 at 128 (its backward),
+   no other kernel, and the profiled epoch's ``softagg_launches`` 28 at
+   ("fwd", 256) and 28 at ("bwd", 128); epoch seconds and peak memory
+   logged; then ``gather`` bfloat16 at d = 256 on its binary Aᵀ against the
+   plain version as 5h, beside the path's launches an epoch (a
+   kernels-line row);
 6. the dist path — BASELINE's canonical ``-P 4 -R 1`` run (BASELINE.md:13)
    on the main path's dataset, sizes (608, 128, 128, 44) (41 classes round
    up to a multiple of P), its 4 partitions all on cuda:0, through
@@ -417,6 +429,9 @@ N_SMALL, DEG_SMALL = 20_000, 64
 WIDTHS = (41, 128)
 DTYPES = ("bfloat16", "float32", "int8")
 EPOCHS = 5
+# the DeeperGCN path: its benchmark cell's model (benchmark/configs/deepergcn-reddit.json)
+# on the main path's graph; the steps of phase 5i, the last one profiled
+DEEPER_HIDDEN, DEEPER_LAYERS, DEEPER_STEPS = 128, 28, 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}  # dense, no sparsity
 KERNELS = {
@@ -2401,6 +2416,64 @@ def cross_engine(where: str, mat, w32, rows: list[dict]) -> None:
                 f" (tolerance used {use:.3f})")
             del b
             torch.cuda.empty_cache()
+
+
+def phase_deepergcn_path(ds) -> list[dict]:
+    """Phase 5i: DeeperGCN's ResGEN on the main path's graph, its launches
+    by width and its counter, then its forward product's kernels-line row
+    (the module docstring's 5i)."""
+    from mg_gcn_tpu_torch import timers
+    from mg_gcn_tpu_torch.models import deepergcn as dg
+    from mg_gcn_tpu_torch.nn import adam
+    from mg_gcn_tpu_torch.ops.softmax_agg import SOFTAGG_LAUNCHES
+    from mg_gcn_tpu_torch.train import make_train_step
+
+    dev = torch.device("cuda")
+    config = dg.DeeperGCNConfig(sizes=(ds.num_features, DEEPER_HIDDEN, ds.num_labels), layers=DEEPER_LAYERS)
+    t0 = time.perf_counter()
+    pair = dg.build_deepergcn_graph(ds.graph, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = torch.from_numpy(ds.features).to(dev)
+    y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+    params = dg.init_params(config, 0, device=dev)
+    opt = adam.adam_init(params)
+    step = make_train_step(config, dict(lr=0.01, weight_decay=0.0), model="deepergcn")
+    torch.cuda.reset_peak_memory_stats()
+    before = timers.counters().get(SOFTAGG_LAUNCHES, {})
+    reset_counts()  # the path's steps start here
+    losses, seconds = [], []
+    for s in range(DEEPER_STEPS):
+        profiled = torch.profiler.profile(activities=timers.profiler_activities()) if s == DEEPER_STEPS - 1 \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with profiled:
+            params, opt, loss, _ = step(params, opt, pair, x, y, None)
+            losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    launches = counts()  # the path's steps end here
+    after = timers.counters().get(SOFTAGG_LAUNCHES, {})
+    counted = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, x, y
+    log(f"  DeeperGCN {DEEPER_LAYERS} x {DEEPER_HIDDEN}: pair build {build_s:.2f} s, losses {losses},"
+        f" step seconds {seconds} (the last profiled), peak memory {peak:.2f} GB")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"DeeperGCN losses {losses}")
+    expect_launches(launches, {("gather", "bfloat16"): 2 * DEEPER_LAYERS * DEEPER_STEPS})
+    by_width = {k: v for k, v in launches["gather"].items() if v}
+    want = {("bfloat16", 256): DEEPER_LAYERS * DEEPER_STEPS, ("bfloat16", DEEPER_HIDDEN): DEEPER_LAYERS * DEEPER_STEPS}
+    if by_width != want:
+        raise AssertionError(f"DeeperGCN gather launches by width {by_width}, want {want}")
+    want_counted = {("fwd", 256): DEEPER_LAYERS, ("bwd", DEEPER_HIDDEN): DEEPER_LAYERS}
+    if counted != want_counted:
+        raise AssertionError(f"{SOFTAGG_LAUNCHES} over the profiled epoch {counted}, want {want_counted}")
+    log(f"  gather launches by width {by_width}; {SOFTAGG_LAUNCHES} over the profiled epoch {counted}")
+    per_epoch = {"gather": {k: v // DEEPER_STEPS for k, v in by_width.items()}}
+    fwd = pair.fwd
+    del pair
+    torch.cuda.empty_cache()
+    return phase_gather_main(fwd, per_epoch, "DeeperGCN path", (("bfloat16", 256),))
 
 
 def phase_gather_main(fwd, launches: dict, where: str, runs) -> list[dict]:
@@ -4712,6 +4785,10 @@ def main() -> int:
     phase("[5h] gather kernel at the main path's shape")
     kernels += phase_gather_main(auto_path.pop("fwd"), auto_path["launches"], "main path",
                                  (("bfloat16", 128), ("bfloat16", 41)))
+    torch.cuda.empty_cache()
+
+    phase(f"[5i] DeeperGCN path: {DEEPER_LAYERS} GENConv layers of {DEEPER_HIDDEN} on the main graph, n = {N_MAIN}")
+    kernels += phase_deepergcn_path(ds)
     torch.cuda.empty_cache()
 
     phase(f"[6] dist path: -P {DIST_PARTS} -R 1 on one card, n = {N_MAIN}")

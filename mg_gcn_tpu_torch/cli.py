@@ -1,7 +1,9 @@
 """Command-line interface, the port of ``mg_gcn_tpu/cli.py`` (reference
-main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE) and
+main.cpp:50-133): ``train`` runs GCN, ``--model sage`` (GraphSAGE),
 ``--model gat [--heads H | H1,H2,...] [--edge-weighted] [--activation elu]
-[--skip L1,...]`` on one card, with ``-P N -R 1``
+[--skip L1,...]`` and ``--model deepergcn [--layers L]`` (DeeperGCN's ResGEN with softmax_sg
+at t = 0.1, one hidden width: ``train <data_dir> 1 128``)
+on one card, with ``-P N -R 1``
 GCN, SAGE and GAT row-partitioned over N partitions driven by this
 process (``parallel/dist.py``, ``parallel/dist_halo.py``,
 ``parallel/dist_gat.py``; each model's layers are ``models/``'s, one block
@@ -80,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["auto", "pattern", "block", "edge", "gather", "xla", "pallas", "halo"],
         help="aggregation engine (halo: -P > 1 only)",
     )
-    p.add_argument("--model", default="gcn", choices=["gcn", "sage", "gat"])
+    p.add_argument("--model", default="gcn", choices=["gcn", "sage", "gat", "deepergcn"])
     p.add_argument("--heads", type=_heads, default=1,
                    help="attention heads per GAT layer, or a comma list of one count a layer (--model gat; concat "
                         "on hidden layers, mean on the output)")
@@ -91,6 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(equal widths; --model gat, one card)")
     p.add_argument("--edge-weighted", action="store_true",
                    help="weight the GAT attention by the graph's positive edge values (--model gat, one card)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="GENConv layers (--model deepergcn; default 28, the ogbn-arxiv model)")
     p.add_argument(
         "--pattern-dtype",
         default="bfloat16",
@@ -202,6 +206,25 @@ def _invalid(opts) -> str | None:
             return "--activation and --skip are GAT options (--model gat)"
         if opts.P > 1:
             return "--activation elu and --skip run on one card (the distributed GAT step has neither); use -P 1"
+    return _invalid_deepergcn(opts)
+
+
+def _invalid_deepergcn(opts) -> str | None:
+    """``--model deepergcn``'s refusals (no JAX counterpart), or None."""
+    if opts.model != "deepergcn":
+        if opts.layers is not None:
+            return "--layers is a DeeperGCN option (--model deepergcn)"
+        return None
+    if opts.P > 1:
+        return ("--model deepergcn runs on one card (its BatchNorm statistics are not summed across "
+                "partitions); use -P 1")
+    if opts.impl not in ("auto", "gather"):
+        return "--model deepergcn runs on the binary CSR walk; use --impl auto or gather"
+    if opts.pattern_dtype == "int8":
+        return ("--model deepergcn rounds its aggregation operand to bfloat16 or float32 (the operand is made "
+                "every step: no int8 path)")
+    if opts.residual:
+        return "--residual is a GCN option (--model gcn; DeeperGCN's res+ blocks are always residual)"
     return None
 
 
@@ -211,6 +234,18 @@ def _gat_config(opts, sizes, **kw):
 
     return gat.GATConfig(sizes=tuple(sizes), heads=opts.heads, edge_weighted=opts.edge_weighted,
                          activation=opts.activation, skip=opts.skip, **kw)
+
+
+def _deepergcn_config(opts, sizes, **kw):
+    """``--model deepergcn``'s configuration from the flags: ``sizes`` is
+    (features, the one hidden width, classes)."""
+    from .models import deepergcn
+
+    if len(sizes) != 3:
+        raise ValueError(f"--model deepergcn takes one hidden width (all its GENConv layers are that wide; "
+                         f"--layers gives the depth), got {len(sizes) - 2}")
+    layers = {} if opts.layers is None else dict(layers=opts.layers)
+    return deepergcn.DeeperGCNConfig(sizes=tuple(sizes), operand=opts.pattern_dtype, **layers, **kw)
 
 
 def cmd_train(opts) -> int:
@@ -230,7 +265,7 @@ def cmd_train(opts) -> int:
 
     from .checkpoint import load_checkpoint, save_checkpoint
     from .formats import Dataset
-    from .models import gat, gcn, sage
+    from .models import deepergcn, gat, gcn, sage
     from .nn import adam
     from .parallel import multihost
     from .timers import TimerRegistry, trace
@@ -272,6 +307,13 @@ def cmd_train(opts) -> int:
             print(f"error: {exc}", file=sys.stderr)
             return 2
         params = gat.init_params(config, opts.seed, device=dev)
+    elif opts.model == "deepergcn":
+        try:
+            config = _deepergcn_config(opts, sizes, loss_mask=loss_mask)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        params = deepergcn.init_params(config, opts.seed, device=dev)
     elif opts.model == "sage":
         config = sage.SAGEConfig(sizes=tuple(sizes), loss_mask=loss_mask)
         params = sage.init_params(config, opts.seed, device=dev)
@@ -358,10 +400,13 @@ def _run_epochs(opts, step, args, params, opt_state, timers, save_view=lambda p,
 
 def _single_pair(opts, graph, dev):
     """The one-card operator of ``--model``: GAT's attention graph, SAGE's
-    row-normalized pair or GCN's aggregation pair."""
-    from .models import gat, sage
+    row-normalized pair, DeeperGCN's binary pair or GCN's aggregation
+    pair."""
+    from .models import deepergcn, gat, sage
     from .train import build_agg_pair
 
+    if opts.model == "deepergcn":
+        return deepergcn.build_deepergcn_graph(graph, device=dev)
     if opts.model == "gat":
         # the attention ops need dynamic weights: int8 trains GAT in bf16 (cli.py:390)
         dtype = "bfloat16" if opts.pattern_dtype == "int8" else opts.pattern_dtype
@@ -644,12 +689,13 @@ def _train_col(opts, ds, config, hparams, params, opt_state, timers, mesh):
 def cmd_infer(opts) -> int:
     """Inference: load a checkpoint, run the forward pass and write the
     predictions (``mg_gcn_tpu/cli.py:841-949``; the reference's
-    gcn::operator(), gcn.hpp:966-969). GCN, SAGE and GAT on one card, GCN
+    gcn::operator(), gcn.hpp:966-969). GCN, SAGE, GAT and DeeperGCN (its
+    BatchNorm over the whole graph, as in training) on one card, GCN
     at ``-P N -R 1`` through ``parallel.dist.make_dist_infer`` on the COO
     ring pair. Writes ``predictions.bin`` (int32, (n, 1)) or ``--save``."""
     from .checkpoint import load_checkpoint
     from .formats import Dataset, write_dense
-    from .models import gat, gcn, sage
+    from .models import deepergcn, gat, gcn, sage
     from .nn import adam
 
     if len(opts.args) < 2:
@@ -682,9 +728,10 @@ def cmd_infer(opts) -> int:
         sizes[-1] = (sizes[-1] + P - 1) // P * P
     if opts.model == "sage":
         model, config = sage, sage.SAGEConfig(sizes=tuple(sizes))
-    elif opts.model == "gat":
+    elif opts.model in ("gat", "deepergcn"):
         try:
-            model, config = gat, _gat_config(opts, sizes)
+            model, config = (gat, _gat_config(opts, sizes)) if opts.model == "gat" else \
+                (deepergcn, _deepergcn_config(opts, sizes))
         except ValueError as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 2

@@ -1,5 +1,5 @@
-"""Single-card training: the aggregation pair, the train step (GCN, SAGE
-and GAT), the multi-epoch step and the GCN epoch loop.
+"""Single-card training: the aggregation pair, the train step (GCN, SAGE,
+GAT and DeeperGCN), the multi-epoch step and the GCN epoch loop.
 
 Port of ``mg_gcn_tpu/train.py:121-432`` (the reference's single-GPU path,
 main.cpp:113-133): per epoch ``forward -> backward -> update -> sync``,
@@ -296,10 +296,12 @@ def make_train_step(
 
     ``model`` selects the family: "gcn" (``pair`` an :class:`AggPair`,
     parity or exact per ``config.parity``), "sage" (``pair`` the
-    ``models.sage.build_sage_pair`` pair, exact autograd) or "gat"
+    ``models.sage.build_sage_pair`` pair, exact autograd), "gat"
     (``pair`` the ``models.gat.build_gat_graph`` pair, exact autograd), as
-    ``mg_gcn_tpu/train.py:283-290`` dispatches. Adam decays every ``W*``
-    leaf (SAGE's ``Wself`` and ``Wneigh``)."""
+    ``mg_gcn_tpu/train.py:283-290`` dispatches, or "deepergcn" (``pair``
+    the ``models.deepergcn.build_deepergcn_graph`` pair, exact autograd;
+    no JAX counterpart). Adam decays every ``W*`` leaf (SAGE's ``Wself``
+    and ``Wneigh``)."""
     if optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if model == "gcn":
@@ -308,6 +310,8 @@ def make_train_step(
         from .models.gat import loss_and_grad as lag
     elif model == "sage":
         from .models.sage import loss_and_grad as lag
+    elif model == "deepergcn":
+        from .models.deepergcn import loss_and_grad as lag
     else:
         raise ValueError(f"unknown model {model!r}")
     hp = dict(adam.DEFAULT_HPARAMS)
@@ -494,8 +498,8 @@ class ScanSteps:
 
 
 def make_scan_train_steps(config, num_epochs: int, hparams: dict | None = None, model: str = "gcn") -> ScanSteps:
-    """``num_epochs`` Adam steps of ``model`` ("gcn", "sage" or "gat", as
-    :func:`make_train_step` dispatches) in one call:
+    """``num_epochs`` Adam steps of ``model`` ("gcn", "sage", "gat" or
+    "deepergcn", as :func:`make_train_step` dispatches) in one call:
     (params, opt_state, pair, x, y, mask) -> (params, opt_state,
     losses[num_epochs], accs[num_epochs]), the losses and accuracies tensors
     on the step's device. Port of ``mg_gcn_tpu/train.py:307-345``

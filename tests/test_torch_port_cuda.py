@@ -633,6 +633,110 @@ def test_edge_softmax_on_card_matches_the_composite(hub_graph):
 
 
 # ---------------------------------------------------------------------------
+# DeeperGCN: the softmax aggregation on the binary walk (d_pad 256 forward,
+# 128 backward, bfloat16 operands)
+
+
+@pytest.fixture(scope="module")
+def softagg_graph():
+    return sparse.random_graph(20_000, 48, seed=6)
+
+
+@pytest.mark.parametrize("d_pad", [128, 256])
+def test_binary_bf16_walk_at_the_softmax_widths(softagg_graph, d_pad):
+    """The binary walk with a bfloat16 operand at DeeperGCN's widths (one
+    warp a row, one 128-feature chunk a pass at 128, two at 256) on a
+    uniform graph, within the float32 sum bound of the float64 plain
+    version; two launches give the same bits."""
+    g = softagg_graph
+    indptr, indices = _csr_on_card(g)
+    b = _operand(g.ncols, d_pad, torch.bfloat16, seed=d_pad).abs()
+    got, again = sg.gather(indptr, indices, None, b), sg.gather(indptr, indices, None, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    exact = se.csr_plain(indptr, indices, None, b, torch.float64)
+    _assert_within_sum_error(got, exact, exact, indptr.diff().to(torch.float64)[:, None])
+    geo = sg.gather_geometry(g.nrows, d_pad, torch.bfloat16, weighted=False)
+    assert (geo["lanes"], geo["groups"]) == (32, 1)
+
+
+def _softagg_both(graph, operand, seed):
+    """(a, dx, the backward of |cot|) of the softmax aggregation at width
+    128 on the CPU (the op's plain twin) and on the card, from the same x
+    and cotangent."""
+    from mg_gcn_tpu_torch.models.deepergcn import build_deepergcn_graph
+    from mg_gcn_tpu_torch.ops.softmax_agg import softmax_aggregate
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((graph.nrows, 128), generator=gen) * 2.0
+    cot = torch.randn((graph.nrows, 128), generator=gen) * 1e-3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pair = build_deepergcn_graph(graph, device=dev)
+        xd = x.to(dev).requires_grad_(True)
+        a = softmax_aggregate(pair.fwd, pair.bwd, xd, 0.1, 1e-7, operand)
+        dx, mag = (torch.autograd.grad(a, xd, c.to(dev), retain_graph=True)[0] for c in (cot, cot.abs()))
+        out[dev] = (a.detach().cpu(), dx.cpu(), mag.cpu())
+    return out["cpu"], out["cuda"]
+
+
+@pytest.mark.parametrize("operand", ["bfloat16", "float32"])
+def test_softmax_aggregate_on_card_matches_the_cpu_twin(softagg_graph, operand):
+    """The op on the card against its plain twin on the CPU at width 128:
+    the same rounding points, float32 sums in another order, and the card's
+    exp against the CPU's (an ulp apart now and then, which may move a
+    bfloat16 rounding). Element by element: in float32 within 1e-5 of each
+    value; in bfloat16 within 2^-6 (each side lies within 2^-7, twice
+    bfloat16's unit roundoff, of the exact softmax of positive terms,
+    forward; of the sum of |terms|, backward),
+    and all but a hundredth of the elements within 1e-5 (a dx element sums
+    about 49 rounded quotients, each moved across a bfloat16 rounding by a
+    float32 difference of den with a chance of a few in 1e5)."""
+    (a, dx, mag), (a_c, dx_c, _) = _softagg_both(softagg_graph, operand, seed=3)
+    assert bool(torch.isfinite(a_c).all()) and bool(torch.isfinite(dx_c).all())
+    da, ddx = (a_c - a).abs(), (dx_c - dx).abs()
+    if operand == "float32":
+        assert bool((da <= 1e-5 * a).all()) and bool((ddx <= 1e-5 * mag + 1e-30).all())
+        return
+    assert bool((da <= 2.0**-6 * a).all()) and bool((ddx <= 2.0**-6 * mag + 1e-30).all())
+    assert float((da > 1e-5 * a).double().mean()) < 1e-2
+    assert float((ddx > 1e-5 * mag + 1e-30).double().mean()) < 1e-2
+
+
+def test_deepergcn_step_on_card_matches_cpu():
+    """A small DeeperGCN (4 GENConv layers of 16, the float32 operand) on
+    the card against the port's CPU step from the same parameters: the
+    loss within rtol 1e-5 and every gradient leaf within 1e-4 of the larger
+    of its norm and the median leaf's (the benchmark's scale: a linear's
+    bias that feeds only BatchNorms has a gradient of nought but for
+    rounding), then the losses of three Adam steps within rtol 1e-5."""
+    from mg_gcn_tpu_torch.models import deepergcn as dg
+    from mg_gcn_tpu_torch.nn import adam
+
+    ds = Dataset.load(GOLDEN)
+    config = dg.DeeperGCNConfig(sizes=(ds.num_features, 16, ds.num_labels), layers=4, operand="float32")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pair = dg.build_deepergcn_graph(ds.graph, device=dev)
+        params = dg.init_params(config, 5, device=dev)
+        x = torch.from_numpy(ds.features).to(dev)
+        y = torch.from_numpy(ds.labels.reshape(-1).astype(np.int64)).to(dev)
+        loss, _, grads = dg.loss_and_grad(params, pair, x, y, config)
+        step, opt, losses = make_train_step(config, dict(weight_decay=0.0), model="deepergcn"), adam.adam_init(params), []
+        for _ in range(3):
+            params, opt, step_loss, _ = step(params, opt, pair, x, y, None)
+            losses.append(float(step_loss))
+        out[dev] = float(loss), {f"{i}.{k}": g.cpu() for i, layer in enumerate(grads) for k, g in layer.items()}, losses
+    (lc, gc, sc), (lg, gg, sg_) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    norms = {k: float(torch.linalg.vector_norm(g)) for k, g in gc.items()}
+    scale = float(np.median(list(norms.values())))
+    for k in gc:
+        assert float(torch.linalg.vector_norm(gg[k] - gc[k])) <= 1e-4 * max(norms[k], scale), k
+    np.testing.assert_allclose(sg_, sc, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # the block-sparse pattern pair and the tiled-ELL kernel
 
 
@@ -1816,7 +1920,8 @@ def test_column_step_on_card_matches_cpu():
 def _scan_case(case: str, seed: int = 4, device: str = "cuda"):
     """(config, model, pair, x, y, params) of a small step: GCN on the
     pattern pair (bf16, int8; float32 in the exact mode) and on ``tiled``,
-    SAGE on the pattern pair (bf16), GAT (bf16, 2 heads)."""
+    SAGE on the pattern pair (bf16), GAT (bf16, 2 heads), DeeperGCN (bf16,
+    4 layers of 32)."""
     from mg_gcn_tpu_torch.models import gat, gcn, sage
 
     n, classes = 3000, 7
@@ -1832,6 +1937,12 @@ def _scan_case(case: str, seed: int = 4, device: str = "cuda"):
         config = gat.GATConfig(sizes=(24, 16, classes), heads=2)
         return config, "gat", gat.build_gat_graph(g, dtype="bfloat16", device=device), x, y, \
             gat.init_params(config, None, device=device)
+    if case == "deepergcn":
+        from mg_gcn_tpu_torch.models import deepergcn
+
+        config = deepergcn.DeeperGCNConfig(sizes=(24, 32, classes), layers=4)
+        return config, "deepergcn", deepergcn.build_deepergcn_graph(g, device=device), x, y, \
+            deepergcn.init_params(config, 2, device=device)
     impl, dtype = {"gcn-bf16": ("pattern", "bfloat16"), "gcn-int8": ("pattern", "int8"),
                    "gcn-f32-exact": ("pattern", "float32"), "gcn-tiled": ("pallas", "float32")}[case]
     config = gcn.GCNConfig(sizes=(24, 48, 48, classes), parity=case != "gcn-f32-exact")
@@ -1917,7 +2028,7 @@ def _assert_runs_equal(got, want, exact: bool = True):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("case", ["gcn-bf16", "gcn-int8", "gcn-f32-exact", "gcn-tiled", "sage", "gat"])
+@pytest.mark.parametrize("case", ["gcn-bf16", "gcn-int8", "gcn-f32-exact", "gcn-tiled", "sage", "gat", "deepergcn"])
 def test_scan_replay_equals_eager(case, capsys):
     """Three replayed epochs equal three eager steps from the same
     parameters bit for bit (GAT: where two eager runs agree), twice in a

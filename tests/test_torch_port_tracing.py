@@ -289,3 +289,50 @@ def test_dist_gat_step_opens_the_one_card_phase_scopes():
     assert {e["name"] for e in _spans(events, xplane._looks_like_phase)} == want
     (outer,) = _spans(events, lambda name: name == STEP)
     assert all(_inside(e, outer) for e in _spans(events, xplane._looks_like_phase) if e["tid"] == outer["tid"])
+
+
+# ---------------------------------------------------------------------------
+# DeeperGCN: phase scopes on both passes, and the softmax aggregation's counter
+
+
+def _deepergcn_traced_step(layers: int = 4):
+    """(events, counter delta) of one traced DeeperGCN step, ``layers``
+    GENConv layers of 16, on a small graph."""
+    from mg_gcn_tpu_torch.models import deepergcn as dg
+    from mg_gcn_tpu_torch.ops.softmax_agg import SOFTAGG_LAUNCHES
+
+    g, x, y = _gat_inputs()
+    config = dg.DeeperGCNConfig(sizes=(F, 16, C), layers=layers)
+    params = dg.init_params(config, 3, device="cpu")
+    step = ttrain.make_train_step(config, model="deepergcn")
+    before = dict(timers.counters().get(SOFTAGG_LAUNCHES, {}))
+    with torch.profiler.profile(activities=timers.profiler_activities()) as prof:
+        step(params, adam.adam_init(params), dg.build_deepergcn_graph(g, device="cpu"), x, y, None)
+    after = timers.counters()[SOFTAGG_LAUNCHES]
+    return xplane.trace_events(prof), {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def test_deepergcn_step_opens_phase_scopes_on_both_passes():
+    """Each GENConv's forward and backward ``matmul-spmm`` scopes (the
+    backward opened by the aggregation op), each BatchNorm's forward and
+    backward ``activation`` scopes (the backward opened by the BatchNorm
+    op), the linears' ``matmul-gemm`` and the ``residual`` scopes forward,
+    the loss layer and Adam; all inside the step's span on that thread."""
+    layers = 4
+    events, _ = _deepergcn_traced_step(layers)
+    names = {e["name"] for e in _spans(events, xplane._looks_like_phase)}
+    convs, norms = range(1, layers + 1), range(2, layers + 2)
+    want = {f"{k}_{p}_matmul-spmm" for k in convs for p in (0, 1)} | {f"{k}_0_residual" for k in convs}
+    want |= {f"{k}_{p}_activation" for k in norms for p in (0, 1)}
+    want |= {f"{k}_0_matmul-gemm" for k in range(layers + 2)} | {f"{layers + 2}_loss-layer", "adam-update"}
+    assert names == want
+    (outer,) = _spans(events, lambda name: name == STEP)
+    assert all(_inside(e, outer) for e in _spans(events, xplane._looks_like_phase) if e["tid"] == outer["tid"])
+
+
+def test_deepergcn_counts_two_products_a_layer():
+    """``softagg_launches`` counts each product the softmax aggregation
+    issues: one forward at d_pad 2·16 ([w ⊙ m ‖ w]) and one backward at 16
+    a layer."""
+    _, counted = _deepergcn_traced_step(layers=4)
+    assert counted == {("fwd", 32): 4, ("bwd", 16): 4}
